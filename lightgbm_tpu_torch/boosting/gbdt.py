@@ -2,8 +2,8 @@
 
 Port of the plain-GBDT path of lightgbm_tpu/boosting/gbdt.py
 (train_one_iter: gradients, tree growth, score update from the exit
-route's per-row leaf values, validation scores through the binned tree
-walk).  Bagging, DART, GOSS, RF, custom objectives and chunked dispatch
+route's per-row leaf values or, on the plans without one, from each
+row's leaf, validation scores through the binned tree walk).  Bagging, DART, GOSS, RF, custom objectives and chunked dispatch
 are not ported yet.
 """
 from __future__ import annotations
@@ -18,6 +18,7 @@ from ..dataset import Dataset
 from ..learner.grower import TreeGrower
 from ..metrics import Metric, create_metrics
 from ..objectives import create_objective
+from ..ops.histogram import leaf_value_broadcast
 from ..ops.predict import predict_binned
 from ..tree import Tree
 from ..utils.device import resolve_device
@@ -113,7 +114,7 @@ class GBDT:
         counts = self._full_counts
         keep = counts > 0
         g, h = g * keep, h * keep
-        tree, _leaf_id, row_val = self.grower.train_tree(
+        tree, leaf_id, row_val = self.grower.train_tree(
             g, h, counts, self._feature_mask())
         if tree["num_leaves"] <= 1:
             # a no-split tree contributes nothing; the reference stops
@@ -124,6 +125,10 @@ class GBDT:
             return True
         shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
                               device=self.device)
+        if row_val is None:
+            # plans without a fused exit route: look each row's leaf
+            # value up (lightgbm_tpu/boosting/gbdt.py:517-523)
+            row_val = leaf_value_broadcast(leaf_id, tree["leaf_value"])
         self.scores = self.scores + row_val * shrink
         g_ = self.grower
         for vs in self.valid_sets:

@@ -20,9 +20,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
           valid_sets: Optional[Sequence[Dataset]] = None,
           valid_names: Optional[Sequence[str]] = None,
           evals_result: Optional[dict] = None,
-          verbose_eval: Union[bool, int] = True) -> Booster:
+          verbose_eval: Union[bool, int] = True,
+          keep_training_booster: bool = False) -> Booster:
     """Train a gradient-boosted model.  ``params["device"]`` is "cuda"
-    by default (raises without a CUDA device) or "cpu" when asked."""
+    by default (raises without a CUDA device) or "cpu" when asked.
+    With ``keep_training_booster`` the returned booster keeps its
+    training state (``booster.gbdt``), else it is released."""
     params = dict(params or {})
     has_num_iter = "num_iterations" in params or any(
         PARAM_ALIASES.get(str(k).lower()) == "num_iterations"
@@ -70,4 +73,4 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 and (iteration + 1) % eval_freq == 0:
             msg = "\t".join(f"{d}'s {m}: {v:g}" for d, m, v, _ in results)
             Log.info(f"[{iteration + 1}]\t{msg}")
-    return booster.free_dataset()
+    return booster if keep_training_booster else booster.free_dataset()

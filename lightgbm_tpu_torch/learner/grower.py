@@ -1,52 +1,77 @@
 """Leaf-wise tree growth: the serial tree learner on one device.
 
-Port of lightgbm_tpu/learner/grower.py for its ``fused_tiled`` plan
-(quantized int8 gradients, fused route + histogram kernel, histogram
-subtraction through a per-leaf cache).  The JAX grower runs a tree as
-one ``lax.while_loop`` over frontier rounds; here the loop is driven
-from the host, one round at a time, and each round
+Port of lightgbm_tpu/learner/grower.py for the serial learner's
+single-device kernel plans.  :func:`resolve_plan` picks the plan the
+JAX grower picks for the same config and data (grower.py:318-543, with
+CUDA in the role of the TPU check); four of them run here:
 
-  1. refreshes the leaves created last round: kernel A
-     (ops/histogram.py compute_group_histograms_fused_tiled) applies the
-     pending route table to every row's leaf id and builds the
-     histograms of the new right children in the same pass; each left
-     child is parent minus right (the reference's subtraction trick,
+  fused_tiled     quantized int8 gradients: kernel A routes last
+                  round's splits and histograms the new leaves in one
+                  pass from the transposed bins; kernel B routes the
+                  last splits at exit and returns each row's leaf value
+  fused_streamed  kernel D does the same from the streamed bin one-hot
+                  (f32 or int8 weights); kernel B again at exit
+  pre_onehot      kernel E histograms the streamed one-hot (its
+                  pre_packed entry up to 126 slots, pre beyond); the
+                  splits are applied every round (apply_splits)
+  pallas          kernel F histograms the row-major bins with f32
+                  weights; splits applied every round
+
+The others (q_tiled and its split-route variant, seg_tiled, q_onthefly,
+pallas_paired, the quantized pallas body, xla) raise and name the plan.
+
+The JAX grower runs a tree as one ``lax.while_loop`` over frontier
+rounds; here the loop is driven from the host, one round at a time, and
+each round
+
+  1. refreshes the leaves created last round: the round's histogram
+     kernel builds the histograms of the new right children (routing
+     the pending splits first on the fused plans); each left child is
+     parent minus right (the reference's subtraction trick,
      serial_tree_learner.cpp:505-507); the split finder runs on those
      new leaves only and caches their best candidates;
   2. splits every leaf whose cached candidate clears the gain bar,
      gain-ordered within the remaining leaf budget and the frontier
      width (the JAX grower's documented batched best-first order);
   3. builds the route table of the selected splits — applied lazily by
-     the next round's kernel A, or by kernel B (route_apply_tiled) when
-     the loop ends, which also returns each row's leaf value for the
-     score update.
+     the next round's fused kernel (or at exit), or at once by
+     apply_splits on the other plans.
 
 Because the loop runs on the host, the round knows how many leaves are
 new (one small device-to-host read per round) and runs the finder on
 exactly those, where the JAX grower pads to its strip ladder; the
-results are the same, row by row.  Other learner plans (float32
-histograms, no subtraction cache, distributed learners, forced splits,
-categorical features) are not ported yet and raise.
+results are the same, row by row.  Training without the histogram
+cache, distributed learners, forced splits and categorical features are
+not ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..dataset import Dataset
-from ..ops.histogram import (compute_group_histograms_fused_tiled,
+from ..ops.histogram import (PACKED_STRIP, QUANT_ROW_LIMIT, QUANT_WEIGHT_MAX,
+                             bins_hist, compute_group_histograms_fused,
+                             compute_group_histograms_fused_tiled,
+                             compute_group_histograms_pre,
+                             compute_group_histograms_pre_packed,
                              compute_root_totals, expand_feature_histograms,
-                             quant_rows_ok, quantize_gradients,
-                             route_apply_tiled)
-from ..ops.partition import ROUTE_FIXED_COLS, build_route_table
+                             onehot_width, precompute_bin_onehot,
+                             precompute_bin_onehot_packed,
+                             quantize_gradients, route_apply_tiled)
+from ..ops.partition import (ROUTE_FIXED_COLS, apply_splits,
+                             build_route_table)
 from ..ops.split import (CAND_COLS, CAND_DEFAULT_LEFT, CAND_FEATURE,
                          CAND_GAIN, CAND_LOUT, CAND_LSC, CAND_LSG, CAND_LSH,
                          CAND_ROUT, CAND_THRESHOLD, find_best_split_block)
+from ..utils.log import Log
 
-PACKED_STRIP = 42  # the JAX kernels' lane strip; 3 strips cap the frontier
+#: the plans this grower runs
+PORTED_PLANS = ("fused_tiled", "fused_streamed", "pre_onehot", "pallas")
 
 
 def _pick_chunk(n: int, num_groups: int, max_group_bin: int,
@@ -62,8 +87,138 @@ def _pick_chunk(n: int, num_groups: int, max_group_bin: int,
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: lightgbm_tpu_torch runs the serial "
-        "learner's fused_tiled plan (quantized_grad=true, "
-        "hist_compute_dtype=bfloat16, numerical features)")
+        "learner's fused_tiled, fused_streamed, pre_onehot and pallas "
+        "plans (hist_compute_dtype=bfloat16, numerical features)")
+
+
+@dataclass(frozen=True)
+class KernelPlan:
+    """The grower's resolved histogram plan (the JAX grower's flags)."""
+
+    name: str                 # the JAX telemetry name (grower.py:592-605)
+    quant: bool               # int8 quantized weights (use_quant)
+    ohb_pack: int             # one-hot columns per stored byte
+    fused: bool               # route inside the histogram pass (use_fused)
+    tiled: bool               # use_tiled
+    pre_ohb: bool             # streamed one-hot, no routing (use_pre_ohb)
+
+
+def resolve_plan(config: Config, *, n_padded: int, num_groups: int,
+                 max_group_bin: int, frontier: int, pack_P: int = 0,
+                 quant_row_limit: int = QUANT_ROW_LIMIT) -> KernelPlan:
+    """The histogram plan the JAX grower resolves for this config and
+    data (lightgbm_tpu/learner/grower.py:318-543), warnings included.
+    Its Pallas gate asks for a single TPU device; here the port's
+    kernels run wherever the grower runs (CUDA, or their plain versions
+    on the CPU) and TreeGrower refuses distributed learners first, so
+    the gate is 1024-row padding.  Raises ValueError where the JAX
+    grower does (hist_precision=tiered past the int32 row bound)."""
+    hk = getattr(config, "hist_kernel", "auto")
+    if hk not in ("auto", "pallas", "paired", "xla"):
+        Log.warning(f"unknown hist_kernel={hk!r}; using 'auto'")
+        hk = "auto"
+    pallas_ok = n_padded % 1024 == 0
+    if hk in ("pallas", "paired") and not pallas_ok:
+        Log.warning(f"hist_kernel={hk} unavailable here (needs 1024-row "
+                    "padding); falling back to the XLA histogram path")
+    use_pallas = pallas_ok and (
+        hk in ("pallas", "paired")
+        or (hk == "auto" and config.hist_compute_dtype == "bfloat16"))
+    paired = use_pallas and hk == "paired"
+    rows_ok = int(n_padded) <= quant_row_limit
+    precision = str(getattr(config, "hist_precision", "auto")).lower()
+    if precision == "tiered" and not rows_ok:
+        raise ValueError(
+            f"hist_precision=tiered: {int(n_padded)} rows can overflow the "
+            f"int32 histogram accumulator (requires rows * "
+            f"{QUANT_WEIGHT_MAX} < 2^31, i.e. <= {quant_row_limit} rows); "
+            "use hist_precision=f32 or shard the rows")
+    want_quant = bool(getattr(config, "quantized_grad", False)
+                      or precision == "tiered")
+    if precision == "f32":
+        if want_quant:
+            Log.warning("hist_precision=f32: quantized_grad ignored "
+                        "— histograms accumulate float32")
+        want_quant = False
+    use_quant = use_pallas and not paired and want_quant and rows_ok
+    if want_quant and use_pallas and not use_quant and not paired:
+        Log.warning("quantized_grad disabled: dataset exceeds the int32 "
+                    "histogram accumulator bound (~16.9M rows)")
+    if precision == "tiered" and not use_quant:
+        Log.warning("hist_precision=tiered unavailable here (the "
+                    "quantized accumulation tier needs a kernel-capable "
+                    "single-device setup); accumulating float32 for this "
+                    "run")
+    use_quant_otf = use_quant and getattr(
+        config, "hist_quant_onthefly", True) and not pack_P
+    gbtot = num_groups * max_group_bin
+    budget = int(getattr(config, "hist_onehot_budget_mb", 4096)) << 20
+
+    def ohb_bytes(p):
+        return n_padded * onehot_width(num_groups, max_group_bin, p)
+
+    pk_cfg = int(getattr(config, "hist_onehot_pack", 0) or 0)
+    if pk_cfg in (1, 2, 4) and gbtot % pk_cfg == 0:
+        pack = pk_cfg
+    else:
+        if pk_cfg:
+            Log.warning(f"hist_onehot_pack={pk_cfg} invalid for "
+                        f"G*B={gbtot}; auto-selecting")
+        # the pack with the fewest resident bytes; ties to the smaller
+        pack = min((p for p in (1, 2, 4) if gbtot % p == 0),
+                   key=lambda p: (ohb_bytes(p), p))
+    use_tiled = (use_quant and frontier <= 3 * PACKED_STRIP
+                 and getattr(config, "hist_kernel_tiled", True))
+    use_fused = (use_pallas and not paired
+                 and frontier <= 3 * PACKED_STRIP
+                 and (use_tiled or ohb_bytes(pack) <= budget)
+                 and getattr(config, "hist_fused_route", True))
+    split_route = (use_tiled and use_fused
+                   and getattr(config, "hist_split_route", False))
+    if getattr(config, "hist_split_route", False) and not split_route:
+        Log.warning("hist_split_route ignored: it needs the tiled fused "
+                    "path (quantized_grad on a single device, frontier "
+                    "within the packed ladder)")
+    lp = str(getattr(config, "hist_leaf_partition", "auto")).lower()
+    want_lp = lp in ("on", "true", "1")
+    leaf_part = want_lp and use_tiled and use_fused
+    if want_lp and not leaf_part:
+        Log.warning("hist_leaf_partition=on ignored: it needs the tiled "
+                    "fused path (quantized_grad on a single device, "
+                    "frontier within the packed ladder)")
+    use_quant_otf = use_quant_otf and not use_fused and not use_tiled
+    use_pre_ohb = (use_pallas and not paired and not use_quant_otf
+                   and not use_tiled and ohb_bytes(pack) <= budget)
+    if use_pallas and not use_tiled and ohb_bytes(pack) > budget:
+        Log.warning(f"resident one-hot ({ohb_bytes(pack) >> 20} MB at "
+                    f"pack={pack}) exceeds hist_onehot_budget_mb="
+                    f"{budget >> 20}; using the slower on-the-fly rebuild")
+    if pack_P and use_pallas and not (use_tiled or use_fused
+                                      or use_pre_ohb):
+        # the remaining kernel formulations read byte-wide group columns;
+        # the JAX grower sends nibble-packed datasets to its XLA form
+        Log.warning("bin_packing: the selected histogram kernel has no "
+                    "nibble-packed input path; using the XLA histogram "
+                    "formulation for this packed dataset")
+        use_pallas = paired = use_quant = use_quant_otf = False
+    if leaf_part:
+        name = "seg_tiled(leaf_partition)"
+    elif use_tiled:
+        name = ("q_tiled(split_route)" if split_route else "fused_tiled") \
+            if use_fused else "q_tiled"
+    elif use_fused:
+        name = "fused_streamed"
+    elif use_quant_otf:
+        name = "q_onthefly"
+    elif use_pre_ohb:
+        name = "pre_onehot"
+    elif use_pallas:
+        name = "pallas_paired" if paired else (
+            "pallas(quantized)" if use_quant else "pallas")
+    else:
+        name = "xla"
+    return KernelPlan(name=name, quant=use_quant, ohb_pack=pack,
+                      fused=use_fused, tiled=use_tiled, pre_ohb=use_pre_ohb)
 
 
 class TreeGrower:
@@ -76,16 +231,10 @@ class TreeGrower:
         if config.tree_learner != "serial" or config.num_machines > 1 \
                 or config.mesh_shape:
             raise _not_ported(f"tree_learner={config.tree_learner}")
-        if not config.quantized_grad \
-                or config.hist_compute_dtype != "bfloat16" \
-                or str(config.hist_precision).lower() == "f32":
-            raise _not_ported("the float32 histogram plan")
         if config.forcedsplits_filename:
             raise _not_ported("forced splits")
         self.num_leaves = L = config.num_leaves
         self.frontier = min(L - 1, config.frontier_width or 126)
-        if self.frontier > 3 * PACKED_STRIP:
-            raise _not_ported(f"frontier_width={self.frontier} (> 126)")
         pool = float(getattr(config, "histogram_pool_size", -1.0))
         cache_mb = (L * dataset.num_groups * dataset.max_group_bin * 12
                     ) / (1 << 20)
@@ -98,6 +247,20 @@ class TreeGrower:
         meta = dataset.feature_meta_arrays()
         if meta["is_categorical"].any():
             raise _not_ported("categorical split finding")
+
+        n = dataset.num_data
+        self.num_data = n
+        chunk = _pick_chunk(n, self.num_groups, self.max_group_bin,
+                            4 if config.hist_compute_dtype == "float32"
+                            else 2)
+        self.n_padded = -(-n // chunk) * chunk
+        lay = getattr(dataset, "bin_layout", None)
+        self.plan = resolve_plan(
+            config, n_padded=self.n_padded, num_groups=self.num_groups,
+            max_group_bin=self.max_group_bin, frontier=self.frontier,
+            pack_P=lay.device_spec if lay is not None else 0)
+        if self.plan.name not in PORTED_PLANS:
+            raise _not_ported(f"the {self.plan.name} histogram plan")
 
         def dev(a, dtype=None):
             t = torch.as_tensor(np.asarray(a))
@@ -126,14 +289,9 @@ class TreeGrower:
             min_gain_to_split=config.min_gain_to_split)
         self.max_depth = config.max_depth
         self.max_rounds = L - 1
+        self.packed_dispatch = bool(getattr(config, "hist_packed_dispatch",
+                                            True))
 
-        n = dataset.num_data
-        self.num_data = n
-        chunk = _pick_chunk(n, self.num_groups, self.max_group_bin, 2)
-        self.n_padded = -(-n // chunk) * chunk
-        if not quant_rows_ok(self.n_padded):
-            raise _not_ported(f"{self.n_padded} rows (int32 histogram "
-                              "accumulator bound, ~16.9M)")
         # the kernels read the LOGICAL (N, G) byte matrix: a nibble-
         # packed storage layout is unpacked once on the host
         bins = dataset.logical_group_bins()
@@ -141,8 +299,20 @@ class TreeGrower:
         if pad:
             bins = np.concatenate(
                 [bins, np.zeros((pad, bins.shape[1]), np.uint8)])
-        self.binsT = torch.from_numpy(np.ascontiguousarray(bins.T)).to(
-            device)
+        bins_d = torch.from_numpy(np.ascontiguousarray(bins)).to(device)
+        # transposed for the fused kernels' routing; row-major for the
+        # bin-reading kernel and apply_splits
+        self.binsT = bins_d.t().contiguous() if self.plan.fused else None
+        self.bins = None if self.plan.fused else bins_d
+        # the streamed one-hot, built once per dataset on the device
+        self.ohb = None
+        if self.plan.name in ("fused_streamed", "pre_onehot"):
+            self.ohb = (precompute_bin_onehot(
+                bins_d, max_group_bin=self.max_group_bin)
+                if self.plan.ohb_pack == 1 else precompute_bin_onehot_packed(
+                    bins_d, max_group_bin=self.max_group_bin,
+                    pack=self.plan.ohb_pack))
+        del bins_d
         valid = np.zeros(self.n_padded, bool)
         valid[:n] = True
         self.row_valid = torch.from_numpy(valid).to(device)
@@ -213,13 +383,14 @@ class TreeGrower:
     def train_tree(self, grad: torch.Tensor, hess: torch.Tensor,
                    counts: torch.Tensor, feature_mask: torch.Tensor
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
-                              torch.Tensor]:
+                              Optional[torch.Tensor]]:
         """Grow one tree.  grad/hess/counts are (n_padded,) f32 with
         zeros on padded rows.  Returns (tree arrays — bin-space, with
         ``num_leaves`` as a python int —, final leaf ids, each row's
-        post-route leaf value)."""
+        post-route leaf value on the fused plans, else None)."""
         L = self.num_leaves
         d = self.device
+        plan = self.plan
         leaf_id = torch.where(self.row_valid, 0, -1).to(torch.int32)
         totals = compute_root_totals(grad, hess, counts, self.row_valid)
         st = dict(
@@ -240,18 +411,23 @@ class TreeGrower:
         hist_cache = torch.zeros((L, self.num_groups, self.max_group_bin, 3),
                                  device=d)
         route_tab = torch.zeros((L, self.route_cols), device=d)
-        # gradients are fixed for the whole tree: quantize once
-        wq, scales = quantize_gradients(grad, hess, counts)
-        wT = wq.t().contiguous()
+        # gradients are fixed for the whole tree: quantize (or stack)
+        # the weights once, in the layout the plan's kernel reads
+        scales = None
+        if plan.quant:
+            w, scales = quantize_gradients(grad, hess, counts)  # (N, 3)
+        else:
+            w = torch.stack([grad, hess, counts], dim=1)
+        if plan.fused:
+            w = w.t().contiguous()                               # (3, N)
 
         num_leaves = 1
         parents = torch.empty(0, dtype=torch.int32, device=d)
         rights = torch.zeros(1, dtype=torch.int32, device=d)  # the root
         for round_idx in range(self.max_rounds):
             # ---- refresh the leaves created last round
-            right_hist, leaf_id = compute_group_histograms_fused_tiled(
-                self.binsT, wT, scales, leaf_id, route_tab, rights,
-                max_group_bin=self.max_group_bin)
+            right_hist, leaf_id = self._histogram(
+                w, scales, leaf_id, route_tab, rights)
             left_hist = hist_cache[parents.long()] - right_hist[
                 :parents.shape[0]]
             slots = torch.cat([parents, rights]).long()
@@ -276,20 +452,59 @@ class TreeGrower:
                                               dtype=torch.int32, device=d)
             do_split = cand_m & (rank < L - num_leaves)
             k = int(do_split.sum())
-            route_tab = self._apply_selection(st, tree, cand, do_split, rank,
-                                              num_leaves)
+            route_args = self._apply_selection(st, tree, cand, do_split,
+                                               rank, num_leaves)
+            if plan.fused:
+                # routed by the next round's kernel (or at exit)
+                route_tab = build_route_table(*route_args)
+            elif k:
+                leaf_id = apply_splits(self.bins, leaf_id, *route_args)
             parents = top_i[:k]
             rights = num_leaves + torch.arange(k, dtype=torch.int32,
                                                device=d)
             num_leaves += k
             if k == 0 or num_leaves >= L:
                 break
+        tree["num_leaves"] = num_leaves
+        if not plan.fused:
+            return tree, leaf_id, None
         # the last round's splits were never routed: apply them and take
-        # each row's post-route leaf value for the score update
+        # each row's post-route leaf value for the score update (kernel
+        # B on both fused plans; the JAX package's fused_streamed plan
+        # runs the same function through XLA's apply_route_table)
         leaf_id, row_val = route_apply_tiled(self.binsT, leaf_id, route_tab,
                                              tree["leaf_value"])
-        tree["num_leaves"] = num_leaves
         return tree, leaf_id, row_val
+
+    def _histogram(self, w, scales, leaf_id, route_tab, slots):
+        """The plan's histogram pass over ``slots`` with the tree's
+        weights ``w`` (in the layout the plan's kernel reads): returns
+        ((W, G, B, 3) f32 histograms, leaf ids after the pass)."""
+        plan = self.plan
+        B, G = self.max_group_bin, self.num_groups
+        if plan.name == "fused_tiled":
+            return compute_group_histograms_fused_tiled(
+                self.binsT, w, scales, leaf_id, route_tab, slots,
+                max_group_bin=B)
+        if plan.name == "fused_streamed":
+            return compute_group_histograms_fused(
+                self.ohb, self.binsT, w, scales, leaf_id, route_tab, slots,
+                max_group_bin=B, quant=plan.quant, pack=plan.ohb_pack,
+                num_groups=G)
+        if plan.name == "pallas":
+            return bins_hist(self.bins, w, leaf_id, slots, B), leaf_id
+        # pre_onehot: the JAX strip ladder (_packed_dispatch) takes the
+        # channel-packed kernel whenever the new leaves fit its strips
+        k = slots.shape[0]
+        if self.packed_dispatch and (k <= 2 * PACKED_STRIP
+                                     or self.frontier <= 3 * PACKED_STRIP):
+            return compute_group_histograms_pre_packed(
+                self.ohb, w, scales, leaf_id, slots, max_group_bin=B,
+                quant=plan.quant, pack=plan.ohb_pack, num_groups=G), leaf_id
+        return compute_group_histograms_pre(
+            self.ohb, w, scales, leaf_id, num_leaves=self.num_leaves,
+            max_group_bin=B, quant=plan.quant, slots=slots,
+            pack=plan.ohb_pack, num_groups=G), leaf_id
 
     # ------------------------------------------------------------------
     def _find_splits(self, st, slots, h_w, feature_mask) -> torch.Tensor:
@@ -312,8 +527,8 @@ class TreeGrower:
         """Apply the selected splits in place: new internal nodes, child
         leaf state, monotone bounds (the reference's
         SerialTreeLearner::Split, serial_tree_learner.cpp:700-774).
-        Returns the route table of these splits (the rows are routed by
-        the next kernel pass)."""
+        Returns the route arguments of these splits (build_route_table /
+        apply_splits order)."""
         L = self.num_leaves
         d = self.device
         best_gain = cand[:, CAND_GAIN]
@@ -388,9 +603,8 @@ class TreeGrower:
         upd(st["leaf_is_left"], torch.ones(L, dtype=torch.bool, device=d),
             torch.zeros(L, dtype=torch.bool, device=d))
 
-        return build_route_table(
-            do_split, self.f_group[best_f], self.f_gb_lo[best_f],
-            self.f_gb_hi[best_f], self.f_gb_shift[best_f],
-            self.f_gb_oor[best_f], f_is_cat, thr, dleft,
-            self.f_missing[best_f], self.f_default_bin[best_f],
-            self.f_num_bin[best_f], cat_mask, right_slot)
+        return (do_split, self.f_group[best_f], self.f_gb_lo[best_f],
+                self.f_gb_hi[best_f], self.f_gb_shift[best_f],
+                self.f_gb_oor[best_f], f_is_cat, thr, dleft,
+                self.f_missing[best_f], self.f_default_bin[best_f],
+                self.f_num_bin[best_f], cat_mask, right_slot)

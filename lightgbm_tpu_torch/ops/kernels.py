@@ -7,11 +7,14 @@ the package, named by a hash of the source and flags, so a changed
 source rebuilds and an unchanged one loads at once.  Nothing is built
 or loaded at import: the first wrapper call on a CUDA tensor (or an
 explicit :func:`build_kernels`) does it, and every source is compiled
-in parallel.
+in parallel.  Several kernel names may share one source (and one C
+entry point): the histogram kernels of the streamed one-hot serve three
+entry points, each counted under its own name.
 
-``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that
-its path went through the kernels (``reset_launches`` zeroes them).
+``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds
+one where it launches its kernel and nowhere else, so a run can show
+that its path went through the kernels (``reset_launches`` zeroes
+them).
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 
+_ONEHOT_ARGS = [_P, _I64, _I, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P,
+                _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 # kernel name -> (source file, C entry point, argtypes)
 KERNELS: Dict[str, tuple] = {
     "fused_route_hist": (
@@ -46,13 +51,21 @@ KERNELS: Dict[str, tuple] = {
         "predict_level.cu", "ltt_predict_level",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
          _I64, _I, _I, _I, _I, _I, _I, _P]),
+    # kernel D (routing on) and kernel E's two entry points (routing
+    # off) share one source and one C entry point
+    "fused_onehot_hist": ("onehot_hist.cu", "ltt_onehot_hist",
+                          _ONEHOT_ARGS),
+    "hist_pre_packed": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
+    "hist_pre": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
+    "bins_hist": ("bins_hist.cu", "ltt_bins_hist",
+                  [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-# ptxas resource report (registers, shared memory, spills) per kernel
+# ptxas resource report (registers, shared memory, spills) per source
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -72,63 +85,65 @@ def _nvcc() -> str:
                        "CUDA toolkit (PATH or CUDA_HOME)")
 
 
-def _lib_path(name: str) -> str:
-    src = KERNELS[name][0]
+def _lib_path(src: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for f in sorted(os.listdir(CSRC)):
         if f.endswith((".cu", ".cuh")) and (f == src or f.endswith(".cuh")):
             with open(os.path.join(CSRC, f), "rb") as fh:
                 h.update(f.encode() + fh.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
+    stem = os.path.splitext(src)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:12]}.so")
 
 
 def build_kernels(names: Optional[list] = None) -> Dict[str, str]:
     """Compile every missing kernel library, one ``nvcc`` per source,
-    all started together.  Returns {name: library path}; raises with
-    the compiler's output when a build fails."""
+    all started together.  Returns {kernel name: library path}; raises
+    with the compiler's output when a build fails."""
     names = list(KERNELS) if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
+    srcs = sorted({KERNELS[n][0] for n in names})
+    paths = {s: _lib_path(s) for s in srcs}
     procs = {}
     nvcc = None
-    for n in names:
-        if os.path.exists(paths[n]):
+    for s in srcs:
+        if os.path.exists(paths[s]):
             continue
         nvcc = nvcc or _nvcc()
-        tmp = paths[n] + f".tmp{os.getpid()}"
+        tmp = paths[s] + f".tmp{os.getpid()}"
         cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-               os.path.join(CSRC, KERNELS[n][0])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+               os.path.join(CSRC, s)]
+        procs[s] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)
     failed = []
-    for n, (p, tmp) in procs.items():
+    for s, (p, tmp) in procs.items():
         out, _ = p.communicate()
-        BUILD_LOG[n] = out
+        BUILD_LOG[s] = out
         if p.returncode != 0:
-            failed.append(f"{n} (nvcc exit {p.returncode}):\n{out}")
+            failed.append(f"{s} (nvcc exit {p.returncode}):\n{out}")
             continue
-        os.replace(tmp, paths[n])
+        os.replace(tmp, paths[s])
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    return paths
+    return {n: paths[KERNELS[n][0]] for n in names}
 
 
 def get_kernel(name: str):
     """The ctypes entry point of kernel ``name``, building and loading
-    its library on first use."""
-    lib = _LIBS.get(name)
+    its source's library on first use."""
+    src, sym, argtypes = KERNELS[name]
+    lib = _LIBS.get(src)
     if lib is None:
         with _LOCK:
-            lib = _LIBS.get(name)
+            lib = _LIBS.get(src)
             if lib is None:
-                path = build_kernels([name])[name]
-                lib = ctypes.CDLL(path)
-                fn = getattr(lib, KERNELS[name][1])
-                fn.argtypes = KERNELS[name][2]
-                fn.restype = ctypes.c_int
-                _LIBS[name] = lib
-    return getattr(lib, KERNELS[name][1])
+                lib = ctypes.CDLL(build_kernels([name])[name])
+                _LIBS[src] = lib
+    fn = getattr(lib, sym)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def launch(name: str, *args) -> None:

@@ -73,6 +73,21 @@ def build_route_table(split_mask, feat_group, fb_lo, fb_hi, fb_shift,
     ], dim=1)
 
 
+def apply_splits(bins: torch.Tensor, leaf_id: torch.Tensor, split_mask,
+                 feat_group, fb_lo, fb_hi, fb_shift, fb_oor, is_cat,
+                 threshold, default_left, missing_type, default_bin,
+                 num_bin, cat_mask, right_slot) -> torch.Tensor:
+    """Re-label the rows of the leaves splitting this round (left
+    children keep the parent slot): the route table of the splits
+    applied at once to the (N, G) bins, as lightgbm_tpu/ops/partition.py
+    apply_splits does on the plans without a fused route."""
+    table = build_route_table(
+        split_mask, feat_group, fb_lo, fb_hi, fb_shift, fb_oor, is_cat,
+        threshold, default_left, missing_type, default_bin, num_bin,
+        cat_mask, right_slot)
+    return apply_route_table(bins, leaf_id, table)
+
+
 def route_rows(rows: torch.Tensor, leaf_id: torch.Tensor,
                gb: torch.Tensor, with_decision: bool = False):
     """Routing decision: ``rows`` is the per-row broadcast of the route

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's training time goes, on one CUDA card.
 
-    python3 scripts/torch_profile_train.py [--rows N] [--trees T]
+    python3 scripts/torch_profile_train.py [--rows N] [--trees T] [--f32]
 
 Trains chip_smoke.py's workload (its make_data 1,000,000 x 28 binary
-task and its BENCH_PARAMS: 255 leaves, max_bin 63, quantized gradients)
-with lightgbm_tpu_torch: two warm-up trees, then T trees under
+task and its BENCH_PARAMS: 255 leaves, max_bin 63, quantized gradients;
+with --f32, float gradients: the fused_streamed plan) with
+lightgbm_tpu_torch: two warm-up trees, then T trees under
 torch.profiler.  Prints the card (nvidia-smi name and power limit), the
 wall ms per tree, the summed device-kernel time per tree and the
 device idle share of the profiled window, each hand-written kernel's
@@ -26,13 +27,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from chip_smoke import BENCH_PARAMS, card_line, make_data  # noqa: E402
 
 #: the symbols of the hand-written kernels (csrc/*.cu)
-KERNEL_SYMBOLS = ("fused_route_hist", "route_apply", "predict_level")
+KERNEL_SYMBOLS = ("fused_route_hist", "route_apply", "predict_level",
+                  "onehot_hist", "bins_hist")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--trees", type=int, default=5)
+    ap.add_argument("--f32", action="store_true",
+                    help="float gradients (quantized_grad=false)")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -46,9 +50,11 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     X, y, _ = make_data(args.rows, 28, seed=7)
-    cfg = lgb.Config.from_params(BENCH_PARAMS)
+    params = dict(BENCH_PARAMS, quantized_grad=not args.f32)
+    cfg = lgb.Config.from_params(params)
     core = lgb.Dataset(X, label=y).construct(cfg)
     gbdt = create_boosting(cfg, core)
+    print(f"plan: {gbdt.grower.plan.name}")
     for _ in range(2):
         gbdt.train_one_iter()
     torch.cuda.synchronize()
@@ -88,7 +94,8 @@ def main() -> int:
     by_cpu = ka.table(sort_by="self_cpu_time_total", row_limit=25)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/torch_profile_train.txt", "w") as f:
-        f.write(f"card: {card}\n{by_dev}\n\n{by_cpu}\n")
+        f.write(f"card: {card}\nplan: {gbdt.grower.plan.name}\n{by_dev}"
+                f"\n\n{by_cpu}\n")
     print(by_dev)
     print(by_cpu)
     return 0

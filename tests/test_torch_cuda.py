@@ -1,7 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (``cuda`` marker; skipped without a CUDA device).  No jax here:
 the card machine runs these with ``python -m pytest -m cuda
-tests/test_torch_cuda.py``."""
+tests/test_torch_cuda.py``.
+
+Integer outputs (leaf ids, int32 histograms, the count channel) are
+held bit for bit.  The f32 grad/hess channels of kernels D, E and F are
+sums of the same bf16 values accumulated in f64 by both sides (atomics
+on the card, index_add_ in the plain version) and rounded once, so they
+agree to one f32 ulp of the bin's absolute sum S (``F32_ULP * S``)."""
 import numpy as np
 import pytest
 import torch
@@ -13,6 +19,8 @@ from lightgbm_tpu_torch.ops.partition import build_route_table
 from lightgbm_tpu_torch.tree import Tree, flatten_ensemble
 
 pytestmark = pytest.mark.cuda
+
+F32_ULP = 2.0 ** -23
 
 
 @pytest.fixture
@@ -86,3 +94,75 @@ def test_predict_level_kernel_matches_plain(dev):
     got = P.predict_level_ensemble(stack, x2, depth=depth)
     want = P.predict_level_ensemble_plain(stack, x2, depth=depth)
     assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+
+
+def _float_inputs(dev, pack, quant, N=6000, G=7, B=36, L=48, seed=9):
+    """Kernel D/E/F inputs: the route table, bins and slots of _inputs,
+    the one-hot at ``pack``, and (3, N) weights, f32 or int8."""
+    (binsT, wq, leaf, tab, slots), _ = _inputs(dev, N, G, B, L, seed)
+    bins = binsT.t().contiguous()
+    ohb = (H.precompute_bin_onehot(bins, max_group_bin=B) if pack == 1
+           else H.precompute_bin_onehot_packed(bins, max_group_bin=B,
+                                               pack=pack))
+    g = torch.Generator().manual_seed(seed)
+    cnt = (leaf >= 0).float()
+    wT = wq if quant else torch.stack([
+        torch.randn(N, generator=g).to(dev) * cnt,
+        torch.rand(N, generator=g).to(dev) * cnt, cnt]).contiguous()
+    return ohb, bins, binsT, wT, leaf, tab, slots, B, G
+
+
+def _assert_close(got, want, S):
+    if got.dtype == torch.int32:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(got[..., 2], want[..., 2])
+    assert bool(((got - want).abs() <= F32_ULP * S).all())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("pack,B", [(1, 36), (1, 35), (4, 36)])
+def test_fused_onehot_hist_kernel_matches_plain(dev, pack, B, quant):
+    # rows of 252 bytes (4-byte loads), 245 (byte loads), 128 (16-byte)
+    ohb, _, binsT, wT, leaf, tab, slots, B, G = _float_inputs(dev, pack,
+                                                              quant, B=B)
+    kw = dict(max_group_bin=B, pack=pack, num_groups=G)
+    n0 = kernels.LAUNCHES["fused_onehot_hist"]
+    hk, lk = H.fused_onehot_hist(ohb, binsT, wT, leaf, tab, slots, **kw)
+    hp, lp = H.fused_onehot_hist_plain(ohb, binsT, wT, leaf, tab, slots, **kw)
+    assert kernels.LAUNCHES["fused_onehot_hist"] == n0 + 1
+    assert torch.equal(lk, lp)
+    S = H.onehot_hist_plain(ohb, wT.t().abs(), lp, slots, **kw) \
+        if not quant else None
+    _assert_close(hk, hp, S)
+
+
+@pytest.mark.parametrize("entry", ["hist_pre_packed", "hist_pre"])
+@pytest.mark.parametrize("pack", [1, 2, 4])
+def test_pre_hist_kernels_match_plain(dev, entry, pack):
+    ohb, _, _, wT, leaf, _, slots, B, G = _float_inputs(dev, pack, False)
+    w = wT.t().contiguous()
+    if entry == "hist_pre":      # a width above the packed kernel's 126
+        slots = torch.arange(-3, 150, dtype=torch.int32, device=dev)
+    kw = dict(max_group_bin=B, pack=pack, num_groups=G)
+    n0 = kernels.LAUNCHES[entry]
+    hk = getattr(H, entry)(ohb, w, leaf, slots, **kw)
+    hp = getattr(H, entry + "_plain")(ohb, w, leaf, slots, **kw)
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    _assert_close(hk, hp, H.onehot_hist_plain(ohb, w.abs(), leaf, slots,
+                                              **kw))
+
+
+@pytest.mark.parametrize("first_round", [False, True])
+def test_bins_hist_kernel_matches_plain(dev, first_round):
+    _, bins, _, wT, leaf, _, slots, B, _ = _float_inputs(dev, 1, False)
+    bins[::7, 2] = B + 3                   # bins >= B match nothing
+    w = wT.t().contiguous()
+    if first_round:                        # every row in one slot
+        leaf = torch.where(leaf >= 0, 0, -1).to(torch.int32)
+        slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    n0 = kernels.LAUNCHES["bins_hist"]
+    hk = H.bins_hist(bins, w, leaf, slots, B)
+    hp = H.bins_hist_plain(bins, w, leaf, slots, B)
+    assert kernels.LAUNCHES["bins_hist"] == n0 + 1
+    _assert_close(hk, hp, H.bins_hist_plain(bins, w.abs(), leaf, slots, B))

@@ -82,7 +82,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 def test_unported_plans_raise():
     X, y = _xy()
-    for extra in ({"quantized_grad": False}, {"tree_learner": "data"},
+    # the XLA plan (float32 histograms), the paired and split-route
+    # kernel plans, a distributed learner, another objective
+    for extra in ({"quantized_grad": False, "hist_compute_dtype": "float32"},
+                  {"quantized_grad": False, "hist_kernel": "paired"},
+                  {"hist_split_route": True}, {"tree_learner": "data"},
                   {"objective": "regression"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tlgb.train(dict(_MAIN, device="cpu", **extra),
