@@ -17,18 +17,26 @@ Phases, in order; any failure exits nonzero:
      bin's absolute sum (both sides add the same bf16 values in f64 and
      round once), with the count of bins that differ between two
      launches on one input; the ensemble predict kernel within
-     |d| <= 1e-5 * (1 + |score|).  Each kernel is timed (median of
+     |d| <= 1e-5 * (1 + |score|).  The int8 kernels G (tiled_hist), H
+     (route_only) and I (bins_hist_q, bins_hist_q_packed) are checked at
+     W=126 and on the first round too, I's pallas_q entry also over all
+     255 leaves and at 255 bins.  Each kernel is timed (median of
      CUDA-event timed launches) beside its bound, its plain version's
-     time and, for the histograms of f32 weights, one torch.matmul that
-     computes the same histogram;
+     time and one torch call that computes the same histogram
+     (torch.mm of bf16 operands for the f32 weights, torch._int_mm of
+     int8 ones for the int8 weights);
   3. train through lgb.train at the bench shape (1,000,000 x 28
      synthetic binary task, 255 leaves, max_bin 63) on the card, each
      run with the launch counters zeroed just before it and read just
-     after: 10 trees with quantized int8 gradients (kernels A, B), 10
-     trees with f32 gradients (the fused_streamed plan, kernel D), 3
-     trees of the pre_onehot plan (kernel E's pre_packed entry point),
-     3 more without its strip ladder (the pre entry point) and 3 of the
-     pallas plan (kernel F);
+     after, and each resolving the plan named: 10 trees with f32
+     gradients (the fused_streamed plan, kernel D), 3 trees of the
+     pre_onehot plan (kernel E's pre_packed entry point), 3 more
+     without its strip ladder (the pre entry point), 3 of the pallas
+     plan (kernel F); 3 int8 trees each of fused_tiled (A, B),
+     q_tiled(split_route) (H, G, then B), q_tiled (G), q_onthefly (I's
+     q_packed entry) and pallas(quantized) (I's pallas_q entry), whose
+     model texts must be equal; last 10 trees with quantized int8
+     gradients on the main path (kernels A, B);
   4. predict held-out rows through Booster.predict on the card (kernel
      C, counted with the quantized run), compare with the plain-version
      predict, and check the AUC;
@@ -212,6 +220,7 @@ def check_kernels(dev, n, rehearse, card):
     wq, scales = H.quantize_gradients(grad * counts, hess * counts, counts)
     wT = wq.t().contiguous()
     table = random_route_table(rng, L, G, B).to(dev)
+    oh = int8_onehot(binsT.t().contiguous(), B)
 
     # ---- kernel A at each frontier width of the JAX lane ladder, then
     # on a tree's first round: every row in the root, nothing to route,
@@ -246,17 +255,24 @@ def check_kernels(dev, n, rehearse, card):
         nbytes = (8 * n + split_rows(lf, tb) + n_hit * (G + 12)
                   + tb.numel() * 4 + h_k.numel() * 4)
         bound = nbytes / MEM_BYTES_PER_S * 1e3
+        # the library call histograms the post-route leaves (it cannot
+        # route)
+        lib = int8_library_ms(l_p, slots, wT, oh, dev, reps)
         label = "first round (W=1)" if W == "first round" else f"W={W}"
         print(f"[phase 2] fused_route_hist {label}: {ms:.4f} ms "
-              f"(bound {bound:.4f} ms, bytes; plain {plain:.3f} ms;"
-              f" {n_hit} of {n} rows in slots; {card})")
+              f"(bound {bound:.4f} ms, bytes; plain {plain:.3f} ms; "
+              f"library {lib:.4f} ms; {n_hit} of {n} rows in slots; "
+              f"{card})")
         if W == 126:
             out["fused_route_hist"] = dict(max_abs_err=0, ms=ms,
-                                           plain_ms=plain, bound_ms=bound)
+                                           plain_ms=plain, bound_ms=bound,
+                                           library_ms=lib)
         else:
             out["fused_route_hist"].update(ms_first_round=ms,
                                            plain_ms_first_round=plain,
-                                           bound_ms_first_round=bound)
+                                           bound_ms_first_round=bound,
+                                           library_ms_first_round=lib)
+    del oh
 
     # ---- kernel B
     values = torch.from_numpy(rng.randn(L).astype(np.float32)).to(dev)
@@ -358,6 +374,61 @@ def unstable_bins(fn) -> int:
     return int(diff.any(dim=-1).sum())
 
 
+def record_kernel(out, n, card, name, label, ms, plain, bound, by, lib, err,
+                  unstable, hit, main):
+    """Print one timed phase-2 case and file its numbers under ``name``:
+    the contract's keys for the main case, suffixed keys for the
+    others."""
+    print(f"[phase 2] {name} {label}: {ms:.4f} ms (bound {bound:.4f} "
+          f"ms, {by}; plain {plain:.3f} ms; library "
+          f"{'n/a' if lib is None else f'{lib:.4f} ms'}; max |d| "
+          f"{err:.3g}; {unstable} bins differ between two launches; "
+          f"{hit} of {n} rows in slots; {card})")
+    if main:
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by=by, library_ms=lib,
+                         unstable_bins=unstable)
+    else:
+        tag = label.replace(" (W=1)", "").replace(" ", "_").replace("=", "")
+        out[name].update({f"ms_{tag}": ms, f"plain_ms_{tag}": plain,
+                          f"bound_ms_{tag}": bound,
+                          f"library_ms_{tag}": lib})
+
+
+def int8_onehot(bins, B):
+    """The (N, G*B) int8 bin one-hot, its columns zero-padded to a
+    multiple of 8 (1764 -> 1768) as torch._int_mm wants, laid out
+    column-major: the int8 product's fast form takes its right operand
+    so (a row-major one-hot ran several times slower on the H100)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    n, G = bins.shape
+    ohT = torch.zeros((-(-G * B // 8) * 8, n), dtype=torch.int8,
+                      device=bins.device)
+    ohT[:G * B] = H.precompute_bin_onehot(bins, max_group_bin=B).t()
+    return ohT.t()
+
+
+def int8_library_ms(leaf, slots, wT, oh_i8, dev, reps):
+    """One torch call computing the int8 histogram: torch._int_mm of the
+    slot-masked (3W, N) int8 weights by the (N, G*B) int8 one-hot, int32
+    out.  _int_mm wants more than 16 rows and a multiple of 8 in the
+    other dimensions: the weight rows are zero-padded to a multiple of 8
+    of at least 24, and N must be a multiple of 8.  Timed here only; the
+    port never calls it."""
+    import torch
+    W, n = slots.shape[0], leaf.shape[0]
+    if n % 8:
+        raise ValueError(f"torch._int_mm needs N % 8 == 0, got {n}")
+    m = (leaf[None, :] == slots[:, None]) & (slots[:, None] >= 0)
+    rows = max(24, -(-3 * W // 8) * 8)
+    lhs = torch.zeros((rows, n), dtype=torch.int8, device=leaf.device)
+    lhs[:3 * W] = (m[None] * wT[:, None, :]).reshape(3 * W, n)
+    ms = time_ms(lambda: torch._int_mm(lhs, oh_i8), dev, reps)
+    del lhs, m
+    return ms
+
+
 def library_ms(leaf, slots, wT, oh_bf16, dev, reps):
     """One torch call computing the same histogram: the slot-masked
     (3W, N) bf16 weight matrix times the pack-1 (N, G*B) bf16 one-hot,
@@ -417,23 +488,8 @@ def check_float_kernels(dev, n, rehearse, card):
     def n_hit(lf, slots):
         return int(torch.isin(lf, slots[slots >= 0]).sum())
 
-    def record(name, label, ms, plain, bound, by, lib, err, unstable,
-               hit, main):
-        print(f"[phase 2] {name} {label}: {ms:.4f} ms (bound {bound:.4f} "
-              f"ms, {by}; plain {plain:.3f} ms; library "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}; max |d| "
-              f"{err:.3g}; {unstable} bins differ between two launches; "
-              f"{hit} of {n} rows in slots; {card})")
-        if main:
-            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                             bound_ms=bound, bound_by=by, library_ms=lib,
-                             unstable_bins=unstable)
-        else:
-            tag = label.replace(" (W=1)", "").replace(" ", "_").replace(
-                "=", "")
-            out[name].update({f"ms_{tag}": ms, f"plain_ms_{tag}": plain,
-                              f"bound_ms_{tag}": bound,
-                              f"library_ms_{tag}": lib})
+    def record(*args):
+        record_kernel(out, n, card, *args)
 
     # ---- kernel D: pack 4 (the bench's auto pack) and pack 1, f32 and
     # int8 weights, the lane-ladder widths and the first round
@@ -544,18 +600,125 @@ def check_float_kernels(dev, n, rehearse, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2, kernels G, H and I (int8 weights without the fused route)
+# ---------------------------------------------------------------------------
+def check_quant_kernels(dev, n, rehearse, card):
+    """Phase 2 for kernels G (tiled_hist), H (route_only) and I behind
+    its two entry points (bins_hist_q, bins_hist_q_packed) against their
+    plain versions: int32 histograms and leaf ids bit for bit, with the
+    count of bins that differ between two launches.  The library time of
+    every int8 histogram (A's too) is one torch._int_mm of the same
+    function.  Returns {kernel: numbers}."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+
+    rng = np.random.RandomState(17)
+    G, B, L = 28, 63, 255
+    reps = 3 if rehearse else 20
+    binsT = torch.from_numpy(rng.randint(0, B, (G, n)).astype(np.uint8)).to(dev)
+    bins = binsT.t().contiguous()
+    # the bf16 branch of the TPU body: 255 bins, some bins >= B
+    bins255 = torch.from_numpy(rng.randint(0, 256, (n, G)).astype(
+        np.uint8)).to(dev)
+    leaf = rng.randint(0, L, n).astype(np.int32)
+    leaf[rng.rand(n) < 0.01] = -1                       # padded rows
+    leaf = torch.from_numpy(leaf).to(dev)
+    counts = (leaf >= 0).to(torch.float32)
+    grad = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev) * counts
+    hess = torch.from_numpy(rng.rand(n).astype(np.float32) * 0.25).to(
+        dev) * counts
+    wq, _ = H.quantize_gradients(grad, hess, counts)          # (N, 3)
+    wqT = wq.t().contiguous()                                 # (3, N)
+    table = random_route_table(rng, L, G, B).to(dev)
+    oh = int8_onehot(bins, B)
+    root = torch.where(leaf >= 0, 0, -1).to(torch.int32)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    all_leaves = torch.arange(L, dtype=torch.int32, device=dev)
+    out = {}
+
+    def record(*args):
+        record_kernel(out, n, card, *args)
+
+    # ---- kernel G and kernel I's q_packed entry: the lane-ladder widths
+    # and the first round; kernel I's pallas_q entry: W=126, the first
+    # round, every leaf, and 255 bins
+    cases = [("tiled_hist", W, B) for W in (42, 84, 126, 0)]
+    cases += [("bins_hist_q_packed", W, B) for W in (42, 84, 126, 0)]
+    cases += [("bins_hist_q", W, B) for W in (126, 0, L)]
+    cases += [("bins_hist_q", 126, 255)]
+    for name, W, b in cases:
+        first = W == 0
+        lf = root if first else leaf
+        slots = one if first else all_leaves if W == L else torch.from_numpy(
+            rng.permutation(L)[:W].astype(np.int32)).to(dev)
+        if name == "tiled_hist":
+            args = (binsT, wqT, lf, slots, b)
+            plain = H.tiled_hist_plain
+        else:
+            args = (bins255 if b == 255 else bins, wq, lf, slots, b)
+            plain = H.bins_hist_plain
+        fn = getattr(H, name)
+        h_k = fn(*args)
+        label = ("first round (W=1)" if first else "all 255 leaves"
+                 if W == L else f"W={W}") + (", B=255" if b == 255 else "")
+        err = hold_hist(f"{name} {label}", h_k, plain(*args), None)
+        if b != B or W not in (126, 0, L):
+            continue
+        ms = time_ms(lambda: fn(*args), dev, reps)
+        plain_ms = time_ms(lambda: plain(*args), dev, 3)
+        hit = int(torch.isin(lf, slots).sum())
+        bound, by = hist_bound(4 * n, hit, 12 + G, h_k, hit * G * 3)
+        lib = int8_library_ms(lf, slots, wqT, oh, dev, reps)
+        main = W == 126
+        record(name, "main" if main else label, ms, plain_ms, bound, by, lib,
+               err, unstable_bins(lambda: fn(*args)), hit, main)
+    # ---- kernel H: a pending table, and the zero table of a tree's
+    # first round (nothing routes)
+    for tb, label in ((table, "main"), (torch.zeros_like(table),
+                                        "first round")):
+        l_k = H.route_only_tiled(binsT, leaf, tb)
+        if not torch.equal(l_k, H.route_only_plain(binsT, leaf, tb)):
+            raise AssertionError(f"route_only {label}: kernel != plain")
+        if label != "main":
+            if not torch.equal(l_k, leaf):
+                raise AssertionError("route_only moved rows on a zero table")
+            continue
+        ms = time_ms(lambda: H.route_only_tiled(binsT, leaf, table), dev,
+                     reps)
+        plain_ms = time_ms(lambda: H.route_only_plain(binsT, leaf, table),
+                           dev, 3)
+        # leaf ids in and out, the chosen group's bin for rows of
+        # splitting leaves, the table
+        bound = ((8 * n + split_rows(leaf, table) + table.numel() * 4)
+                 / MEM_BYTES_PER_S * 1e3)
+        moved = int((l_k != leaf).sum())
+        print(f"[phase 2] route_only: {ms:.4f} ms (bound {bound:.4f} ms, "
+              f"bytes; plain {plain_ms:.3f} ms; {moved} of {n} rows moved;"
+              f" {card})")
+        out["route_only"] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by="bytes",
+                                 library_ms=None)
+    del oh
+    return out
+
+
 def train_plan(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
-               card, label):
+               card, label, plan=None):
     """Phase 3: one lgb.train run with the launch counters zeroed just
-    before it.  Returns (booster, held-out AUC of the last round,
-    launches during the run)."""
+    before it; with ``plan``, the run must resolve that histogram plan.
+    Returns (booster, held-out AUC of the last round, launches during
+    the run)."""
     import torch
     evals = {}
     kernels.reset_launches()
     t0 = time.perf_counter()
     bst = lgb.train(params, train_ds, rounds, valid_sets=[valid_ds],
                     valid_names=["valid"], evals_result=evals,
-                    verbose_eval=False)
+                    verbose_eval=False, keep_training_booster=plan is not None)
+    if plan is not None and bst.gbdt.grower.plan.name != plan:
+        raise AssertionError(f"{label}: resolved the "
+                             f"{bst.gbdt.grower.plan.name} plan, not {plan}")
     if dev.type == "cuda":
         torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
@@ -605,6 +768,7 @@ def main(argv) -> int:
     # ---- phase 2: kernels against their plain versions
     numbers = check_kernels(dev, n_rows, rehearse, card)
     numbers.update(check_float_kernels(dev, n_rows, rehearse, card))
+    numbers.update(check_quant_kernels(dev, n_rows, rehearse, card))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -624,32 +788,64 @@ def main(argv) -> int:
     # ladder takes the pre_packed entry point for every round of a
     # 126-wide frontier, and the pre entry point without the ladder),
     # and no one-hot budget (pallas)
+    # and no one-hot budget (pallas).  Then the int8 plans without the
+    # fused route, 3 trees each, whose model text must equal the 3-tree
+    # fused_tiled model's byte for byte (integer histograms make it
+    # exact whichever kernel built them): the split route (kernel H,
+    # then G; B at exit), q_tiled (G), q_onthefly (I's q_packed entry at
+    # every round of a 126-wide frontier) and the quantized pallas body
+    # (I's pallas_q entry)
     fparams = dict(params, quantized_grad=False)
+    otf = {"hist_kernel_tiled": False, "hist_fused_route": False}
     plan_runs = {}          # kernel -> {run label: launches in that run}
+    ref_text = None
     # (10 trees must reach a held-out AUC above 0.8; 3 trees above 0.75)
-    for label, extra, rounds, want in [
-            ("f32 fused_streamed", {}, 10,
+    for label, run_params, rounds, plan, want in [
+            ("f32 fused_streamed", fparams, 10, "fused_streamed",
              ("fused_onehot_hist", "route_apply")),
-            ("f32 pre_onehot", {"hist_fused_route": False}, 3,
-             ("hist_pre_packed",)),
+            ("f32 pre_onehot", dict(fparams, hist_fused_route=False), 3,
+             "pre_onehot", ("hist_pre_packed",)),
             ("f32 pre_onehot without the strip ladder",
-             {"hist_fused_route": False, "hist_packed_dispatch": False}, 3,
+             dict(fparams, hist_fused_route=False,
+                  hist_packed_dispatch=False), 3, "pre_onehot",
              ("hist_pre",)),
-            ("f32 pallas", {"hist_onehot_budget_mb": 0}, 3,
-             ("bins_hist",))]:
-        _, f_auc, f_launches = train_plan(
-            lgb, kernels, dict(fparams, **extra), train_ds, valid_ds,
-            rounds, dev, card, label)
+            ("f32 pallas", dict(fparams, hist_onehot_budget_mb=0), 3,
+             "pallas", ("bins_hist",)),
+            ("int8 fused_tiled, 3 trees", params, 3, "fused_tiled",
+             ("fused_route_hist", "route_apply")),
+            ("int8 q_tiled(split_route)",
+             dict(params, hist_split_route=True), 3, "q_tiled(split_route)",
+             ("route_only", "tiled_hist", "route_apply")),
+            ("int8 q_tiled", dict(params, hist_fused_route=False), 3,
+             "q_tiled", ("tiled_hist",)),
+            ("int8 q_onthefly", dict(params, **otf), 3, "q_onthefly",
+             ("bins_hist_q_packed",)),
+            ("int8 pallas(quantized)",
+             dict(params, hist_quant_onthefly=False,
+                  hist_onehot_budget_mb=0, **otf), 3, "pallas(quantized)",
+             ("bins_hist_q",))]:
+        r_bst, r_auc, r_launches = train_plan(
+            lgb, kernels, run_params, train_ds, valid_ds, rounds, dev, card,
+            label, plan)
         floor = 0.8 if rounds >= 10 else 0.75
-        if f_auc <= floor:
-            raise AssertionError(f"{label}: held-out AUC {f_auc:.4f} is "
+        if r_auc <= floor:
+            raise AssertionError(f"{label}: held-out AUC {r_auc:.4f} is "
                                  f"not above {floor}")
         for name in want:
-            if not rehearse and f_launches[name] <= 0:
+            if not rehearse and r_launches[name] <= 0:
                 raise AssertionError(f"{label} did not launch {name}")
-        for name, count in f_launches.items():
+        for name, count in r_launches.items():
             if count:
                 plan_runs.setdefault(name, {})[label] = count
+        if plan == "fused_tiled":
+            ref_text = r_bst.model_to_string()
+        elif label.startswith("int8"):
+            if r_bst.model_to_string() != ref_text:
+                raise AssertionError(f"{label}: the model text differs from "
+                                     "the 3-tree fused_tiled model's")
+            print(f"[phase 3] {label}: model text equals the 3-tree "
+                  "fused_tiled model's")
+        del r_bst
     # the quantized main path last, so Booster.predict below counts
     # into the same window (kernels A, B, then C)
     bst, valid_auc, q_launches = train_plan(lgb, kernels, params, train_ds,
@@ -722,12 +918,20 @@ def main(argv) -> int:
         "hist_pre": (onehot, "lightgbm_tpu/ops/histogram.py:727"),
         "bins_hist": ("lightgbm_tpu_torch/csrc/bins_hist.cu",
                       "lightgbm_tpu/ops/histogram.py:224"),
+        "tiled_hist": ("lightgbm_tpu_torch/csrc/fused_route_hist.cu",
+                       "lightgbm_tpu/ops/histogram.py:1021"),
+        "route_only": ("lightgbm_tpu_torch/csrc/route_apply.cu",
+                       "lightgbm_tpu/ops/histogram.py:1654"),
+        "bins_hist_q": ("lightgbm_tpu_torch/csrc/bins_hist.cu",
+                        "lightgbm_tpu/ops/histogram.py:381"),
+        "bins_hist_q_packed": ("lightgbm_tpu_torch/csrc/bins_hist.cu",
+                               "lightgbm_tpu/ops/histogram.py:897"),
     })
     rows = []
     for name, (src, rep) in replaces.items():
         # launches: the quantized main path's window (A, B, C), else
-        # the one float run that drives the kernel; launches_by_run
-        # lists every phase-3 run that launched it.  Numbers beyond the
+        # the sum over the phase-3 runs that drove the kernel, which
+        # launches_by_run lists one by one.  Numbers beyond the
         # contract's keys (first-round and other timings, unstable
         # bins) follow them in the same object
         runs = plan_runs.get(name, {})

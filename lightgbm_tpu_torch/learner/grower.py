@@ -3,22 +3,37 @@
 Port of lightgbm_tpu/learner/grower.py for the serial learner's
 single-device kernel plans.  :func:`resolve_plan` picks the plan the
 JAX grower picks for the same config and data (grower.py:318-543, with
-CUDA in the role of the TPU check); four of them run here:
+CUDA in the role of the TPU check); eight of them run here:
 
   fused_tiled     quantized int8 gradients: kernel A routes last
                   round's splits and histograms the new leaves in one
                   pass from the transposed bins; kernel B routes the
                   last splits at exit and returns each row's leaf value
+  q_tiled(split_route)
+                  (hist_split_route) kernel H routes last round's
+                  splits in its own pass, then kernel G histograms the
+                  new leaves from the transposed bins; B at exit
+  q_tiled         (hist_fused_route=false) kernel G histograms; the
+                  splits are applied every round (apply_splits)
   fused_streamed  kernel D does the same from the streamed bin one-hot
                   (f32 or int8 weights); kernel B again at exit
+  q_onthefly      (int8, hist_kernel_tiled=false, no fused route)
+                  kernel I histograms the row-major bins: its q_packed
+                  entry up to 126 slots, pallas_q beyond; splits
+                  applied every round
   pre_onehot      kernel E histograms the streamed one-hot (its
                   pre_packed entry up to 126 slots, pre beyond); the
                   splits are applied every round (apply_splits)
+  pallas(quantized)
+                  (q_onthefly's knobs without the on-the-fly flag and
+                  the one-hot over budget) kernel I's pallas_q entry;
+                  splits applied every round
   pallas          kernel F histograms the row-major bins with f32
                   weights; splits applied every round
 
-The others (q_tiled and its split-route variant, seg_tiled, q_onthefly,
-pallas_paired, the quantized pallas body, xla) raise and name the plan.
+The others (seg_tiled, pallas_paired, xla) raise and name the plan.
+Integer histograms make every int8 plan grow the same trees as
+fused_tiled, whichever kernel built them.
 
 The JAX grower runs a tree as one ``lax.while_loop`` over frontier
 rounds; here the loop is driven from the host, one round at a time, and
@@ -57,12 +72,16 @@ from ..dataset import Dataset
 from ..ops.histogram import (PACKED_STRIP, QUANT_ROW_LIMIT, QUANT_WEIGHT_MAX,
                              bins_hist, compute_group_histograms_fused,
                              compute_group_histograms_fused_tiled,
+                             compute_group_histograms_pallas_q,
                              compute_group_histograms_pre,
                              compute_group_histograms_pre_packed,
+                             compute_group_histograms_q_packed,
+                             compute_group_histograms_q_tiled,
                              compute_root_totals, expand_feature_histograms,
                              onehot_width, precompute_bin_onehot,
                              precompute_bin_onehot_packed,
-                             quantize_gradients, route_apply_tiled)
+                             quantize_gradients, route_apply_tiled,
+                             route_only_tiled)
 from ..ops.partition import (ROUTE_FIXED_COLS, apply_splits,
                              build_route_table)
 from ..ops.split import (CAND_COLS, CAND_DEFAULT_LEFT, CAND_FEATURE,
@@ -71,7 +90,9 @@ from ..ops.split import (CAND_COLS, CAND_DEFAULT_LEFT, CAND_FEATURE,
 from ..utils.log import Log
 
 #: the plans this grower runs
-PORTED_PLANS = ("fused_tiled", "fused_streamed", "pre_onehot", "pallas")
+PORTED_PLANS = ("fused_tiled", "q_tiled(split_route)", "q_tiled",
+                "fused_streamed", "q_onthefly", "pre_onehot",
+                "pallas(quantized)", "pallas")
 
 
 def _pick_chunk(n: int, num_groups: int, max_group_bin: int,
@@ -87,8 +108,9 @@ def _pick_chunk(n: int, num_groups: int, max_group_bin: int,
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: lightgbm_tpu_torch runs the serial "
-        "learner's fused_tiled, fused_streamed, pre_onehot and pallas "
-        "plans (hist_compute_dtype=bfloat16, numerical features)")
+        "learner's " + ", ".join(PORTED_PLANS[:-1]) + " and "
+        + PORTED_PLANS[-1] + " plans (hist_compute_dtype=bfloat16, "
+        "numerical features)")
 
 
 @dataclass(frozen=True)
@@ -300,9 +322,10 @@ class TreeGrower:
             bins = np.concatenate(
                 [bins, np.zeros((pad, bins.shape[1]), np.uint8)])
         bins_d = torch.from_numpy(np.ascontiguousarray(bins)).to(device)
-        # transposed for the fused kernels' routing; row-major for the
-        # bin-reading kernel and apply_splits
-        self.binsT = bins_d.t().contiguous() if self.plan.fused else None
+        # transposed for the fused and tiled kernels (routing, kernel
+        # G); row-major for the bin-matrix kernels and apply_splits
+        self.binsT = (bins_d.t().contiguous()
+                      if self.plan.fused or self.plan.tiled else None)
         self.bins = None if self.plan.fused else bins_d
         # the streamed one-hot, built once per dataset on the device
         self.ohb = None
@@ -418,7 +441,7 @@ class TreeGrower:
             w, scales = quantize_gradients(grad, hess, counts)  # (N, 3)
         else:
             w = torch.stack([grad, hess, counts], dim=1)
-        if plan.fused:
+        if plan.fused or plan.tiled:
             w = w.t().contiguous()                               # (3, N)
 
         num_leaves = 1
@@ -470,11 +493,21 @@ class TreeGrower:
             return tree, leaf_id, None
         # the last round's splits were never routed: apply them and take
         # each row's post-route leaf value for the score update (kernel
-        # B on both fused plans; the JAX package's fused_streamed plan
+        # B on every fused plan; the JAX package's fused_streamed plan
         # runs the same function through XLA's apply_route_table)
         leaf_id, row_val = route_apply_tiled(self.binsT, leaf_id, route_tab,
                                              tree["leaf_value"])
         return tree, leaf_id, row_val
+
+    def _use_packed(self, k: int) -> bool:
+        """The JAX strip ladder (grower.py _packed_dispatch :870-901) for
+        ``k`` new leaves: the channel-packed entry point (q_packed,
+        pre_packed) at every k when the frontier fits its three strips,
+        else while k fits two; the full-width entry point otherwise, and
+        always without hist_packed_dispatch.  The ladder picks a kernel,
+        never a result: the histograms are the same."""
+        return self.packed_dispatch and (k <= 2 * PACKED_STRIP or
+                                         self.frontier <= 3 * PACKED_STRIP)
 
     def _histogram(self, w, scales, leaf_id, route_tab, slots):
         """The plan's histogram pass over ``slots`` with the tree's
@@ -486,6 +519,18 @@ class TreeGrower:
             return compute_group_histograms_fused_tiled(
                 self.binsT, w, scales, leaf_id, route_tab, slots,
                 max_group_bin=B)
+        if plan.name == "q_tiled(split_route)":
+            # the pending splits in their own pass, then the route-free
+            # histogram (JAX grower.py:1303-1313)
+            leaf_id = route_only_tiled(self.binsT, leaf_id, route_tab)
+        if plan.tiled:
+            # every width a tiled plan allows (<= 126) fits kernel G; the
+            # JAX grower's full-width rung, which only
+            # hist_packed_dispatch=false reaches there, is pallas_q on
+            # the row-major bins: the same histogram
+            return compute_group_histograms_q_tiled(
+                self.binsT, w, scales, leaf_id, slots,
+                max_group_bin=B), leaf_id
         if plan.name == "fused_streamed":
             return compute_group_histograms_fused(
                 self.ohb, self.binsT, w, scales, leaf_id, route_tab, slots,
@@ -493,11 +538,20 @@ class TreeGrower:
                 num_groups=G)
         if plan.name == "pallas":
             return bins_hist(self.bins, w, leaf_id, slots, B), leaf_id
-        # pre_onehot: the JAX strip ladder (_packed_dispatch) takes the
-        # channel-packed kernel whenever the new leaves fit its strips
-        k = slots.shape[0]
-        if self.packed_dispatch and (k <= 2 * PACKED_STRIP
-                                     or self.frontier <= 3 * PACKED_STRIP):
+        if plan.name == "pallas(quantized)":
+            return compute_group_histograms_pallas_q(
+                self.bins, w, scales, leaf_id, num_leaves=self.num_leaves,
+                max_group_bin=B, slots=slots), leaf_id
+        packed = self._use_packed(slots.shape[0])
+        if plan.name == "q_onthefly":
+            if packed:
+                return compute_group_histograms_q_packed(
+                    self.bins, w, scales, leaf_id, slots,
+                    max_group_bin=B), leaf_id
+            return compute_group_histograms_pallas_q(
+                self.bins, w, scales, leaf_id, num_leaves=self.num_leaves,
+                max_group_bin=B, slots=slots), leaf_id
+        if packed:
             return compute_group_histograms_pre_packed(
                 self.ohb, w, scales, leaf_id, slots, max_group_bin=B,
                 quant=plan.quant, pack=plan.ohb_pack, num_groups=G), leaf_id

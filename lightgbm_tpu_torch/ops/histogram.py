@@ -1,16 +1,21 @@
 """Histogram construction: quantized gradients, the fused route +
-frontier histogram, the exit route, the f32-weight histograms of the
-streamed bin one-hot and of the bin matrix, and the per-feature view.
+frontier histogram and its route-free twin, the route passes (exit
+route, route only), the histograms of the streamed bin one-hot and of
+the bin matrix (f32 or int8 weights), and the per-feature view.
 
 Port of lightgbm_tpu/ops/histogram.py for the serial learner's plans.
 Every device kernel of a training round is hand-written CUDA:
 
   A  csrc/fused_route_hist.cu  compute_group_histograms_fused_tiled
+  G  csrc/fused_route_hist.cu  compute_group_histograms_q_tiled
   B  csrc/route_apply.cu       route_apply_tiled
+  H  csrc/route_apply.cu       route_only_tiled
   D  csrc/onehot_hist.cu       compute_group_histograms_fused
   E  csrc/onehot_hist.cu       compute_group_histograms_pre_packed,
                                compute_group_histograms_pre
   F  csrc/bins_hist.cu         compute_group_histograms_pallas
+  I  csrc/bins_hist.cu         compute_group_histograms_pallas_q,
+                               compute_group_histograms_q_packed
 
 Each has a plain PyTorch version here with the same contract.  A
 wrapper launches the kernel for CUDA tensors and takes the plain
@@ -61,6 +66,11 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_bins(max_group_bin: int) -> None:
+    if not 1 <= max_group_bin <= 256:
+        raise ValueError(f"max_group_bin {max_group_bin} not in [1, 256]")
+
+
 def _same_device(*ts: torch.Tensor) -> torch.device:
     dev = ts[0].device
     for t in ts[1:]:
@@ -81,23 +91,9 @@ def fused_route_hist_plain(binsT: torch.Tensor, wT: torch.Tensor,
     """Plain version of kernel A: returns the (W, G, B, 3) int32
     histogram of the rows whose POST-route leaf equals each slot
     (negative slots stay empty) and the (N,) post-route leaf ids."""
-    G, N = binsT.shape
-    B = max_group_bin
-    W = slots.shape[0]
-    dev = binsT.device
     new_leaf = apply_route_table(binsT.t(), leaf_id, route_tab)
-    match = (new_leaf[None, :] == slots[:, None]) & (slots[:, None] >= 0)
-    s_idx, r_idx = match.nonzero(as_tuple=True)
-    hist = torch.zeros(W * G * B, 3, dtype=torch.int64, device=dev)
-    if s_idx.numel():
-        bins_r = binsT[:, r_idx].to(torch.int64)             # (G, P)
-        g_iota = torch.arange(G, device=dev)[:, None]
-        flat = (s_idx[None, :] * G + g_iota) * B + bins_r   # (G, P)
-        ok = bins_r < B
-        w = wT[:, r_idx].t().to(torch.int64)                 # (P, 3)
-        w = w[None].expand(G, -1, -1)
-        hist.index_add_(0, flat[ok], w[ok])
-    return hist.reshape(W, G, B, 3).to(torch.int32), new_leaf
+    return tiled_hist_plain(binsT, wT, new_leaf, slots,
+                            max_group_bin), new_leaf
 
 
 def _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
@@ -147,8 +143,7 @@ def fused_route_hist(binsT: torch.Tensor, wT: torch.Tensor,
                          f"{tuple(leaf_id.shape)} do not match N={N}")
     if route_tab.shape[1] < ROUTE_FIXED_COLS:
         raise ValueError("route_tab needs at least 15 columns")
-    if not 1 <= max_group_bin <= 256:
-        raise ValueError(f"max_group_bin {max_group_bin} not in [1, 256]")
+    _check_bins(max_group_bin)
     dev = _same_device(binsT, wT, leaf_id, route_tab, slots)
     if dev.type == "cuda":
         return _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
@@ -171,6 +166,60 @@ def compute_group_histograms_fused_tiled(
 
 
 # ---------------------------------------------------------------------------
+# Kernel G: kernel A's int8 frontier histogram without the routing
+# ---------------------------------------------------------------------------
+def tiled_hist_plain(binsT: torch.Tensor, wT: torch.Tensor,
+                     leaf_id: torch.Tensor, slots: torch.Tensor,
+                     max_group_bin: int) -> torch.Tensor:
+    """Plain version of kernel G: the (W, G, B, 3) int32 histogram of
+    the rows whose leaf equals each slot, from the transposed bins and
+    weights."""
+    return bins_hist_plain(binsT.t(), wT.t(), leaf_id, slots, max_group_bin)
+
+
+def tiled_hist(binsT: torch.Tensor, wT: torch.Tensor, leaf_id: torch.Tensor,
+               slots: torch.Tensor, max_group_bin: int) -> torch.Tensor:
+    """Kernel G on CUDA tensors, its plain version on CPU tensors: the
+    (W, G, B, 3) int32 histogram following ``slots``.
+
+    Kernel G (csrc/fused_route_hist.cu, kernel A's source) replaces the
+    Pallas kernel _hist_kernel_body_q_tiled
+    (lightgbm_tpu/ops/histogram.py:1021).  ``binsT`` is the (G, N) uint8
+    transposed bin matrix, ``wT`` the (3, N) int32 quantized weights,
+    ``leaf_id`` the (N,) current leaf ids (negative = padded row)."""
+    _check(binsT, "binsT", torch.uint8, 2)
+    _check(wT, "wT", torch.int32, 2)
+    _check(leaf_id, "leaf_id", torch.int32, 1)
+    _check_slots(slots)
+    G, N = binsT.shape
+    if wT.shape != (3, N) or leaf_id.shape != (N,):
+        raise ValueError(f"wT {tuple(wT.shape)} / leaf_id "
+                         f"{tuple(leaf_id.shape)} do not match N={N}")
+    _check_bins(max_group_bin)
+    dev = _same_device(binsT, wT, leaf_id, slots)
+    if dev.type != "cuda":
+        return tiled_hist_plain(binsT, wT, leaf_id, slots, max_group_bin)
+    hist = torch.zeros((slots.shape[0], G, max_group_bin, 3),
+                       dtype=torch.int32, device=dev)
+    kernels.launch("tiled_hist", binsT.data_ptr(), wT.data_ptr(),
+                   leaf_id.data_ptr(), slots.data_ptr(), hist.data_ptr(), N,
+                   G, max_group_bin, slots.shape[0])
+    return hist
+
+
+def compute_group_histograms_q_tiled(
+        binsT: torch.Tensor, wT: torch.Tensor, scales: torch.Tensor,
+        leaf_id: torch.Tensor, slots: torch.Tensor, *,
+        max_group_bin: int) -> torch.Tensor:
+    """int8 frontier histogram of the transposed bins, dequantized:
+    (W, G, B, 3) f32 following ``slots`` (the JAX entry point pads the
+    slot list to its strip ladder; here the output has exactly
+    ``len(slots)`` rows)."""
+    hist = tiled_hist(binsT, wT, leaf_id, slots, max_group_bin)
+    return hist.to(torch.float32) * scales
+
+
+# ---------------------------------------------------------------------------
 # Kernel B: exit route + per-row leaf value
 # ---------------------------------------------------------------------------
 def route_apply_plain(binsT: torch.Tensor, leaf_id: torch.Tensor,
@@ -190,18 +239,12 @@ def route_apply_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
     _route_value_kernel_body (lightgbm_tpu/ops/histogram.py:1632): one
     thread per row, memory-bound at ~13 B per row; the six value
     columns are built here before the launch (see the source note)."""
-    _check(binsT, "binsT", torch.uint8, 2)
-    _check(leaf_id, "leaf_id", torch.int32, 1)
-    _check(route_tab, "route_tab", torch.float32, 2)
     _check(values, "values", torch.float32, 1)
+    _check_route(binsT, leaf_id, route_tab)
     G, N = binsT.shape
     L, K = route_tab.shape
-    if leaf_id.shape != (N,) or values.shape != (L,) \
-            or K < ROUTE_FIXED_COLS:
+    if values.shape != (L,):
         raise ValueError("route_apply_tiled: shape mismatch")
-    if G >= 65536:
-        raise ValueError("at most 65535 feature groups (the route table "
-                         "encodes the group index as two bytes)")
     dev = _same_device(binsT, leaf_id, route_tab, values)
     if dev.type != "cuda":
         return route_apply_plain(binsT, leaf_id, route_tab, values)
@@ -212,6 +255,50 @@ def route_apply_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
                    table.data_ptr(), leaf_out.data_ptr(), val_out.data_ptr(),
                    N, G, L, K)
     return leaf_out, val_out
+
+
+def _check_route(binsT, leaf_id, route_tab) -> None:
+    _check(binsT, "binsT", torch.uint8, 2)
+    _check(leaf_id, "leaf_id", torch.int32, 1)
+    _check(route_tab, "route_tab", torch.float32, 2)
+    G, N = binsT.shape
+    if leaf_id.shape != (N,) or route_tab.shape[1] < ROUTE_FIXED_COLS:
+        raise ValueError("route pass: shape mismatch")
+    if G >= 65536:
+        raise ValueError("at most 65535 feature groups (the route table "
+                         "encodes the group index as two bytes)")
+
+
+# ---------------------------------------------------------------------------
+# Kernel H: kernel B's routing without the value columns
+# ---------------------------------------------------------------------------
+def route_only_plain(binsT: torch.Tensor, leaf_id: torch.Tensor,
+                     route_tab: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel H: the post-route leaf ids."""
+    return apply_route_table(binsT.t(), leaf_id, route_tab)
+
+
+def route_only_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
+                     route_tab: torch.Tensor) -> torch.Tensor:
+    """Apply a pending route table to the leaf ids: returns the (N,)
+    post-route leaf ids.  Kernel H on CUDA tensors, the plain version on
+    CPU tensors.
+
+    Kernel H (csrc/route_apply.cu, kernel B's source) replaces the
+    Pallas kernel _route_only_kernel_body
+    (lightgbm_tpu/ops/histogram.py:1654): one thread per row,
+    memory-bound at ~8 B per row plus a bin byte per row of a splitting
+    leaf."""
+    _check_route(binsT, leaf_id, route_tab)
+    G, N = binsT.shape
+    L, K = route_tab.shape
+    dev = _same_device(binsT, leaf_id, route_tab)
+    if dev.type != "cuda":
+        return route_only_plain(binsT, leaf_id, route_tab)
+    leaf_out = torch.empty_like(leaf_id)
+    kernels.launch("route_only", binsT.data_ptr(), leaf_id.data_ptr(),
+                   route_tab.data_ptr(), leaf_out.data_ptr(), N, G, L, K)
+    return leaf_out
 
 
 # ---------------------------------------------------------------------------
@@ -611,19 +698,23 @@ def compute_group_histograms_pre(
 
 
 # ---------------------------------------------------------------------------
-# Kernel F: histogram of the row-major bin matrix, f32 weights
+# Kernels F and I: histogram of the row-major bin matrix, f32 or int8
+# weights
 # ---------------------------------------------------------------------------
 def bins_hist_plain(bins: torch.Tensor, w: torch.Tensor,
                     leaf_id: torch.Tensor, slots: torch.Tensor,
                     max_group_bin: int) -> torch.Tensor:
-    """Plain version of kernel F: the (W, G, B, 3) f32 histogram (sums
-    of bf16-rounded weights) of the rows whose leaf equals each slot;
-    bins >= B match nothing."""
+    """Plain version of kernels F, G and I: the (W, G, B, 3) histogram
+    of the rows whose leaf equals each slot; bins >= B match nothing.
+    ``bins`` is (N, G) and ``w`` (N, 3), any strides: f32 weights give
+    f32 sums of their bf16 roundings (accumulated in f64, rounded once),
+    int32 quantized weights give exact int32 sums."""
     N, G = bins.shape
     B = max_group_bin
     W = slots.shape[0]
-    hist = torch.zeros((W * G * B, 3), dtype=torch.float64,
-                       device=bins.device)
+    quant = w.dtype == torch.int32
+    hist = torch.zeros((W * G * B, 3), device=bins.device,
+                       dtype=torch.int64 if quant else torch.float64)
     s_idx, r_idx = _slot_rows(leaf_id, slots)
     if s_idx.numel():
         b = bins[r_idx].to(torch.int64)                       # (P, G)
@@ -635,6 +726,32 @@ def bins_hist_plain(bins: torch.Tensor, w: torch.Tensor,
     return _finish(hist.reshape(W, G, B, 3))
 
 
+def _bins_hist(name: str, bins: torch.Tensor, w: torch.Tensor,
+               leaf_id: torch.Tensor, slots: torch.Tensor,
+               max_group_bin: int, dtype) -> torch.Tensor:
+    """Kernel F (f32 ``w``) or I (int32 ``w``) under the launch count
+    ``name`` on CUDA tensors, the plain version on CPU tensors."""
+    _check(bins, "bins", torch.uint8, 2)
+    _check(w, "w", dtype, 2)
+    _check(leaf_id, "leaf_id", torch.int32, 1)
+    _check_slots(slots)
+    N, G = bins.shape
+    if w.shape != (N, 3) or leaf_id.shape != (N,):
+        raise ValueError(f"w {tuple(w.shape)} / leaf_id "
+                         f"{tuple(leaf_id.shape)} do not match N={N}")
+    _check_bins(max_group_bin)
+    dev = _same_device(bins, w, leaf_id, slots)
+    if dev.type != "cuda":
+        return bins_hist_plain(bins, w, leaf_id, slots, max_group_bin)
+    quant = dtype == torch.int32
+    acc = torch.zeros((slots.shape[0], G, max_group_bin, 3), device=dev,
+                      dtype=torch.int32 if quant else torch.float64)
+    kernels.launch(name, bins.data_ptr(), w.data_ptr(), leaf_id.data_ptr(),
+                   slots.data_ptr(), acc.data_ptr(), N, G, max_group_bin,
+                   slots.shape[0])
+    return acc if quant else acc.to(torch.float32)
+
+
 def bins_hist(bins: torch.Tensor, w: torch.Tensor, leaf_id: torch.Tensor,
               slots: torch.Tensor, max_group_bin: int) -> torch.Tensor:
     """Kernel F on CUDA tensors, its plain version on CPU tensors.
@@ -643,26 +760,29 @@ def bins_hist(bins: torch.Tensor, w: torch.Tensor, leaf_id: torch.Tensor,
     _hist_kernel_body (lightgbm_tpu/ops/histogram.py:224).  ``bins`` is
     the (N, G) uint8 row-major bin matrix, ``w`` the (N, 3) f32 weights;
     returns the (W, G, B, 3) f32 histogram following ``slots``."""
-    _check(bins, "bins", torch.uint8, 2)
-    _check(w, "w", torch.float32, 2)
-    _check(leaf_id, "leaf_id", torch.int32, 1)
-    _check_slots(slots)
-    N, G = bins.shape
-    if w.shape != (N, 3) or leaf_id.shape != (N,):
-        raise ValueError(f"w {tuple(w.shape)} / leaf_id "
-                         f"{tuple(leaf_id.shape)} do not match N={N}")
-    if not 1 <= max_group_bin <= 256:
-        raise ValueError(f"max_group_bin {max_group_bin} not in [1, 256]")
-    dev = _same_device(bins, w, leaf_id, slots)
-    if dev.type != "cuda":
-        return bins_hist_plain(bins, w, leaf_id, slots, max_group_bin)
-    W = slots.shape[0]
-    acc = torch.zeros((W, G, max_group_bin, 3), dtype=torch.float64,
-                      device=dev)
-    kernels.launch("bins_hist", bins.data_ptr(), w.data_ptr(),
-                   leaf_id.data_ptr(), slots.data_ptr(), acc.data_ptr(), N,
-                   G, max_group_bin, W)
-    return acc.to(torch.float32)
+    return _bins_hist("bins_hist", bins, w, leaf_id, slots, max_group_bin,
+                      torch.float32)
+
+
+def bins_hist_q(bins: torch.Tensor, wq: torch.Tensor, leaf_id: torch.Tensor,
+                slots: torch.Tensor, max_group_bin: int) -> torch.Tensor:
+    """Kernel I behind compute_group_histograms_pallas_q (replaces
+    _hist_kernel_body_q, lightgbm_tpu/ops/histogram.py:381) on CUDA
+    tensors, its plain version on CPU tensors.  ``wq`` is the (N, 3)
+    int32 quantized weights; returns the (W, G, B, 3) int32 histogram
+    following ``slots``."""
+    return _bins_hist("bins_hist_q", bins, wq, leaf_id, slots,
+                      max_group_bin, torch.int32)
+
+
+def bins_hist_q_packed(bins: torch.Tensor, wq: torch.Tensor,
+                       leaf_id: torch.Tensor, slots: torch.Tensor,
+                       max_group_bin: int) -> torch.Tensor:
+    """Kernel I behind compute_group_histograms_q_packed (replaces
+    _hist_kernel_body_q_packed, lightgbm_tpu/ops/histogram.py:897); same
+    contract as :func:`bins_hist_q`."""
+    return _bins_hist("bins_hist_q_packed", bins, wq, leaf_id, slots,
+                      max_group_bin, torch.int32)
 
 
 def compute_group_histograms_pallas(
@@ -676,6 +796,36 @@ def compute_group_histograms_pallas(
                              device=leaf_id.device)
     w = torch.stack([grad, hess, counts], dim=1).to(torch.float32)
     return bins_hist(bins, w, leaf_id, slots, max_group_bin)
+
+
+def compute_group_histograms_pallas_q(
+        bins: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
+        leaf_id: torch.Tensor, *, num_leaves: int, max_group_bin: int,
+        slots=None) -> torch.Tensor:
+    """int8 histogram from the (N, G) bins and the (N, 3) int32
+    quantized weights, every leaf (``slots`` None: rows
+    0..num_leaves-1) or the given slots, any number of them:
+    (W, G, B, 3) f32 dequantized by ``scales``."""
+    if slots is None:
+        slots = torch.arange(num_leaves, dtype=torch.int32,
+                             device=leaf_id.device)
+    hist = bins_hist_q(bins, wq, leaf_id, slots, max_group_bin)
+    return hist.to(torch.float32) * scales
+
+
+def compute_group_histograms_q_packed(
+        bins: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
+        leaf_id: torch.Tensor, slots: torch.Tensor, *,
+        max_group_bin: int) -> torch.Tensor:
+    """int8 histogram of at most 3 * PACKED_STRIP frontier slots from
+    the (N, G) bins: (W, G, B, 3) f32 following ``slots`` (the JAX entry
+    point pads to its strip ladder and truncates beyond it; here the
+    output has exactly ``len(slots)`` rows and a longer list raises)."""
+    if slots.shape[0] > 3 * PACKED_STRIP:
+        raise ValueError(f"at most {3 * PACKED_STRIP} slots, got "
+                         f"{slots.shape[0]}")
+    hist = bins_hist_q_packed(bins, wq, leaf_id, slots, max_group_bin)
+    return hist.to(torch.float32) * scales
 
 
 def leaf_value_broadcast(leaf_id: torch.Tensor,

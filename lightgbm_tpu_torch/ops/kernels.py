@@ -7,9 +7,10 @@ the package, named by a hash of the source and flags, so a changed
 source rebuilds and an unchanged one loads at once.  Nothing is built
 or loaded at import: the first wrapper call on a CUDA tensor (or an
 explicit :func:`build_kernels`) does it, and every source is compiled
-in parallel.  Several kernel names may share one source (and one C
-entry point): the histogram kernels of the streamed one-hot serve three
-entry points, each counted under its own name.
+in parallel.  Several kernel names may share one source (a template
+with one C entry point per variant) or one C entry point: the streamed
+one-hot histogram serves three entry points and the int8 bin-matrix
+histogram two, each counted under its own name.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -39,14 +40,20 @@ _I64 = ctypes.c_int64
 
 _ONEHOT_ARGS = [_P, _I64, _I, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P,
                 _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_BINS_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]
 # kernel name -> (source file, C entry point, argtypes)
 KERNELS: Dict[str, tuple] = {
     "fused_route_hist": (
         "fused_route_hist.cu", "ltt_fused_route_hist",
         [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P]),
+    # kernel G: kernel A's histogram without the routing
+    "tiled_hist": ("fused_route_hist.cu", "ltt_tiled_hist", _BINS_ARGS),
     "route_apply": (
         "route_apply.cu", "ltt_route_apply",
         [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
+    # kernel H: kernel B's routing without the value columns
+    "route_only": ("route_apply.cu", "ltt_route_only",
+                   [_P, _P, _P, _P, _I64, _I, _I, _I, _P]),
     "predict_level": (
         "predict_level.cu", "ltt_predict_level",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -57,8 +64,10 @@ KERNELS: Dict[str, tuple] = {
                           _ONEHOT_ARGS),
     "hist_pre_packed": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
     "hist_pre": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
-    "bins_hist": ("bins_hist.cu", "ltt_bins_hist",
-                  [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
+    "bins_hist": ("bins_hist.cu", "ltt_bins_hist", _BINS_ARGS),
+    # kernel I (int8 weights) behind its two entry points
+    "bins_hist_q": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),
+    "bins_hist_q_packed": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -64,6 +64,52 @@ def test_fused_route_hist_kernel_matches_plain(dev):
     assert torch.equal(hk, hp) and torch.equal(lk, lp)
 
 
+def _slot_cases(slots):
+    """The frontier of _inputs, no slot at all, and only inert ones."""
+    none = slots[:0]
+    return {"frontier": slots, "W=0": none,
+            "all negative": torch.full_like(slots[:5], -1)}
+
+
+@pytest.mark.parametrize("case", ["frontier", "W=0", "all negative"])
+def test_tiled_hist_kernel_matches_plain(dev, case):
+    (binsT, wT, leaf, _, slots), B = _inputs(dev)
+    slots = _slot_cases(slots)[case]
+    n0 = kernels.LAUNCHES["tiled_hist"]
+    hk = H.tiled_hist(binsT, wT, leaf, slots, B)
+    hp = H.tiled_hist_plain(binsT, wT, leaf, slots, B)
+    assert kernels.LAUNCHES["tiled_hist"] == n0 + 1
+    assert hk.shape == (slots.shape[0], binsT.shape[0], B, 3)
+    assert torch.equal(hk, hp)
+    assert (hk.abs().sum() > 0) == (case == "frontier")
+
+
+def test_route_only_kernel_matches_plain(dev):
+    (binsT, _, leaf, tab, _), _ = _inputs(dev)
+    n0 = kernels.LAUNCHES["route_only"]
+    lk = H.route_only_tiled(binsT, leaf, tab)
+    lp = H.route_only_plain(binsT, leaf, tab)
+    assert kernels.LAUNCHES["route_only"] == n0 + 1
+    assert torch.equal(lk, lp) and bool((lk != leaf).any())
+
+
+@pytest.mark.parametrize("entry", ["bins_hist_q", "bins_hist_q_packed"])
+@pytest.mark.parametrize("case", ["frontier", "W=0", "all negative",
+                                  "B=255"])
+def test_bins_hist_q_kernel_matches_plain(dev, entry, case):
+    B = 255 if case == "B=255" else 63
+    (binsT, wT, leaf, _, slots), B = _inputs(dev, B=B)
+    bins = binsT.t().contiguous()
+    bins[::7, 2] = 255 if B == 255 else B + 3      # bins >= B match nothing
+    wq = wT.t().contiguous()
+    slots = _slot_cases(slots).get(case, slots)
+    n0 = kernels.LAUNCHES[entry]
+    hk = getattr(H, entry)(bins, wq, leaf, slots, B)
+    hp = H.bins_hist_plain(bins, wq, leaf, slots, B)
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    assert hk.dtype == torch.int32 and torch.equal(hk, hp)
+
+
 def test_route_apply_kernel_matches_plain(dev):
     (binsT, _, leaf, tab, _), _ = _inputs(dev)
     vals = torch.randn(tab.shape[0], device=dev)

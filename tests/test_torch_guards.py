@@ -82,11 +82,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 def test_unported_plans_raise():
     X, y = _xy()
-    # the XLA plan (float32 histograms), the paired and split-route
+    # the XLA plan (float32 histograms), the paired and leaf-partition
     # kernel plans, a distributed learner, another objective
     for extra in ({"quantized_grad": False, "hist_compute_dtype": "float32"},
                   {"quantized_grad": False, "hist_kernel": "paired"},
-                  {"hist_split_route": True}, {"tree_learner": "data"},
+                  {"hist_leaf_partition": "on"}, {"tree_learner": "data"},
                   {"objective": "regression"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tlgb.train(dict(_MAIN, device="cpu", **extra),
