@@ -13,18 +13,19 @@ Phases, in order; any failure exits nonzero:
      zero-default / categorical route rows, and a tree's first round:
      every row in one slot).  Integer outputs (leaf ids, int32
      histograms, the count channel) bit for bit; the f32 channels of
-     the float-weight histograms (D, E, F) within one f32 ulp of the
+     the float-weight histograms (D, E, F, K) within one f32 ulp of the
      bin's absolute sum (both sides add the same bf16 values in f64 and
      round once), with the count of bins that differ between two
      launches on one input; the ensemble predict kernel within
      |d| <= 1e-5 * (1 + |score|).  The int8 kernels G (tiled_hist), H
-     (route_only) and I (bins_hist_q, bins_hist_q_packed) are checked at
-     W=126 and on the first round too, I's pallas_q entry also over all
-     255 leaves and at 255 bins.  Each kernel is timed (median of
-     CUDA-event timed launches) beside its bound, its plain version's
-     time and one torch call that computes the same histogram
-     (torch.mm of bf16 operands for the f32 weights, torch._int_mm of
-     int8 ones for the int8 weights);
+     (route_only), I (bins_hist_q, bins_hist_q_packed) and J (seg_hist,
+     on the leaf partition of the leaf ids, whose build is timed too)
+     are checked at W=126 and on the first round too, I's pallas_q
+     entry and J also over all 255 leaves, I at 255 bins.  Each kernel
+     is timed (median of CUDA-event timed launches) beside its bound,
+     its plain version's time and one torch call that computes the same
+     histogram (torch.mm of bf16 operands for the f32 weights,
+     torch._int_mm of int8 ones for the int8 weights);
   3. train through lgb.train at the bench shape (1,000,000 x 28
      synthetic binary task, 255 leaves, max_bin 63) on the card, each
      run with the launch counters zeroed just before it and read just
@@ -32,11 +33,18 @@ Phases, in order; any failure exits nonzero:
      gradients (the fused_streamed plan, kernel D), 3 trees of the
      pre_onehot plan (kernel E's pre_packed entry point), 3 more
      without its strip ladder (the pre entry point), 3 of the pallas
-     plan (kernel F); 3 int8 trees each of fused_tiled (A, B),
-     q_tiled(split_route) (H, G, then B), q_tiled (G), q_onthefly (I's
-     q_packed entry) and pallas(quantized) (I's pallas_q entry), whose
-     model texts must be equal; last 10 trees with quantized int8
-     gradients on the main path (kernels A, B);
+     plan (kernel F) and 3 of pallas_paired (kernel K), whose model
+     texts must be equal; 3 int8 trees each of fused_tiled (A, B),
+     q_tiled(split_route) (H, G, then B), seg_tiled(leaf_partition) (H,
+     J, then B), q_tiled (G), q_onthefly (I's q_packed entry) and
+     pallas(quantized) (I's pallas_q entry), whose model texts must be
+     equal; 10 trees of the default config (the xla plan, no kernel);
+     3 int8 trees each of fused_tiled and seg_tiled without the
+     histogram cache (a second pass of A, or of J on the round's
+     partition, over the parent slots), whose model texts must be
+     equal; 5 trees of lgb.train({"objective": "binary"}) with no other
+     key on 50,000 rows (the xla plan); last 10 trees with quantized
+     int8 gradients on the main path (kernels A, B);
   4. predict held-out rows through Booster.predict on the card (kernel
      C, counted with the quantized run), compare with the plain-version
      predict, and check the AUC;
@@ -572,31 +580,59 @@ def check_float_kernels(dev, n, rehearse, card):
         record(entry, "main" if main else label, ms, plain, bound, by, lib,
                err, unstable_bins(run), hit, main)
 
-    # ---- kernel F: row-major bins, f32 weights
-    for W in (42, 84, 126, 0):
+    # ---- kernels F and K (F's function behind the paired plan's entry
+    # point): row-major bins, f32 weights
+    for entry, W in [("bins_hist", W) for W in (42, 84, 126, 0)] + [
+            ("bins_hist_paired", W) for W in (126, 0)]:
         first = W == 0
         lf = root if first else leaf
         slots = one if first else slots_of(W, L)
+        fn, plain_fn = getattr(H, entry), getattr(H, entry + "_plain")
 
-        def run(lf=lf, slots=slots):
-            return H.bins_hist(bins, w, lf, slots, B)
+        def run(lf=lf, slots=slots, fn=fn):
+            return fn(bins, w, lf, slots, B)
         h_k = run()
-        h_p = H.bins_hist_plain(bins, w, lf, slots, B)
+        h_p = plain_fn(bins, w, lf, slots, B)
         label = "first round (W=1)" if first else f"W={W}"
         S = H.bins_hist_plain(bins, w.abs(), lf, slots, B)
-        err = hold_hist(f"bins_hist {label}", h_k, h_p, S)
+        err = hold_hist(f"{entry} {label}", h_k, h_p, S)
         if W not in (126, 0):
             continue
         ms = time_ms(run, dev, reps)
-        plain = time_ms(lambda: H.bins_hist_plain(bins, w, lf, slots, B),
-                        dev, 3)
+        plain = time_ms(lambda: plain_fn(bins, w, lf, slots, B), dev, 3)
         hit = n_hit(lf, slots)
         bound, by = hist_bound(4 * n, hit, 12 + G, h_k, hit * G * 3)
         # the library call reads the pack-1 one-hot, which F never reads
         lib = library_ms(lf, slots, wT, oh_bf16, dev, reps)
-        record("bins_hist", "main" if W == 126 else label, ms, plain, bound,
+        record(entry, "main" if W == 126 else label, ms, plain, bound,
                by, lib, err, unstable_bins(run), hit, W == 126)
     del oh_bf16, ohb
+    # ---- the xla plan's histogram (the default config's; torch ops, no
+    # kernel) at W=126 and on the first round, rows padded to the
+    # grower's chunk; its count channel must equal kernel F's
+    chunk = H._pick_chunk(n, G, B, 4, min_chunk=1024)
+    pad = -n % chunk
+    xb = torch.nn.functional.pad(bins, (0, 0, 0, pad))
+    xg, xh, xc = (torch.nn.functional.pad(v, (0, pad))
+                  for v in (grad, hess, counts))
+    for W in (126, 0):
+        lf = root if W == 0 else leaf
+        slots = one if W == 0 else slots_of(W, L)
+        xl = torch.nn.functional.pad(lf, (0, pad), value=-1)
+
+        def run(xl=xl, slots=slots):
+            return H.compute_group_histograms(
+                xb, xg, xh, xc, xl, num_leaves=L, max_group_bin=B,
+                chunk=chunk, slots=slots)
+        if not torch.equal(run()[..., 2], H.bins_hist(bins, w, lf, slots,
+                                                      B)[..., 2]):
+            raise AssertionError(f"xla histogram W={W}: counts differ from "
+                                 "kernel F's")
+        ms = time_ms(run, dev, 3)
+        print(f"[phase 2] xla histogram (torch ops) "
+              f"{'first round (W=1)' if W == 0 else f'W={W}'}: {ms:.4f} ms "
+              f"(chunk {chunk}, {xb.shape[0] // chunk} chunks; {card})")
+    del xb
     return out
 
 
@@ -612,6 +648,7 @@ def check_quant_kernels(dev, n, rehearse, card):
     function.  Returns {kernel: numbers}."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.partition import block_slots
 
     rng = np.random.RandomState(17)
     G, B, L = 28, 63, 255
@@ -673,6 +710,50 @@ def check_quant_kernels(dev, n, rehearse, card):
         main = W == 126
         record(name, "main" if main else label, ms, plain_ms, bound, by, lib,
                err, unstable_bins(lambda: fn(*args)), hit, main)
+    # ---- kernel J: the leaf partition of the leaf ids (timed: sort,
+    # searchsorted, scatter and the two gathers), then the segment
+    # histogram at W=126, on the first round and over all 255 leaves.
+    # The partition wants a multiple of its block: the rows are padded
+    # as the grower pads them (leaf -1, zero weights)
+    pad = -n % H.SEG_BLOCK
+    binsT_x = torch.nn.functional.pad(binsT, (0, pad))
+    wqT_x = torch.nn.functional.pad(wqT, (0, pad))
+    for W in (126, 0, L):
+        first = W == 0
+        lf = root if first else leaf
+        slots = one if first else all_leaves if W == L else torch.from_numpy(
+            rng.permutation(L)[:W].astype(np.int32)).to(dev)
+        lf_x = torch.nn.functional.pad(lf, (0, pad), value=-1)
+        part_ms = time_ms(lambda: partition(binsT_x, wqT_x, lf_x, L), dev,
+                          3 if rehearse else 10)
+        binsT_p, wT_p, blk_leaf = partition(binsT_x, wqT_x, lf_x, L)
+        blk_slot = block_slots(blk_leaf, slots, L)
+        args = (binsT_p, wT_p, blk_slot, slots.shape[0], B)
+        label = ("first round (W=1)" if first else "all 255 leaves"
+                 if W == L else f"W={W}")
+        err = hold_hist(f"seg_hist {label}", H.seg_hist(*args),
+                        H.seg_hist_plain(*args), None)
+        ms = time_ms(lambda: H.seg_hist(*args), dev, reps)
+        plain_ms = time_ms(lambda: H.seg_hist_plain(*args), dev, 3)
+        hit = int(torch.isin(lf, slots).sum())
+        live = int(((blk_slot >= 0) & (blk_slot < slots.shape[0])).sum())
+        # blk_slot for every block, the weights of every row of a live
+        # block (gap rows too), the G bin bytes of each row in a slot
+        bound, by = hist_bound(4 * blk_slot.numel() + 12 * live * H.SEG_BLOCK,
+                               hit, G, H.seg_hist(*args), hit * G * 3)
+        lib = int8_library_ms(lf, slots, wqT, oh, dev, reps)
+        main = W == 126
+        print(f"[phase 2] leaf partition {label}: {part_ms:.4f} ms (sort, "
+              f"searchsorted, scatter, two gathers; {live} live blocks of "
+              f"{blk_slot.numel()}; {card})")
+        record("seg_hist", "main" if main else label, ms, plain_ms, bound,
+               by, lib, err, unstable_bins(lambda: H.seg_hist(*args)), hit,
+               main)
+        tag = "" if main else "_" + label.replace(" (W=1)", "").replace(
+            " ", "_")
+        out["seg_hist"][f"partition_ms{tag}"] = part_ms
+        del binsT_p, wT_p
+    del binsT_x, wqT_x
     # ---- kernel H: a pending table, and the zero table of a tree's
     # first round (nothing routes)
     for tb, label in ((table, "main"), (torch.zeros_like(table),
@@ -701,6 +782,19 @@ def check_quant_kernels(dev, n, rehearse, card):
                                  library_ms=None)
     del oh
     return out
+
+
+def partition(binsT, wT, leaf, L):
+    """The seg_tiled plan's partition of a round (the grower's
+    _build_partition): the block-aligned leaf permutation and the
+    partitioned bins and weights."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.partition import (apply_partition,
+                                                  build_leaf_partition)
+    perm, blk_leaf, _ = build_leaf_partition(leaf, num_slots=L,
+                                             block=H.SEG_BLOCK)
+    return (apply_partition(binsT, perm, axis=1),
+            apply_partition(wT, perm, axis=1), blk_leaf)
 
 
 def train_plan(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
@@ -732,6 +826,7 @@ def train_plan(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
 
 
 def main(argv) -> int:
+    t_start = time.perf_counter()
     rehearse = "--rehearse" in argv
     try:
         import torch
@@ -751,7 +846,8 @@ def main(argv) -> int:
               "from the root of a checkout", file=sys.stderr)
         return 2
     dev = torch.device("cpu" if rehearse else "cuda")
-    n_rows, n_valid = (4096, 2048) if rehearse else (1_000_000, 200_000)
+    # (the rehearsal's rows, like the card's, are no multiple of 512)
+    n_rows, n_valid = (4000, 2048) if rehearse else (1_000_000, 200_000)
 
     # ---- phase 1: the card and the kernel build
     card = "cpu rehearsal" if rehearse else card_line()
@@ -787,18 +883,33 @@ def main(argv) -> int:
     # streamed one-hot without the fused route (pre_onehot: its strip
     # ladder takes the pre_packed entry point for every round of a
     # 126-wide frontier, and the pre entry point without the ladder),
-    # and no one-hot budget (pallas)
-    # and no one-hot budget (pallas).  Then the int8 plans without the
-    # fused route, 3 trees each, whose model text must equal the 3-tree
-    # fused_tiled model's byte for byte (integer histograms make it
-    # exact whichever kernel built them): the split route (kernel H,
-    # then G; B at exit), q_tiled (G), q_onthefly (I's q_packed entry at
-    # every round of a 126-wide frontier) and the quantized pallas body
-    # (I's pallas_q entry)
+    # no one-hot budget (pallas) and the paired kernel (pallas_paired,
+    # whose model text must equal pallas's: kernels F and K compute one
+    # function).  Then the int8 plans without the fused route, 3 trees
+    # each, whose model text must equal the 3-tree fused_tiled model's
+    # byte for byte (integer histograms make it exact whichever kernel
+    # built them): the split route (kernel H, then G; B at exit), the
+    # leaf partition (H, the partition, J; B at exit), q_tiled (G),
+    # q_onthefly (I's q_packed entry at every round of a 126-wide
+    # frontier) and the quantized pallas body (I's pallas_q entry).
+    # Then the default config (no quantized_grad, hist_compute_dtype
+    # float32: the xla plan, torch ops and no kernel), and fused_tiled
+    # and seg_tiled without the histogram cache (histogram_pool_size
+    # below it: each round's second pass over the parent slots), whose
+    # two model texts must be equal
     fparams = dict(params, quantized_grad=False)
     otf = {"hist_kernel_tiled": False, "hist_fused_route": False}
+    default = {k: v for k, v in params.items()
+               if k not in ("quantized_grad", "hist_compute_dtype")}
+    no_cache = dict(params, histogram_pool_size=0.001)
     plan_runs = {}          # kernel -> {run label: launches in that run}
-    ref_text = None
+    texts = {}              # run label -> model text
+    # run label -> the earlier run whose model text it must equal
+    same_text = {"f32 pallas_paired": "f32 pallas",
+                 "int8 no cache, seg_tiled": "int8 no cache, fused_tiled"}
+    same_text.update({k: "int8 fused_tiled, 3 trees" for k in (
+        "int8 q_tiled(split_route)", "int8 seg_tiled(leaf_partition)",
+        "int8 q_tiled", "int8 q_onthefly", "int8 pallas(quantized)")})
     # (10 trees must reach a held-out AUC above 0.8; 3 trees above 0.75)
     for label, run_params, rounds, plan, want in [
             ("f32 fused_streamed", fparams, 10, "fused_streamed",
@@ -811,11 +922,17 @@ def main(argv) -> int:
              ("hist_pre",)),
             ("f32 pallas", dict(fparams, hist_onehot_budget_mb=0), 3,
              "pallas", ("bins_hist",)),
+            ("f32 pallas_paired", dict(fparams, hist_kernel="paired"), 3,
+             "pallas_paired", ("bins_hist_paired",)),
             ("int8 fused_tiled, 3 trees", params, 3, "fused_tiled",
              ("fused_route_hist", "route_apply")),
             ("int8 q_tiled(split_route)",
              dict(params, hist_split_route=True), 3, "q_tiled(split_route)",
              ("route_only", "tiled_hist", "route_apply")),
+            ("int8 seg_tiled(leaf_partition)",
+             dict(params, hist_leaf_partition="on"), 3,
+             "seg_tiled(leaf_partition)",
+             ("route_only", "seg_hist", "route_apply")),
             ("int8 q_tiled", dict(params, hist_fused_route=False), 3,
              "q_tiled", ("tiled_hist",)),
             ("int8 q_onthefly", dict(params, **otf), 3, "q_onthefly",
@@ -823,7 +940,14 @@ def main(argv) -> int:
             ("int8 pallas(quantized)",
              dict(params, hist_quant_onthefly=False,
                   hist_onehot_budget_mb=0, **otf), 3, "pallas(quantized)",
-             ("bins_hist_q",))]:
+             ("bins_hist_q",)),
+            ("default config", default, 10, "xla", ()),
+            ("int8 no cache, fused_tiled", no_cache, 3, "fused_tiled",
+             ("fused_route_hist", "route_apply")),
+            ("int8 no cache, seg_tiled",
+             dict(no_cache, hist_leaf_partition="on"), 3,
+             "seg_tiled(leaf_partition)",
+             ("route_only", "seg_hist", "route_apply"))]:
         r_bst, r_auc, r_launches = train_plan(
             lgb, kernels, run_params, train_ds, valid_ds, rounds, dev, card,
             label, plan)
@@ -837,15 +961,41 @@ def main(argv) -> int:
         for name, count in r_launches.items():
             if count:
                 plan_runs.setdefault(name, {})[label] = count
-        if plan == "fused_tiled":
-            ref_text = r_bst.model_to_string()
-        elif label.startswith("int8"):
-            if r_bst.model_to_string() != ref_text:
+        texts[label] = r_bst.model_to_string()
+        ref = same_text.get(label)
+        if ref is not None:
+            if texts[label] != texts[ref]:
                 raise AssertionError(f"{label}: the model text differs from "
-                                     "the 3-tree fused_tiled model's")
-            print(f"[phase 3] {label}: model text equals the 3-tree "
-                  "fused_tiled model's")
+                                     f"the {ref} model's")
+            print(f"[phase 3] {label}: model text equals the {ref} model's")
         del r_bst
+    # without the cache a left child's histogram is dequantized directly,
+    # not parent minus right in f32: the leaf values move in the last
+    # bits, and a near-tie between two thresholds may fall the other way
+    for key in ("split_feature=", "threshold="):
+        same = [ln for ln in texts["int8 no cache, fused_tiled"].splitlines()
+                if ln.startswith(key)] == [
+            ln for ln in texts["int8 fused_tiled, 3 trees"].splitlines()
+            if ln.startswith(key)]
+        print(f"[phase 3] no cache: every tree's {key[:-1]} line equals the "
+              f"cached 3-tree fused_tiled model's: {same}")
+    # {"objective": "binary"} and no other key (device defaults to the
+    # card): 5 trees on the first 50,000 rows
+    m = min(n_rows, 50_000)
+    t0 = time.perf_counter()
+    bare = lgb.train(dict({"objective": "binary"},
+                          **({"device": "cpu"} if rehearse else {})),
+                     lgb.Dataset(X[:m], label=y[:m]), 5, verbose_eval=False,
+                     keep_training_booster=True)
+    bare_auc = auc_score(yv, bare.predict(Xv))
+    print(f"[phase 3] lgb.train({{'objective': 'binary'}}) on {m} rows: "
+          f"plan {bare.gbdt.grower.plan.name}, 5 trees in "
+          f"{time.perf_counter() - t0:.2f} s, held-out AUC {bare_auc:.4f} "
+          f"({card})")
+    if bare.gbdt.grower.plan.name != "xla" or bare_auc <= 0.75:
+        raise AssertionError("the bare default config did not train the "
+                             "xla plan to a held-out AUC above 0.75")
+    del bare
     # the quantized main path last, so Booster.predict below counts
     # into the same window (kernels A, B, then C)
     bst, valid_auc, q_launches = train_plan(lgb, kernels, params, train_ds,
@@ -918,6 +1068,8 @@ def main(argv) -> int:
         "hist_pre": (onehot, "lightgbm_tpu/ops/histogram.py:727"),
         "bins_hist": ("lightgbm_tpu_torch/csrc/bins_hist.cu",
                       "lightgbm_tpu/ops/histogram.py:224"),
+        "bins_hist_paired": ("lightgbm_tpu_torch/csrc/bins_hist.cu",
+                             "lightgbm_tpu/ops/histogram.py:273"),
         "tiled_hist": ("lightgbm_tpu_torch/csrc/fused_route_hist.cu",
                        "lightgbm_tpu/ops/histogram.py:1021"),
         "route_only": ("lightgbm_tpu_torch/csrc/route_apply.cu",
@@ -926,6 +1078,8 @@ def main(argv) -> int:
                         "lightgbm_tpu/ops/histogram.py:381"),
         "bins_hist_q_packed": ("lightgbm_tpu_torch/csrc/bins_hist.cu",
                                "lightgbm_tpu/ops/histogram.py:897"),
+        "seg_hist": ("lightgbm_tpu_torch/csrc/seg_hist.cu",
+                     "lightgbm_tpu/ops/histogram.py:1520"),
     })
     rows = []
     for name, (src, rep) in replaces.items():
@@ -941,6 +1095,8 @@ def main(argv) -> int:
                      "launches_by_run": runs,
                      "bound_by": "bytes", "library_ms": None,
                      **numbers[name]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernel "
+          "build included")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

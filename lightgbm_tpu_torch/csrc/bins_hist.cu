@@ -1,11 +1,19 @@
 // Frontier histograms from the row-major bin matrix: f32 weights
-// (kernel F) and int8-quantized weights (kernel I).  One template, two
-// entry points.
+// (kernels F and K) and int8-quantized weights (kernel I).  One
+// template, three entry points.
 //
 // Kernel F replaces the Pallas kernel _hist_kernel_body
 // (lightgbm_tpu/ops/histogram.py:224, entry compute_group_histograms_pallas
 // :544): the plan the grower takes when the streamed one-hot does not fit
 // its memory budget.
+//
+// Kernel K replaces the Pallas kernel _hist_kernel_body_paired
+// (lightgbm_tpu/ops/histogram.py:273, entry
+// compute_group_histograms_pallas_paired :363), F's function with the
+// per-group one-hots dotted in group pairs so that each dot fills the
+// MXU's 128 lanes (B = 64 pairs to 128).  That pairing is a TPU lane
+// layout and means nothing here: K is F's template instance behind its
+// own C entry point, counted under its own name (ops/kernels.py).
 //
 // Kernel I replaces two Pallas kernels that compute the same function on
 // a GPU: _hist_kernel_body_q (lightgbm_tpu/ops/histogram.py:381, entry
@@ -28,8 +36,9 @@
 // TPU's per-column compare does; a negative slot matches nothing (leaf
 // ids of live rows are >= 0).
 //
-// F rounds its weights to bf16 (round-to-nearest-even, the TPU kernel's
-// cast before its dot) and accumulates in f64 with global atomics; the
+// F and K round their weights to bf16 (round-to-nearest-even, the TPU
+// kernel's cast before its dot) and accumulate in f64 with global atomics;
+// the
 // wrapper rounds the sums once to f32 (see onehot_hist.cu for why that
 // makes the result independent of the atomics' order up to f32 rounding
 // boundaries).  I adds the int32 quantized weights (in [-127, 127]) with
@@ -126,6 +135,18 @@ extern "C" int ltt_bins_hist(const void* bins, const void* w,
                              const void* leaf_in, const void* slots,
                              void* hist, int64_t n, int G, int B, int W,
                              void* stream) {
+  return launch_bins_hist<float, double>(bins, w, leaf_in, slots, hist, n,
+                                         G, B, W, stream);
+}
+
+// Kernel K.  The same function as kernel F, behind the pallas_paired
+// plan's entry point: bins (n, G) uint8, w (n, 3) f32, leaf_in (n,)
+// int32, slots (W,) int32 -> hist (W, G, B, 3) f64 (zeroed by the
+// caller).  Returns the launch's cudaGetLastError().
+extern "C" int ltt_bins_hist_paired(const void* bins, const void* w,
+                                    const void* leaf_in, const void* slots,
+                                    void* hist, int64_t n, int G, int B,
+                                    int W, void* stream) {
   return launch_bins_hist<float, double>(bins, w, leaf_in, slots, hist, n,
                                          G, B, W, stream);
 }

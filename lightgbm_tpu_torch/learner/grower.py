@@ -3,7 +3,7 @@
 Port of lightgbm_tpu/learner/grower.py for the serial learner's
 single-device kernel plans.  :func:`resolve_plan` picks the plan the
 JAX grower picks for the same config and data (grower.py:318-543, with
-CUDA in the role of the TPU check); eight of them run here:
+CUDA in the role of the TPU check); all eleven of them run here:
 
   fused_tiled     quantized int8 gradients: kernel A routes last
                   round's splits and histograms the new leaves in one
@@ -13,6 +13,11 @@ CUDA in the role of the TPU check); eight of them run here:
                   (hist_split_route) kernel H routes last round's
                   splits in its own pass, then kernel G histograms the
                   new leaves from the transposed bins; B at exit
+  seg_tiled(leaf_partition)
+                  (hist_leaf_partition=on) kernel H routes, the rows
+                  are regrouped by leaf into 512-row blocks
+                  (ops/partition.py build_leaf_partition), and kernel J
+                  histograms the new leaves' blocks; B at exit
   q_tiled         (hist_fused_route=false) kernel G histograms; the
                   splits are applied every round (apply_splits)
   fused_streamed  kernel D does the same from the streamed bin one-hot
@@ -30,8 +35,12 @@ CUDA in the role of the TPU check); eight of them run here:
                   splits applied every round
   pallas          kernel F histograms the row-major bins with f32
                   weights; splits applied every round
+  pallas_paired   (hist_kernel=paired) kernel K, F's function; splits
+                  applied every round
+  xla             (the default hist_compute_dtype=float32, or
+                  hist_kernel=xla) the XLA one-hot contraction in torch
+                  ops, no kernel; splits applied every round
 
-The others (seg_tiled, pallas_paired, xla) raise and name the plan.
 Integer histograms make every int8 plan grow the same trees as
 fused_tiled, whichever kernel built them.
 
@@ -43,8 +52,10 @@ each round
      kernel builds the histograms of the new right children (routing
      the pending splits first on the fused plans); each left child is
      parent minus right (the reference's subtraction trick,
-     serial_tree_learner.cpp:505-507); the split finder runs on those
-     new leaves only and caches their best candidates;
+     serial_tree_learner.cpp:505-507), or, when the histogram cache
+     exceeds ``histogram_pool_size``, histogrammed directly in a second
+     pass over the parent slots; the split finder runs on those new
+     leaves only and caches their best candidates;
   2. splits every leaf whose cached candidate clears the gain bar,
      gain-ordered within the remaining leaf budget and the frontier
      width (the JAX grower's documented batched best-first order);
@@ -55,9 +66,8 @@ each round
 Because the loop runs on the host, the round knows how many leaves are
 new (one small device-to-host read per round) and runs the finder on
 exactly those, where the JAX grower pads to its strip ladder; the
-results are the same, row by row.  Training without the histogram
-cache, distributed learners, forced splits and categorical features are
-not ported yet and raise.
+results are the same, row by row.  Distributed learners, forced splits
+and categorical features are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -70,47 +80,38 @@ import torch
 from ..config import Config
 from ..dataset import Dataset
 from ..ops.histogram import (PACKED_STRIP, QUANT_ROW_LIMIT, QUANT_WEIGHT_MAX,
-                             bins_hist, compute_group_histograms_fused,
+                             SEG_BLOCK, _pick_chunk, bins_hist,
+                             bins_hist_paired, compute_group_histograms,
+                             compute_group_histograms_fused,
                              compute_group_histograms_fused_tiled,
                              compute_group_histograms_pallas_q,
                              compute_group_histograms_pre,
                              compute_group_histograms_pre_packed,
                              compute_group_histograms_q_packed,
                              compute_group_histograms_q_tiled,
+                             compute_group_histograms_seg_tiled,
                              compute_root_totals, expand_feature_histograms,
                              onehot_width, precompute_bin_onehot,
                              precompute_bin_onehot_packed,
                              quantize_gradients, route_apply_tiled,
                              route_only_tiled)
-from ..ops.partition import (ROUTE_FIXED_COLS, apply_splits,
+from ..ops.partition import (ROUTE_FIXED_COLS, apply_partition, apply_splits,
+                             block_slots, build_leaf_partition,
                              build_route_table)
 from ..ops.split import (CAND_COLS, CAND_DEFAULT_LEFT, CAND_FEATURE,
                          CAND_GAIN, CAND_LOUT, CAND_LSC, CAND_LSG, CAND_LSH,
                          CAND_ROUT, CAND_THRESHOLD, find_best_split_block)
 from ..utils.log import Log
 
-#: the plans this grower runs
-PORTED_PLANS = ("fused_tiled", "q_tiled(split_route)", "q_tiled",
-                "fused_streamed", "q_onthefly", "pre_onehot",
-                "pallas(quantized)", "pallas")
-
-
-def _pick_chunk(n: int, num_groups: int, max_group_bin: int,
-                itemsize: int, target_bytes: int = 1 << 26,
-                min_chunk: int = 1024) -> int:
-    """Row-padding granularity: the JAX grower's rule off-TPU, kept so
-    both packages pad to the same row count."""
-    per_row = max(num_groups * max_group_bin * itemsize, 1)
-    chunk = max(min_chunk, min(n, target_bytes // per_row))
-    return int(max(min_chunk, (chunk // min_chunk) * min_chunk))
+#: plans that route the pending splits in their own pass (kernel H)
+#: before the histogram
+_ROUTE_FIRST = ("q_tiled(split_route)", "seg_tiled(leaf_partition)")
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: lightgbm_tpu_torch runs the serial "
-        "learner's " + ", ".join(PORTED_PLANS[:-1]) + " and "
-        + PORTED_PLANS[-1] + " plans (hist_compute_dtype=bfloat16, "
-        "numerical features)")
+        "learner on one device, with numerical features")
 
 
 @dataclass(frozen=True)
@@ -257,11 +258,18 @@ class TreeGrower:
             raise _not_ported("forced splits")
         self.num_leaves = L = config.num_leaves
         self.frontier = min(L - 1, config.frontier_width or 126)
+        # histogram memory governance (the JAX grower's :237-252): over
+        # the budget, no (L, G, B, 3) cache and no subtraction — both
+        # children of every split are histogrammed directly
         pool = float(getattr(config, "histogram_pool_size", -1.0))
         cache_mb = (L * dataset.num_groups * dataset.max_group_bin * 12
                     ) / (1 << 20)
-        if not (pool < 0 or cache_mb <= pool):
-            raise _not_ported("training without the histogram cache")
+        self.use_hist_cache = pool < 0 or cache_mb <= pool
+        if not self.use_hist_cache:
+            Log.warning(f"histogram cache ({cache_mb:.0f} MB) exceeds "
+                        f"histogram_pool_size ({pool:.0f} MB); disabling "
+                        "histogram subtraction (children computed "
+                        "directly — ~2x histogram passes)")
         self.max_group_bin = dataset.max_group_bin
         self.max_feature_bin = dataset.max_feature_bin
         self.num_groups = dataset.num_groups
@@ -272,17 +280,17 @@ class TreeGrower:
 
         n = dataset.num_data
         self.num_data = n
-        chunk = _pick_chunk(n, self.num_groups, self.max_group_bin,
-                            4 if config.hist_compute_dtype == "float32"
-                            else 2)
-        self.n_padded = -(-n // chunk) * chunk
+        # the JAX grower's padding rule off the TPU: the xla plan's row
+        # chunk, so both packages pad to the same row count
+        self.chunk = _pick_chunk(n, self.num_groups, self.max_group_bin,
+                                 4 if config.hist_compute_dtype == "float32"
+                                 else 2, min_chunk=1024)
+        self.n_padded = -(-n // self.chunk) * self.chunk
         lay = getattr(dataset, "bin_layout", None)
         self.plan = resolve_plan(
             config, n_padded=self.n_padded, num_groups=self.num_groups,
             max_group_bin=self.max_group_bin, frontier=self.frontier,
             pack_P=lay.device_spec if lay is not None else 0)
-        if self.plan.name not in PORTED_PLANS:
-            raise _not_ported(f"the {self.plan.name} histogram plan")
 
         def dev(a, dtype=None):
             t = torch.as_tensor(np.asarray(a))
@@ -431,8 +439,9 @@ class TreeGrower:
         tree["leaf_count"][0] = totals[2]
         cand = torch.zeros((L, CAND_COLS + self.max_feature_bin), device=d)
         cand[:, CAND_GAIN] = -np.inf
-        hist_cache = torch.zeros((L, self.num_groups, self.max_group_bin, 3),
-                                 device=d)
+        hist_cache = torch.zeros(
+            (L, self.num_groups, self.max_group_bin, 3),
+            device=d) if self.use_hist_cache else None
         route_tab = torch.zeros((L, self.route_cols), device=d)
         # gradients are fixed for the whole tree: quantize (or stack)
         # the weights once, in the layout the plan's kernel reads
@@ -449,13 +458,31 @@ class TreeGrower:
         rights = torch.zeros(1, dtype=torch.int32, device=d)  # the root
         for round_idx in range(self.max_rounds):
             # ---- refresh the leaves created last round
+            part = None
+            if plan.name in _ROUTE_FIRST:
+                # the pending splits in their own pass (JAX grower.py
+                # :1289-1313); seg_tiled then regroups the rows by leaf
+                # once for the round's passes
+                leaf_id = route_only_tiled(self.binsT, leaf_id, route_tab)
+                if plan.name == "seg_tiled(leaf_partition)":
+                    part = self._build_partition(leaf_id, w)
             right_hist, leaf_id = self._histogram(
-                w, scales, leaf_id, route_tab, rights)
-            left_hist = hist_cache[parents.long()] - right_hist[
-                :parents.shape[0]]
+                w, scales, leaf_id, route_tab, rights, part)
+            if self.use_hist_cache:
+                left_hist = hist_cache[parents.long()] - right_hist[
+                    :parents.shape[0]]
+            elif parents.shape[0]:
+                # no cache (JAX grower.py:1325-1345): the parent slots
+                # now hold the left children's rows, already routed (a
+                # fused kernel's second routing of them is idempotent)
+                left_hist = self._histogram(w, scales, leaf_id, route_tab,
+                                            parents, part)[0]
+            else:
+                left_hist = right_hist[:0]
             slots = torch.cat([parents, rights]).long()
             h_new = torch.cat([left_hist, right_hist])
-            hist_cache[slots] = h_new
+            if self.use_hist_cache:
+                hist_cache[slots] = h_new
             cand[slots] = self._find_splits(st, slots, h_new, feature_mask)
 
             # ---- select: top-W candidates by gain within the budget
@@ -509,20 +536,40 @@ class TreeGrower:
         return self.packed_dispatch and (k <= 2 * PACKED_STRIP or
                                          self.frontier <= 3 * PACKED_STRIP)
 
-    def _histogram(self, w, scales, leaf_id, route_tab, slots):
+    def _build_partition(self, leaf_id, wT):
+        """The round's leaf partition (JAX grower.py _build_partition
+        :995-1010): the stable block-aligned permutation of the routed
+        leaf ids and the partitioned copies of the transposed bins and
+        the (3, N) int8 weights that kernel J streams."""
+        perm, blk_leaf, _ = build_leaf_partition(
+            leaf_id, num_slots=self.num_leaves, block=SEG_BLOCK)
+        return (apply_partition(self.binsT, perm, axis=1),
+                apply_partition(wT, perm, axis=1), blk_leaf)
+
+    def _seg_histogram(self, part, scales, slots):
+        """Kernel J over the partition ``part``: each block's owning
+        leaf mapped to its position in ``slots`` (JAX grower.py
+        _hist_kernel_seg :1013-1047; the JAX ladder rung is exactly
+        ``len(slots)`` here)."""
+        binsT_p, wT_p, blk_leaf = part
+        return compute_group_histograms_seg_tiled(
+            binsT_p, wT_p, scales,
+            block_slots(blk_leaf, slots, self.num_leaves),
+            num_out=slots.shape[0], max_group_bin=self.max_group_bin)
+
+    def _histogram(self, w, scales, leaf_id, route_tab, slots, part=None):
         """The plan's histogram pass over ``slots`` with the tree's
-        weights ``w`` (in the layout the plan's kernel reads): returns
-        ((W, G, B, 3) f32 histograms, leaf ids after the pass)."""
+        weights ``w`` (in the layout the plan's kernel reads) and, on
+        seg_tiled, the round's partition ``part``: returns ((W, G, B, 3)
+        f32 histograms, leaf ids after the pass)."""
         plan = self.plan
         B, G = self.max_group_bin, self.num_groups
         if plan.name == "fused_tiled":
             return compute_group_histograms_fused_tiled(
                 self.binsT, w, scales, leaf_id, route_tab, slots,
                 max_group_bin=B)
-        if plan.name == "q_tiled(split_route)":
-            # the pending splits in their own pass, then the route-free
-            # histogram (JAX grower.py:1303-1313)
-            leaf_id = route_only_tiled(self.binsT, leaf_id, route_tab)
+        if plan.name == "seg_tiled(leaf_partition)":
+            return self._seg_histogram(part, scales, slots), leaf_id
         if plan.tiled:
             # every width a tiled plan allows (<= 126) fits kernel G; the
             # JAX grower's full-width rung, which only
@@ -538,6 +585,15 @@ class TreeGrower:
                 num_groups=G)
         if plan.name == "pallas":
             return bins_hist(self.bins, w, leaf_id, slots, B), leaf_id
+        if plan.name == "pallas_paired":
+            return bins_hist_paired(self.bins, w, leaf_id, slots,
+                                    B), leaf_id
+        if plan.name == "xla":
+            return compute_group_histograms(
+                self.bins, w[:, 0], w[:, 1], w[:, 2], leaf_id,
+                num_leaves=self.num_leaves, max_group_bin=B,
+                compute_dtype=self.config.hist_compute_dtype,
+                chunk=self.chunk, slots=slots), leaf_id
         if plan.name == "pallas(quantized)":
             return compute_group_histograms_pallas_q(
                 self.bins, w, scales, leaf_id, num_leaves=self.num_leaves,

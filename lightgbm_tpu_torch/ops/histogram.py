@@ -1,7 +1,8 @@
 """Histogram construction: quantized gradients, the fused route +
 frontier histogram and its route-free twin, the route passes (exit
-route, route only), the histograms of the streamed bin one-hot and of
-the bin matrix (f32 or int8 weights), and the per-feature view.
+route, route only), the histograms of the streamed bin one-hot, of the
+bin matrix (f32 or int8 weights) and of leaf-partitioned rows, the XLA
+one-hot contraction, and the per-feature view.
 
 Port of lightgbm_tpu/ops/histogram.py for the serial learner's plans.
 Every device kernel of a training round is hand-written CUDA:
@@ -14,13 +15,17 @@ Every device kernel of a training round is hand-written CUDA:
   E  csrc/onehot_hist.cu       compute_group_histograms_pre_packed,
                                compute_group_histograms_pre
   F  csrc/bins_hist.cu         compute_group_histograms_pallas
+  K  csrc/bins_hist.cu         compute_group_histograms_pallas_paired
   I  csrc/bins_hist.cu         compute_group_histograms_pallas_q,
                                compute_group_histograms_q_packed
+  J  csrc/seg_hist.cu          compute_group_histograms_seg_tiled
 
 Each has a plain PyTorch version here with the same contract.  A
 wrapper launches the kernel for CUDA tensors and takes the plain
 version only for tensors on the CPU (the tests' device); there is no
-fallback between the two.
+fallback between the two.  compute_group_histograms, the XLA form the
+JAX package runs outside any Pallas kernel, is torch ops on every
+device.
 """
 from __future__ import annotations
 
@@ -704,11 +709,11 @@ def compute_group_histograms_pre(
 def bins_hist_plain(bins: torch.Tensor, w: torch.Tensor,
                     leaf_id: torch.Tensor, slots: torch.Tensor,
                     max_group_bin: int) -> torch.Tensor:
-    """Plain version of kernels F, G and I: the (W, G, B, 3) histogram
-    of the rows whose leaf equals each slot; bins >= B match nothing.
-    ``bins`` is (N, G) and ``w`` (N, 3), any strides: f32 weights give
-    f32 sums of their bf16 roundings (accumulated in f64, rounded once),
-    int32 quantized weights give exact int32 sums."""
+    """Plain version of kernels F, G, I, J and K: the (W, G, B, 3)
+    histogram of the rows whose leaf equals each slot; bins >= B match
+    nothing.  ``bins`` is (N, G) and ``w`` (N, 3), any strides: f32
+    weights give f32 sums of their bf16 roundings (accumulated in f64,
+    rounded once), int32 quantized weights give exact int32 sums."""
     N, G = bins.shape
     B = max_group_bin
     W = slots.shape[0]
@@ -764,6 +769,27 @@ def bins_hist(bins: torch.Tensor, w: torch.Tensor, leaf_id: torch.Tensor,
                       torch.float32)
 
 
+def bins_hist_paired_plain(bins: torch.Tensor, w: torch.Tensor,
+                           leaf_id: torch.Tensor, slots: torch.Tensor,
+                           max_group_bin: int) -> torch.Tensor:
+    """Plain version of kernel K: kernel F's function (the paired TPU
+    body computes the same histogram as _hist_kernel_body)."""
+    return bins_hist_plain(bins, w, leaf_id, slots, max_group_bin)
+
+
+def bins_hist_paired(bins: torch.Tensor, w: torch.Tensor,
+                     leaf_id: torch.Tensor, slots: torch.Tensor,
+                     max_group_bin: int) -> torch.Tensor:
+    """Kernel K on CUDA tensors, its plain version on CPU tensors.
+
+    Kernel K (csrc/bins_hist.cu, F's template behind its own entry
+    point) replaces the Pallas kernel _hist_kernel_body_paired
+    (lightgbm_tpu/ops/histogram.py:273), whose group pairing only fills
+    the TPU's 128 lanes; same contract as :func:`bins_hist`."""
+    return _bins_hist("bins_hist_paired", bins, w, leaf_id, slots,
+                      max_group_bin, torch.float32)
+
+
 def bins_hist_q(bins: torch.Tensor, wq: torch.Tensor, leaf_id: torch.Tensor,
                 slots: torch.Tensor, max_group_bin: int) -> torch.Tensor:
     """Kernel I behind compute_group_histograms_pallas_q (replaces
@@ -798,6 +824,19 @@ def compute_group_histograms_pallas(
     return bins_hist(bins, w, leaf_id, slots, max_group_bin)
 
 
+def compute_group_histograms_pallas_paired(
+        bins: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+        counts: torch.Tensor, leaf_id: torch.Tensor, *, num_leaves: int,
+        max_group_bin: int, slots=None) -> torch.Tensor:
+    """Paired-dot histogram (same contract as
+    :func:`compute_group_histograms_pallas`), through kernel K."""
+    if slots is None:
+        slots = torch.arange(num_leaves, dtype=torch.int32,
+                             device=leaf_id.device)
+    w = torch.stack([grad, hess, counts], dim=1).to(torch.float32)
+    return bins_hist_paired(bins, w, leaf_id, slots, max_group_bin)
+
+
 def compute_group_histograms_pallas_q(
         bins: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor,
         leaf_id: torch.Tensor, *, num_leaves: int, max_group_bin: int,
@@ -826,6 +865,156 @@ def compute_group_histograms_q_packed(
                          f"{slots.shape[0]}")
     hist = bins_hist_q_packed(bins, wq, leaf_id, slots, max_group_bin)
     return hist.to(torch.float32) * scales
+
+
+# ---------------------------------------------------------------------------
+# Kernel J: int8 histogram of leaf-partitioned rows
+# ---------------------------------------------------------------------------
+#: rows per partition block: the JAX grower's leaf_part_block
+#: (lightgbm_tpu/learner/grower.py:502)
+SEG_BLOCK = 512
+
+
+def seg_hist_plain(binsT_p: torch.Tensor, wT_p: torch.Tensor,
+                   blk_slot: torch.Tensor, num_out: int, max_group_bin: int,
+                   block: int = SEG_BLOCK) -> torch.Tensor:
+    """Plain version of kernel J: the (num_out, G, B, 3) int32 histogram
+    of the partitioned rows, each row counted in its block's slot; a
+    block whose slot is negative or >= num_out adds nothing."""
+    row_slot = blk_slot.repeat_interleave(block)
+    slots = torch.arange(num_out, dtype=torch.int32, device=blk_slot.device)
+    return bins_hist_plain(binsT_p.t(), wT_p.t(), row_slot, slots,
+                           max_group_bin)
+
+
+def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
+             blk_slot: torch.Tensor, num_out: int, max_group_bin: int,
+             block: int = SEG_BLOCK) -> torch.Tensor:
+    """Kernel J on CUDA tensors, its plain version on CPU tensors: the
+    (num_out, G, B, 3) int32 histogram of leaf-partitioned rows.
+
+    Kernel J (csrc/seg_hist.cu) replaces the Pallas kernel
+    _hist_kernel_body_seg_tiled (lightgbm_tpu/ops/histogram.py:1520).
+    ``binsT_p`` is the (G, n_cap) uint8 and ``wT_p`` the (3, n_cap)
+    int32 operands in partitioned order (ops/partition.py
+    apply_partition; gap rows carry zero weight), ``blk_slot`` the
+    (n_cap / block,) int32 output slot of each row block (-1: skip)."""
+    _check(binsT_p, "binsT_p", torch.uint8, 2)
+    _check(wT_p, "wT_p", torch.int32, 2)
+    _check(blk_slot, "blk_slot", torch.int32, 1)
+    _check_bins(max_group_bin)
+    G, n_cap = binsT_p.shape
+    if wT_p.shape != (3, n_cap):
+        raise ValueError(f"wT_p {tuple(wT_p.shape)} does not match "
+                         f"n_cap={n_cap}")
+    if n_cap % block or blk_slot.shape != (n_cap // block,):
+        raise ValueError(f"n_cap ({n_cap}) must be a multiple of block "
+                         f"({block}) with one blk_slot entry per block")
+    dev = _same_device(binsT_p, wT_p, blk_slot)
+    if dev.type != "cuda":
+        return seg_hist_plain(binsT_p, wT_p, blk_slot, num_out,
+                              max_group_bin, block)
+    hist = torch.zeros((num_out, G, max_group_bin, 3), dtype=torch.int32,
+                       device=dev)
+    # a CTA walks a run of consecutive blocks and flushes its shared
+    # histogram when the slot changes: about 1024 CTAs in all
+    per_cta = max(1, (n_cap // block) // 1024)
+    kernels.launch("seg_hist", binsT_p.data_ptr(), wT_p.data_ptr(),
+                   blk_slot.data_ptr(), hist.data_ptr(), n_cap, G,
+                   max_group_bin, num_out, block, per_cta)
+    return hist
+
+
+def compute_group_histograms_seg_tiled(
+        binsT_p: torch.Tensor, wT_p: torch.Tensor, scales: torch.Tensor,
+        blk_slot: torch.Tensor, *, num_out: int, max_group_bin: int,
+        block: int = SEG_BLOCK) -> torch.Tensor:
+    """Leaf-partitioned int8 histogram, dequantized: (num_out, G, B, 3)
+    f32 (the contract of compute_group_histograms_q_tiled with the block
+    map in place of the slot list).  The nibble-packed storage of the
+    JAX entry point (``packed_groups``) has no counterpart: the port's
+    bins are unpacked on the host."""
+    hist = seg_hist(binsT_p, wT_p, blk_slot, num_out, max_group_bin, block)
+    return hist.to(torch.float32) * scales
+
+
+# ---------------------------------------------------------------------------
+# The XLA form: one-hot contraction in torch ops (no kernel)
+# ---------------------------------------------------------------------------
+def _pick_chunk(n: int, num_groups: int, max_group_bin: int,
+                itemsize: int, target_bytes: int = 1 << 26,
+                min_chunk: int = 4096) -> int:
+    """Row chunk bounding the materialized one-hot to ~64 MB
+    (lightgbm_tpu/ops/histogram.py _pick_chunk); the grower passes
+    ``min_chunk=1024``, the JAX grower's rule off the TPU, so both
+    packages pad to the same row count."""
+    per_row = max(num_groups * max_group_bin * itemsize, 1)
+    chunk = max(min_chunk, min(n, target_bytes // per_row))
+    return int(max(min_chunk, (chunk // min_chunk) * min_chunk))
+
+
+def compute_group_histograms(bins: torch.Tensor, grad: torch.Tensor,
+                             hess: torch.Tensor, counts: torch.Tensor,
+                             leaf_id: torch.Tensor, *, num_leaves: int,
+                             max_group_bin: int,
+                             compute_dtype: str = "float32",
+                             chunk=None, slots=None) -> torch.Tensor:
+    """The XLA histogram formulation of lightgbm_tpu/ops/histogram.py
+    compute_group_histograms (:131), in torch ops on the bins' device:
+    per row chunk, the (C, 3W) leaf one-hot times the weights and the
+    (C, G*B) bin one-hot, contracted as ONE (3W x C) @ (C x G*B) f32
+    product, the chunks summed in f32.  Every leaf (``slots`` None) or
+    the given slots (negative entries match nothing).
+
+    The JAX package leaves this product to XLA outside any kernel, so it
+    is a torch.matmul here.  It must run in full f32: the function
+    raises when torch.get_float32_matmul_precision() is not "highest"
+    (TF32 would cost ~1e-3 relative).  With ``compute_dtype="bfloat16"``
+    the weights are rounded to bf16 and multiplied in f32 — the same
+    products as the JAX bf16 x bf16 -> f32 dot (a bf16 matmul here would
+    return a bf16 sum).
+
+    bins (N, G) uint8 (N a multiple of ``chunk``), grad/hess/counts
+    (N,) f32, leaf_id (N,) int32 (negative = ignore) ->
+    (L|W, G, B, 3) f32."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "compute_group_histograms needs full-f32 matmuls: "
+            "torch.get_float32_matmul_precision() is "
+            f"{torch.get_float32_matmul_precision()!r}, not 'highest'")
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{compute_dtype!r}")
+    _check(bins, "bins", torch.uint8, 2)
+    n, G = bins.shape
+    B = max_group_bin
+    dev = bins.device
+    if chunk is None:
+        chunk = _pick_chunk(n, G, B, 4 if compute_dtype == "float32" else 2)
+    if n % chunk:
+        raise ValueError(f"N ({n}) must be padded to a multiple of chunk "
+                         f"({chunk})")
+    if slots is None:
+        leaf_iota = torch.arange(num_leaves, dtype=torch.int32, device=dev)
+    else:
+        # negative slots must match nothing, padded rows' -1 included
+        leaf_iota = torch.where(slots >= 0, slots, -2).to(torch.int32)
+    W = leaf_iota.shape[0]
+    w = torch.stack([grad, hess, counts], dim=1).to(torch.float32)
+    if compute_dtype == "bfloat16":
+        w = bf16_round(w)
+    bin_iota = torch.arange(B, dtype=torch.int32, device=dev)
+    acc = torch.zeros((3 * W, G * B), dtype=torch.float32, device=dev)
+    for c0 in range(0, n, chunk):
+        leaf_c = leaf_id[c0:c0 + chunk]
+        # (W, C) leaf one-hot times each weight channel: rows l*3 + ch
+        ohl = (leaf_iota[:, None] == leaf_c[None, :]).to(torch.float32)
+        lhs = (ohl[:, None, :] * w[c0:c0 + chunk].t()[None, :, :]
+               ).reshape(3 * W, -1)
+        rhs = (bins[c0:c0 + chunk].to(torch.int32)[:, :, None]
+               == bin_iota).reshape(-1, G * B).to(torch.float32)
+        acc += lhs @ rhs
+    return acc.reshape(W, 3, G, B).permute(0, 2, 3, 1).contiguous()
 
 
 def leaf_value_broadcast(leaf_id: torch.Tensor,

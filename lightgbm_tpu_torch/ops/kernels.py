@@ -9,8 +9,9 @@ or loaded at import: the first wrapper call on a CUDA tensor (or an
 explicit :func:`build_kernels`) does it, and every source is compiled
 in parallel.  Several kernel names may share one source (a template
 with one C entry point per variant) or one C entry point: the streamed
-one-hot histogram serves three entry points and the int8 bin-matrix
-histogram two, each counted under its own name.
+one-hot histogram serves three entry points, the f32 bin-matrix
+histogram two (F, K) and the int8 one two, each counted under its own
+name.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -65,9 +66,15 @@ KERNELS: Dict[str, tuple] = {
     "hist_pre_packed": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
     "hist_pre": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
     "bins_hist": ("bins_hist.cu", "ltt_bins_hist", _BINS_ARGS),
+    # kernel K: F's template behind the pallas_paired plan
+    "bins_hist_paired": ("bins_hist.cu", "ltt_bins_hist_paired",
+                         _BINS_ARGS),
     # kernel I (int8 weights) behind its two entry points
     "bins_hist_q": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),
     "bins_hist_q_packed": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),
+    # kernel J: the int8 histogram of leaf-partitioned rows
+    "seg_hist": ("seg_hist.cu", "ltt_seg_hist",
+                 [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

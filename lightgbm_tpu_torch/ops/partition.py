@@ -189,6 +189,86 @@ def chosen_group_bins(bins: torch.Tensor, rows: torch.Tensor
         (), dtype=torch.int32, device=bins.device))
 
 
+def partition_capacity(n: int, num_slots: int, block: int) -> int:
+    """Row capacity of a leaf partition: each of the ``num_slots + 1``
+    buckets (leaf slots plus the invalid bucket) can waste up to one
+    block of alignment padding."""
+    return n + (num_slots + 1) * block
+
+
+def build_leaf_partition(leaf_id: torch.Tensor, *, num_slots: int,
+                         block: int):
+    """Stable leaf-segment permutation, byte-identical to
+    lightgbm_tpu/ops/partition.py build_leaf_partition: rows stably
+    sorted by leaf (negative leaf ids go to a trailing invalid bucket),
+    each leaf's segment start aligned up to a ``block`` multiple, so
+    every block of ``block`` partitioned rows belongs to one leaf.
+
+    Returns (perm, blk_leaf, seg_count), all int32:
+      perm: (partition_capacity(N),) source row of each partitioned
+        position, -1 in alignment gaps and the capacity tail;
+      blk_leaf: (capacity // block,) owning leaf of each block, -1 for
+        blocks holding no real row of a leaf slot;
+      seg_count: (num_slots + 1,) real rows per bucket (last = invalid).
+    """
+    n = leaf_id.shape[0]
+    if n % block:
+        raise ValueError(f"N ({n}) must be a multiple of block ({block})")
+    dev = leaf_id.device
+    num_buckets = num_slots + 1
+    lid = torch.where(leaf_id >= 0, leaf_id,
+                      torch.full_like(leaf_id, num_slots)).to(torch.int32)
+    sorted_lid, order = torch.sort(lid, stable=True)
+    bucket_iota = torch.arange(num_buckets, dtype=torch.int32, device=dev)
+    seg_first = torch.searchsorted(sorted_lid, bucket_iota).to(torch.int32)
+    seg_count = (torch.searchsorted(sorted_lid, bucket_iota, right=True)
+                 .to(torch.int32) - seg_first)
+    aligned = (seg_count + block - 1) // block * block
+    astart = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        torch.cumsum(aligned, 0, dtype=torch.int32)]
+                       )[:num_buckets]
+    # partitioned position of sorted entry i: its bucket's aligned start
+    # plus its stable rank within the bucket
+    sl = sorted_lid.long()
+    pos = astart[sl] + (torch.arange(n, dtype=torch.int32, device=dev)
+                        - seg_first[sl])
+    n_cap = partition_capacity(n, num_slots, block)
+    perm = torch.full((n_cap,), -1, dtype=torch.int32, device=dev)
+    perm[pos.long()] = order.to(torch.int32)
+    bstart = torch.arange(n_cap // block, dtype=torch.int32,
+                          device=dev) * block
+    blk_leaf = torch.searchsorted(astart, bstart, right=True).to(
+        torch.int32) - 1
+    safe = blk_leaf.clamp(0, num_buckets - 1).long()
+    live = (bstart < astart[safe] + seg_count[safe]) & (blk_leaf < num_slots)
+    return perm, torch.where(live, blk_leaf, -1), seg_count
+
+
+def block_slots(blk_leaf: torch.Tensor, slots: torch.Tensor,
+                num_slots: int) -> torch.Tensor:
+    """Each partition block's position in ``slots`` (-1: a dead block or
+    a leaf not in ``slots``), the block map the segment histogram reads
+    (lightgbm_tpu/learner/grower.py _hist_kernel_seg).  ``slots`` holds
+    distinct leaf ids in [0, num_slots)."""
+    inv = torch.full((num_slots + 1,), -1, dtype=torch.int32,
+                     device=slots.device)
+    inv[slots.long()] = torch.arange(slots.shape[0], dtype=torch.int32,
+                                     device=slots.device)
+    return torch.where(blk_leaf >= 0,
+                       inv[blk_leaf.clamp(0, num_slots).long()], -1)
+
+
+def apply_partition(arr: torch.Tensor, perm: torch.Tensor,
+                    axis: int = 0) -> torch.Tensor:
+    """Gather ``arr`` along ``axis`` into partitioned order; gap entries
+    (perm -1) are zero, masked explicitly as the JAX function does."""
+    taken = arr.index_select(axis, perm.clamp(0, arr.shape[axis] - 1).long())
+    shape = [1] * arr.dim()
+    shape[axis] = perm.shape[0]
+    return torch.where((perm >= 0).reshape(shape), taken,
+                       torch.zeros((), dtype=arr.dtype, device=arr.device))
+
+
 def apply_route_table(bins: torch.Tensor, leaf_id: torch.Tensor,
                       table: torch.Tensor, values=None):
     """Re-label rows from a packed (L, 15+nb) route table.  ``bins`` is

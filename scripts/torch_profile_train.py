@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where the port's training time goes, on one CUDA card.
 
-    python3 scripts/torch_profile_train.py [--rows N] [--trees T] [--f32]
+    python3 scripts/torch_profile_train.py [--rows N] [--trees T]
+                                           [--plan PLAN]
 
 Trains chip_smoke.py's workload (its make_data 1,000,000 x 28 binary
-task and its BENCH_PARAMS: 255 leaves, max_bin 63, quantized gradients;
-with --f32, float gradients: the fused_streamed plan) with
-lightgbm_tpu_torch: two warm-up trees, then T trees under
-torch.profiler.  Prints the card (nvidia-smi name and power limit), the
-wall ms per tree, the summed device-kernel time per tree and the
-device idle share of the profiled window, each hand-written kernel's
-launches and mean device ms per launch, the top CUDA kernels and host
-operators by time, and writes the full table to
+task and its BENCH_PARAMS: 255 leaves, max_bin 63) with
+lightgbm_tpu_torch under the histogram plan PLAN (default fused_tiled,
+the quantized main path; ``xla`` is the default config, without
+quantized_grad and with hist_compute_dtype float32; see PLANS): two
+warm-up trees, then T trees under torch.profiler.  Prints the card
+(nvidia-smi name and power limit), the wall ms per tree, the summed
+device-kernel time per tree and the device idle share of the profiled
+window, each hand-written kernel's launches and mean device ms per
+launch, on seg_tiled the leaf partition's device time per round and
+its share of the device time, the top CUDA kernels and host operators
+by time, and writes the full table to
 chiprun_out/torch_profile_train.txt.
 """
 from __future__ import annotations
@@ -26,23 +30,67 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from chip_smoke import BENCH_PARAMS, card_line, make_data  # noqa: E402
 
-#: the symbols of the hand-written kernels (csrc/*.cu)
-KERNEL_SYMBOLS = ("fused_route_hist", "route_apply", "predict_level",
-                  "onehot_hist", "bins_hist")
+_F32 = {"quantized_grad": False}
+_OTF = {"hist_kernel_tiled": False, "hist_fused_route": False}
+#: plan -> the knobs over BENCH_PARAMS that resolve it (None: drop)
+PLANS = {
+    "fused_tiled": {},
+    "q_tiled(split_route)": {"hist_split_route": True},
+    "seg_tiled": {"hist_leaf_partition": "on"},
+    "q_tiled": {"hist_fused_route": False},
+    "q_onthefly": _OTF,
+    "pallas(quantized)": dict(_OTF, hist_quant_onthefly=False,
+                              hist_onehot_budget_mb=0),
+    "fused_streamed": _F32,
+    "pre_onehot": dict(_F32, hist_fused_route=False),
+    "pallas": dict(_F32, hist_onehot_budget_mb=0),
+    "pallas_paired": dict(_F32, hist_kernel="paired"),
+    "xla": {"quantized_grad": None, "hist_compute_dtype": None},
+}
+#: hand-written kernel (the kernels it serves) -> its CUDA symbol
+KERNEL_SYMBOLS = {
+    "frontier_hist (A, G)": "frontier_hist_kernel",
+    "route (B, H)": "route_kernel",
+    "predict_level (C)": "predict_level_kernel",
+    "onehot_hist (D, E)": "onehot_hist_kernel",
+    "bins_hist (F, I, K)": "bins_hist_kernel",
+    "seg_hist (J)": "seg_hist_kernel",
+}
+
+
+def plan_params(plan: str) -> dict:
+    params = dict(BENCH_PARAMS)
+    for k, v in PLANS[plan].items():
+        if v is None:
+            params.pop(k)
+        else:
+            params[k] = v
+    return params
+
+
+def _dev_time(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def _device_us(prof):
+    """Summed device-kernel microseconds of a profile."""
+    return sum(_dev_time(e) for e in prof.key_averages()
+               if getattr(e.device_type, "name", "") == "CUDA")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--trees", type=int, default=5)
-    ap.add_argument("--f32", action="store_true",
-                    help="float gradients (quantized_grad=false)")
+    ap.add_argument("--plan", choices=sorted(PLANS), default="fused_tiled")
     args = ap.parse_args()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.boosting import create_boosting
+    from lightgbm_tpu_torch.learner.grower import TreeGrower
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -50,14 +98,27 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     X, y, _ = make_data(args.rows, 28, seed=7)
-    params = dict(BENCH_PARAMS, quantized_grad=not args.f32)
-    cfg = lgb.Config.from_params(params)
+    cfg = lgb.Config.from_params(plan_params(args.plan))
     core = lgb.Dataset(X, label=y).construct(cfg)
     gbdt = create_boosting(cfg, core)
-    print(f"plan: {gbdt.grower.plan.name}")
+    plan = gbdt.grower.plan.name
+    print(f"plan: {plan}")
+    # count the leaf partitions a profiled tree builds and keep the last
+    # one's inputs, to time the partition on its own below
+    parts = []
+    build = TreeGrower._build_partition
+
+    def counted(self, leaf_id, wT):
+        parts.append((leaf_id, wT))
+        del parts[:-1]
+        counted.calls += 1
+        return build(self, leaf_id, wT)
+    counted.calls = 0
+    TreeGrower._build_partition = counted
     for _ in range(2):
         gbdt.train_one_iter()
     torch.cuda.synchronize()
+    counted.calls = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -66,27 +127,37 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-
-    def dev_time(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     dev_events = [e for e in ka
                   if getattr(e.device_type, "name", "") == "CUDA"]
-    dev_us = sum(dev_time(e) for e in dev_events)
+    dev_ms = _device_us(prof) / 1e3 / args.trees
     wall_ms = 1e3 * wall / args.trees
-    dev_ms = dev_us / 1e3 / args.trees
     print(f"wall {wall_ms:.1f} ms/tree (under the profiler); device "
           f"kernels {dev_ms:.2f} ms/tree; device idle share "
           f"{1 - dev_ms / wall_ms:.3f} ({card})")
-    for sym in KERNEL_SYMBOLS:
+    for label, sym in KERNEL_SYMBOLS.items():
         hits = [e for e in dev_events if sym in e.key]
         n = sum(e.count for e in hits)
         if n:
-            us = sum(dev_time(e) for e in hits)
-            print(f"kernel {sym}: {n} launches in {args.trees} trees, "
-                  f"mean {us / 1e3 / n:.4f} ms per launch on the training "
-                  f"path ({card})")
+            us = sum(_dev_time(e) for e in hits)
+            print(f"kernel {label}: {n} launches in {args.trees} trees, "
+                  f"mean {us / 1e3 / n:.4f} ms per launch, "
+                  f"{us / 1e3 / args.trees / dev_ms:.3f} of device time "
+                  f"({card})")
+    if counted.calls:
+        # the partition of one round (the last profiled one), alone
+        grower = gbdt.grower
+        reps = 20
+        with profile(activities=[ProfilerActivity.CUDA]) as pp:
+            for _ in range(reps):
+                build(grower, *parts[-1])
+            torch.cuda.synchronize()
+        part_ms = _device_us(pp) / 1e3 / reps
+        per_tree = counted.calls / args.trees
+        print(f"leaf partition: {counted.calls} builds in {args.trees} "
+              f"trees, {part_ms:.4f} device ms per build (sort, "
+              f"searchsorted, scatter, two gathers; timed alone on the "
+              f"last round's leaf ids), {part_ms * per_tree / dev_ms:.3f} "
+              f"of device time ({card})")
     try:
         by_dev = ka.table(sort_by="self_device_time_total", row_limit=25)
     except Exception:
@@ -94,7 +165,7 @@ def main() -> int:
     by_cpu = ka.table(sort_by="self_cpu_time_total", row_limit=25)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/torch_profile_train.txt", "w") as f:
-        f.write(f"card: {card}\nplan: {gbdt.grower.plan.name}\n{by_dev}"
+        f.write(f"card: {card}\nplan: {plan}\n{by_dev}"
                 f"\n\n{by_cpu}\n")
     print(by_dev)
     print(by_cpu)

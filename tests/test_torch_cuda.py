@@ -15,7 +15,9 @@ import torch
 from lightgbm_tpu_torch.ops import histogram as H
 from lightgbm_tpu_torch.ops import kernels
 from lightgbm_tpu_torch.ops import predict as P
-from lightgbm_tpu_torch.ops.partition import build_route_table
+from lightgbm_tpu_torch.ops.partition import (apply_partition, block_slots,
+                                              build_leaf_partition,
+                                              build_route_table)
 from lightgbm_tpu_torch.tree import Tree, flatten_ensemble
 
 pytestmark = pytest.mark.cuda
@@ -199,16 +201,50 @@ def test_pre_hist_kernels_match_plain(dev, entry, pack):
                                               **kw))
 
 
+@pytest.mark.parametrize("entry", ["bins_hist", "bins_hist_paired"])
 @pytest.mark.parametrize("first_round", [False, True])
-def test_bins_hist_kernel_matches_plain(dev, first_round):
+def test_bins_hist_kernel_matches_plain(dev, first_round, entry):
     _, bins, _, wT, leaf, _, slots, B, _ = _float_inputs(dev, 1, False)
     bins[::7, 2] = B + 3                   # bins >= B match nothing
     w = wT.t().contiguous()
     if first_round:                        # every row in one slot
         leaf = torch.where(leaf >= 0, 0, -1).to(torch.int32)
         slots = torch.zeros(1, dtype=torch.int32, device=dev)
-    n0 = kernels.LAUNCHES["bins_hist"]
-    hk = H.bins_hist(bins, w, leaf, slots, B)
-    hp = H.bins_hist_plain(bins, w, leaf, slots, B)
-    assert kernels.LAUNCHES["bins_hist"] == n0 + 1
+    n0 = kernels.LAUNCHES[entry]
+    hk = getattr(H, entry)(bins, w, leaf, slots, B)
+    hp = getattr(H, entry + "_plain")(bins, w, leaf, slots, B)
+    assert kernels.LAUNCHES[entry] == n0 + 1
     _assert_close(hk, hp, H.bins_hist_plain(bins, w.abs(), leaf, slots, B))
+
+
+@pytest.mark.parametrize("case", ["frontier", "first round", "all leaves",
+                                  "B=255", "G split"])
+def test_seg_hist_kernel_matches_plain(dev, case):
+    """Kernel J on a real partition: the partitioned histogram equal to
+    its plain version and to kernel G's over the unpartitioned rows, at
+    63 and 255 bins, and at 40 groups of 255 bins, whose shared
+    histogram the kernel splits over gridDim.y."""
+    G, B = {"B=255": (7, 255), "G split": (40, 255)}.get(case, (7, 63))
+    (binsT, wT, leaf, _, slots), B = _inputs(dev, N=20480, G=G, B=B)
+    binsT[2, ::7] = 255 if B == 255 else B + 3    # bins >= B match nothing
+    L = 48
+    if case == "first round":
+        leaf = torch.where(leaf >= 0, 0, -1).to(torch.int32)
+        slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    elif case == "all leaves":
+        slots = torch.arange(L, dtype=torch.int32, device=dev)
+    else:
+        slots = slots[slots < L][:20]
+    perm, blk_leaf, _ = build_leaf_partition(leaf, num_slots=L,
+                                             block=H.SEG_BLOCK)
+    binsT_p = apply_partition(binsT, perm, axis=1)
+    wT_p = apply_partition(wT, perm, axis=1)
+    blk_slot = block_slots(blk_leaf, slots, L)
+    W = slots.shape[0]
+    n0 = kernels.LAUNCHES["seg_hist"]
+    hk = H.seg_hist(binsT_p, wT_p, blk_slot, W, B)
+    hp = H.seg_hist_plain(binsT_p, wT_p, blk_slot, W, B)
+    assert kernels.LAUNCHES["seg_hist"] == n0 + 1
+    assert hk.dtype == torch.int32 and torch.equal(hk, hp)
+    assert torch.equal(hk, H.tiled_hist_plain(binsT, wT, leaf, slots, B))
+    assert torch.equal(hk, H.seg_hist(binsT_p, wT_p, blk_slot, W, B))

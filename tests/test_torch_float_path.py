@@ -427,16 +427,10 @@ def test_plan_matches_jax_grower(knobs):
     assert (plan.quant, plan.fused, plan.tiled, plan.pre_ohb) == (
         g.use_quant, g.use_fused, g.use_tiled, g.use_pre_ohb)
     assert plan.ohb_pack == g.ohb_pack
-    if plan.name not in TG.PORTED_PLANS:
-        with pytest.raises(NotImplementedError, match=plan.name.split("(")[0]):
-            tlgb.train(dict(params, device="cpu"), tlgb.Dataset(_X, label=_Y),
-                       1, verbose_eval=False)
-    else:
-        bst = tlgb.train(dict(params, device="cpu"),
-                         tlgb.Dataset(_X, label=_Y), 1, verbose_eval=False,
-                         keep_training_booster=True)
-        assert bst.gbdt.grower.plan == plan
-        assert bst.gbdt.grower.n_padded == g.n_padded
+    bst = tlgb.train(dict(params, device="cpu"), tlgb.Dataset(_X, label=_Y),
+                     1, verbose_eval=False, keep_training_booster=True)
+    assert bst.gbdt.grower.plan == plan
+    assert bst.gbdt.grower.n_padded == g.n_padded
 
 
 def test_row_bound_and_precision_repairs(capsys):
