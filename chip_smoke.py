@@ -25,7 +25,10 @@ Phases, in order; any failure exits nonzero:
      is timed (median of CUDA-event timed launches) beside its bound,
      its plain version's time and one torch call that computes the same
      histogram (torch.mm of bf16 operands for the f32 weights,
-     torch._int_mm of int8 ones for the int8 weights);
+     torch._int_mm of int8 ones for the int8 weights, D's included);
+     the f32 kernels D, E, F and K also print the launch geometry their
+     wrappers pass (slots per CTA, private copies, groups per CTA, slot
+     chunks, grid, threads, shared-memory bytes per CTA);
   3. train through lgb.train at the bench shape (1,000,000 x 28
      synthetic binary task, 255 leaves, max_bin 63) on the card, each
      run with the launch counters zeroed just before it and read just
@@ -453,6 +456,23 @@ def library_ms(leaf, slots, wT, oh_bf16, dev, reps):
     return ms
 
 
+def print_geometry(name, label, n, W, G, B, row_bytes, dev):
+    """Print the launch geometry (ops/histogram.py) that a redesigned f32
+    kernel's wrapper passes for these shapes: slots per CTA, copies,
+    groups per CTA, slot chunks, grid, threads and shared bytes (the
+    kernel shares the grid's x CTAs out over the slot chunks itself, from
+    the leaf ids)."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    sms = H._num_sms(dev.index or 0) if dev.type == "cuda" else H.H100_SMS
+    p = (H.bins_hist_plan(n, W, G, B, sms) if name.startswith("bins")
+         else H.onehot_hist_plan(n, W, G, B, row_bytes, sms))
+    print(f"[phase 2] {name} {label} geometry: {p.slots_per_cta} slots per "
+          f"CTA, {p.copies} copies, {p.groups_per_cta} groups per CTA, "
+          f"{p.chunks} slot chunks, grid {list(p.grid)}, {p.threads} "
+          f"threads{' owning columns' if p.cols else ''}, {p.smem_bytes} B "
+          "of shared memory per CTA")
+
+
 def check_float_kernels(dev, n, rehearse, card):
     """Phase 2 for kernels D, E (pre_packed, pre) and F against their
     plain versions.  Returns {kernel: numbers}."""
@@ -485,6 +505,8 @@ def check_float_kernels(dev, n, rehearse, card):
           f"(pack 1: {ohb[1].shape[1]} B/row, pack 4: {ohb[4].shape[1]} "
           "B/row)")
     oh_bf16 = ohb[1].to(torch.bfloat16)
+    # the int8 library call's column-major one-hot (D with int8 weights)
+    oh_i8 = int8_onehot(bins, B)
     root = torch.where(leaf >= 0, 0, -1).to(torch.int32)
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     out = {}
@@ -535,12 +557,15 @@ def check_float_kernels(dev, n, rehearse, card):
         # bytes that hold columns (not the planes' zero padding)
         bound, by = hist_bound(8 * n + split_rows(lf, tb) + tb.numel() * 4,
                                hit, 12 + G * B // pack, h_k, hit * G * 3)
-        lib = library_ms(l_p, slots, wT, oh_bf16, dev, reps) \
-            if wname == "f32" else None
-        record("fused_onehot_hist", "main" if W == 126 and pack == 4
-               and wname == "f32" else label, ms, plain, bound, by, lib,
-               err, unstable_bins(run), hit,
-               W == 126 and pack == 4 and wname == "f32")
+        lib = (library_ms(l_p, slots, wT, oh_bf16, dev, reps)
+               if wname == "f32" else
+               int8_library_ms(l_p, slots, wqT, oh_i8, dev, reps))
+        main = W == 126 and pack == 4 and wname == "f32"
+        record("fused_onehot_hist", "main" if main else label, ms, plain,
+               bound, by, lib, err, unstable_bins(run), hit, main)
+        if wname == "f32":
+            print_geometry("fused_onehot_hist", label, n, slots.shape[0], G,
+                           B, ohb[pack].shape[1], dev)
 
     # ---- kernel E: pre_packed up to 126 slots, pre above; final leaf ids
     for entry, wname, W in [("hist_pre_packed", "f32", 42),
@@ -579,6 +604,8 @@ def check_float_kernels(dev, n, rehearse, card):
         lib = library_ms(lf, slots, wT, oh_bf16, dev, reps)
         record(entry, "main" if main else label, ms, plain, bound, by, lib,
                err, unstable_bins(run), hit, main)
+        print_geometry(entry, label, n, slots.shape[0], G, B,
+                       ohb[4].shape[1], dev)
 
     # ---- kernels F and K (F's function behind the paired plan's entry
     # point): row-major bins, f32 weights
@@ -606,7 +633,8 @@ def check_float_kernels(dev, n, rehearse, card):
         lib = library_ms(lf, slots, wT, oh_bf16, dev, reps)
         record(entry, "main" if W == 126 else label, ms, plain, bound,
                by, lib, err, unstable_bins(run), hit, W == 126)
-    del oh_bf16, ohb
+        print_geometry(entry, label, n, slots.shape[0], G, B, 0, dev)
+    del oh_bf16, oh_i8, ohb
     # ---- the xla plan's histogram (the default config's; torch ops, no
     # kernel) at W=126 and on the first round, rows padded to the
     # grower's chunk; its count channel must equal kernel F's

@@ -21,78 +21,76 @@
 // with zero bytes to a 128-byte multiple (bytes j >= gbp match nothing).
 // Exactly G of a row's bits are set (fewer where a bin is >= B).
 //
-// Weights: f32 (grad, hess, count) rounded to bf16 with round-to-nearest-
-// even, as the TPU kernel casts them before its bf16 x bf16 -> f32 dot,
-// and accumulated here in f64 (global atomicAdd(double*)) and rounded
-// once to f32 by the wrapper.  An f64 sum of n bf16 values (8-bit
-// significands) is exact, whatever the order, while the exponent span of
-// the values plus 8 plus log2(n) is at most 53; outside that, each f64 add
-// rounds by ~2^-53 of the running sum, which changes the f32 result only
-// where the sum lies that close to an f32 rounding boundary.  So results
-// agree from run to run except at such boundaries.  Or int32 quantized
-// weights in [-127, 127] accumulated exactly in int32 (QUANT).
+// f32 weights (grad, hess, count) are rounded to bf16 with round-to-
+// nearest-even, as the TPU kernel casts them before its bf16 x bf16 ->
+// f32 dot, accumulated here in f64 and rounded once to f32 by the
+// wrapper.  Why the order does not matter: an f64 sum of n bf16 values
+// (8-bit significands) is exact, whatever the order, while the exponent
+// span of the values plus 8 plus log2(n) is at most 53; outside that,
+// each f64 add rounds by ~2^-53 of the running sum, which changes the f32
+// result only where the sum lies that close to an f32 rounding boundary.
+// The design below changes only where and in what grouping the f64 adds
+// happen (a warp's shared histogram, then one global add per bin), not
+// what they add.
 //
-// What bounds it on an H100: the stream is the one-hot rows of the rows
-// that land in a slot (512 B a row at the bench shape, pack 4), 12 bytes
-// of weights and 8 bytes of leaf id per row; the adds are G * 3 per
-// landed row, so the atomics, not the bytes, set the time when the
-// frontier is narrow (a tree's first round puts every row in one slot).
+// What bounds it on an H100: the bytes, in principle.  A landed row (one
+// whose leaf is a slot) streams its one-hot row (441 of 512 bytes at pack
+// 4, the bench shape) and 12 bytes of weights; every row's leaf id is
+// read once per slot chunk (from L2 after the first).  On a tree's first
+// round every row lands in one slot: ~0.14 ms at 3.35 TB/s.  The first
+// design added each set bit with a global atomicAdd(double*): 84 global
+// f64 atomics per landed row, ~2.1-2.6 ms on that round, slower than one
+// bf16 torch.mm of the same histogram (~1.3 ms).  What bounds this
+// design is latency: a 42 KB f64 histogram per warp leaves four warps an
+// SM, so the adds (dependent shared-memory load-add-store chains) and
+// the ring's round trips are not hidden.  On an H100 (700 W) the first
+// round takes ~0.98 ms, a 126-wide frontier ~1.0 ms
+// (chip_smoke.py, PERF.md).
 //
-// Design: a warp owns a tile of 32 consecutive rows.  Each lane loads,
-// routes (route.cuh) and rounds its own row's scalars, so those loads are
-// coalesced; the warp then walks the tile's live rows one at a time,
-// matches the row's leaf against the frontier slots held in shared memory
-// with one ballot per 32 slots (a row adds to EVERY equal slot, as the
-// TPU's slot one-hot does), and reads the row's one-hot cooperatively:
-// lane i loads V bytes at i * V (V = 16 where the row is 16-byte aligned,
-// 512 B = one load per lane at the bench shape), skips zero words and
-// adds the row's weights at each set bit.  Rows in no slot never read
-// their one-hot row.
+// Design (f32 weights): hist_f64.cuh, shared with kernels F and K.  The
+// landed rows are listed, their one-hot rows and weights streamed
+// through a cp.async ring, and added 8 rows at a time into f64
+// histograms in shared memory, with no shared atomic (shared
+// atomicAdd(double*) is a CAS loop on sm_90a): each thread owns its own
+// columns of a row.  A frontier of at most 128 slots (every round of a
+// 255-leaf tree) takes one slot a CTA whose columns its 128 threads
+// share out, two CTAs an SM, so every thread adds every landed row
+// however the rows fall over the slots; the CTAs (about 8 a slot, up to
+// four waves) are shared out over the slots by a sample of the leaf ids,
+// so a large leaf gets the CTAs its rows need.  A wider frontier keeps 4
+// slots a CTA, one warp each (lane i owns 16 bytes at i * 16 of a row),
+// in equal shares.  Group chunks over gridDim.z when one slot does not
+// fit.  One global f64 add per nonzero bin at the end.  Kernel D routes
+// first, in its own launch behind the same entry point
+// (route_rows_kernel: one thread a row writes every new leaf id once),
+// and the histogram launch reads those leaf ids, so each row is routed
+// once and not once for every slot chunk that scans it.
+//
+// int8-quantized weights (int32 in [-127, 127]) keep the first design:
+// a warp per 32-row tile adds each live row with int32 global atomics,
+// exact in any order (onehot_hist_q_kernel below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "hist_f64.cuh"
 #include "route.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// ---------------------------------------------------------------------------
+// int8-quantized weights: int32 global atomics
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void add3(int32_t* hist, int64_t idx, int32_t a,
+                                     int32_t b, int32_t c) {
+  int32_t* h = hist + idx * 3;
+  if (a) atomicAdd(h, a);
+  if (b) atomicAdd(h + 1, b);
+  if (c) atomicAdd(h + 2, c);
 }
-
-template <bool QUANT>
-struct Acc;
-
-template <>
-struct Acc<false> {
-  using W = float;
-  __device__ static void add3(void* hist, int64_t idx, W a, W b, W c) {
-    double* h = static_cast<double*>(hist) + idx * 3;
-    if (a != 0.f) atomicAdd(h, (double)a);
-    if (b != 0.f) atomicAdd(h + 1, (double)b);
-    if (c != 0.f) atomicAdd(h + 2, (double)c);
-  }
-  __device__ static W load(const void* w, int64_t i) {
-    return bf16_round(__ldg(static_cast<const float*>(w) + i));
-  }
-};
-
-template <>
-struct Acc<true> {
-  using W = int32_t;
-  __device__ static void add3(void* hist, int64_t idx, W a, W b, W c) {
-    int32_t* h = static_cast<int32_t*>(hist) + idx * 3;
-    if (a) atomicAdd(h, a);
-    if (b) atomicAdd(h + 1, b);
-    if (c) atomicAdd(h + 2, c);
-  }
-  __device__ static W load(const void* w, int64_t i) {
-    return __ldg(static_cast<const int32_t*>(w) + i);
-  }
-};
 
 // V bytes of a one-hot row as 32-bit words (one byte per word when V = 1)
 template <int V>
@@ -113,12 +111,12 @@ struct Words {
 };
 
 // Add one row's weights at every set bit of its one-hot row into the
-// histogram of slot ``si``.
-template <int V, bool QUANT>
+// histogram of slot ``si``: lane i loads V bytes at i * V.
+template <int V>
 __device__ __forceinline__ void add_row(
     const uint8_t* __restrict__ rowp, int64_t row_bytes, int lane, int si,
-    int64_t gb, int pack, int gbp, typename Acc<QUANT>::W w0,
-    typename Acc<QUANT>::W w1, typename Acc<QUANT>::W w2, void* hist) {
+    int64_t gb, int pack, int gbp, int32_t w0, int32_t w1, int32_t w2,
+    int32_t* hist) {
   const int bits = 8 / pack;
   for (int64_t off = (int64_t)lane * V; off < row_bytes; off += 32 * V) {
     Words<V> x;
@@ -135,24 +133,25 @@ __device__ __forceinline__ void add_row(
         if (j >= gbp) continue;              // plane padding
         for (int p = 0; p < pack; ++p) {
           if ((byte >> (p * bits)) & 1u)
-            Acc<QUANT>::add3(hist, (int64_t)si * gb + (int64_t)p * gbp + j,
-                             w0, w1, w2);
+            add3(hist, (int64_t)si * gb + (int64_t)p * gbp + j, w0, w1, w2);
         }
       }
     }
   }
 }
 
-template <int V, bool QUANT, bool ROUTE>
-__global__ void onehot_hist_kernel(
+// A warp owns a tile of 32 consecutive rows: each lane loads (and routes)
+// its own row; the warp then walks the tile's live rows, matches each
+// against the frontier slots in shared memory (one ballot per 32 slots,
+// every equal slot) and adds it cooperatively.
+template <int V, bool ROUTE>
+__global__ void onehot_hist_q_kernel(
     const uint8_t* __restrict__ ohb, int64_t row_bytes,
-    const uint8_t* __restrict__ binsT, const void* __restrict__ w,
+    const uint8_t* __restrict__ binsT, const int32_t* __restrict__ w,
     int64_t ws_r, int64_t ws_c, const int32_t* __restrict__ leaf_in,
     const float* __restrict__ table, const int32_t* __restrict__ slots,
-    void* __restrict__ hist, int32_t* __restrict__ leaf_out, int64_t n,
+    int32_t* __restrict__ hist, int32_t* __restrict__ leaf_out, int64_t n,
     int G, int B, int L, int K, int W, int pack, int gbp) {
-  using A = Acc<QUANT>;
-  using WT = typename A::W;
   extern __shared__ int32_t s_slots[];
   for (int i = threadIdx.x; i < W; i += blockDim.x) s_slots[i] = slots[i];
   __syncthreads();
@@ -163,7 +162,7 @@ __global__ void onehot_hist_kernel(
   for (int64_t base = warp * 32; base < n; base += nwarps * 32) {
     const int64_t row = base + lane;
     int leaf = -1;
-    WT w0 = 0, w1 = 0, w2 = 0;
+    int32_t w0 = 0, w1 = 0, w2 = 0;
     if (row < n) {
       leaf = leaf_in[row];
       if constexpr (ROUTE) {
@@ -173,9 +172,9 @@ __global__ void onehot_hist_kernel(
         leaf_out[row] = leaf;
       }
       if (leaf >= 0) {
-        w0 = A::load(w, row * ws_r);
-        w1 = A::load(w, row * ws_r + ws_c);
-        w2 = A::load(w, row * ws_r + 2 * ws_c);
+        w0 = __ldg(w + row * ws_r);
+        w1 = __ldg(w + row * ws_r + ws_c);
+        w2 = __ldg(w + row * ws_r + 2 * ws_c);
       }
     }
     unsigned live = __ballot_sync(
@@ -184,9 +183,9 @@ __global__ void onehot_hist_kernel(
       const int k = __ffs(live) - 1;
       live &= live - 1;
       const int lk = __shfl_sync(kFull, leaf, k);
-      const WT a = __shfl_sync(kFull, w0, k);
-      const WT b = __shfl_sync(kFull, w1, k);
-      const WT c = __shfl_sync(kFull, w2, k);
+      const int32_t a = __shfl_sync(kFull, w0, k);
+      const int32_t b = __shfl_sync(kFull, w1, k);
+      const int32_t c = __shfl_sync(kFull, w2, k);
       const uint8_t* rowp = ohb + (base + k) * row_bytes;
       for (int sb = 0; sb < W; sb += 32) {
         const int s = sb + lane;
@@ -194,50 +193,94 @@ __global__ void onehot_hist_kernel(
         while (m) {
           const int si = sb + __ffs(m) - 1;
           m &= m - 1;
-          add_row<V, QUANT>(rowp, row_bytes, lane, si, gb, pack, gbp, a, b,
-                            c, hist);
+          add_row<V>(rowp, row_bytes, lane, si, gb, pack, gbp, a, b, c,
+                     hist);
         }
       }
     }
   }
 }
 
-template <int V, bool QUANT, bool ROUTE>
-int launch(const void* ohb, int64_t row_bytes, const void* binsT,
-           const void* w, int64_t ws_r, int64_t ws_c, const void* leaf_in,
-           const void* table, const void* slots, void* hist, void* leaf_out,
-           int64_t n, int G, int B, int L, int K, int W, int pack, int gbp,
-           cudaStream_t stream) {
+// Kernel D's routing for f32 weights: one thread a row (route.cuh).
+__global__ void route_rows_kernel(const uint8_t* __restrict__ binsT,
+                                  const int32_t* __restrict__ leaf_in,
+                                  const float* __restrict__ table,
+                                  int32_t* __restrict__ leaf_out, int64_t n,
+                                  int G, int L, int K) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  bool went_right;
+  leaf_out[row] = ltt_route_row(binsT, n, row, G, leaf_in[row], table, L, K,
+                                K - LTT_ROUTE_FIXED_COLS, &went_right);
+}
+
+template <int V, bool ROUTE>
+int launch_q(const void* ohb, int64_t row_bytes, const void* binsT,
+             const void* w, int64_t ws_r, int64_t ws_c, const void* leaf_in,
+             const void* table, const void* slots, void* hist,
+             void* leaf_out, int64_t n, int G, int B, int L, int K, int W,
+             int pack, int gbp, cudaStream_t stream) {
   const int threads = 256;
   int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;        // grid-stride over row tiles
   const size_t smem = (size_t)(W > 0 ? W : 1) * sizeof(int32_t);
-  onehot_hist_kernel<V, QUANT, ROUTE><<<(unsigned)blocks, threads, smem,
-                                        stream>>>(
-      (const uint8_t*)ohb, row_bytes, (const uint8_t*)binsT, w, ws_r, ws_c,
-      (const int32_t*)leaf_in, (const float*)table, (const int32_t*)slots,
-      hist, (int32_t*)leaf_out, n, G, B, L, K, W, pack, gbp);
+  onehot_hist_q_kernel<V, ROUTE><<<(unsigned)blocks, threads, smem,
+                                   stream>>>(
+      (const uint8_t*)ohb, row_bytes, (const uint8_t*)binsT,
+      (const int32_t*)w, ws_r, ws_c, (const int32_t*)leaf_in,
+      (const float*)table, (const int32_t*)slots, (int32_t*)hist,
+      (int32_t*)leaf_out, n, G, B, L, K, W, pack, gbp);
   return (int)cudaGetLastError();
 }
 
-template <bool QUANT, bool ROUTE>
-int dispatch_vec(int vec, const void* ohb, int64_t row_bytes,
+template <int V, bool ROUTE>
+int launch(int quant, const void* ohb, int64_t row_bytes, const void* binsT,
+           const void* w, int64_t ws_r, int64_t ws_c, const void* leaf_in,
+           const void* table, const void* slots, void* hist, void* leaf_out,
+           int64_t n, int G, int B, int L, int K, int W, int pack, int gbp,
+           const int64_t* plan, cudaStream_t s) {
+  if (quant)
+    return launch_q<V, ROUTE>(ohb, row_bytes, binsT, w, ws_r, ws_c, leaf_in,
+                              table, slots, hist, leaf_out, n, G, B, L, K, W,
+                              pack, gbp, s);
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (ROUTE) {
+    // kernel D: every row routed once, its new leaf id written; the
+    // histogram launch (stream-ordered after it) reads those leaf ids
+    const int threads = 256;
+    route_rows_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                        s>>>((const uint8_t*)binsT, (const int32_t*)leaf_in,
+                             (const float*)table, (int32_t*)leaf_out, n, G,
+                             L, K);
+    const int e = (int)cudaGetLastError();
+    if (e != 0) return e;
+    leaf_in = leaf_out;
+  }
+  const ltt_f64::In in{(const uint8_t*)ohb, row_bytes, (const float*)w,
+                       ws_r, ws_c, (const int32_t*)leaf_in,
+                       (const int32_t*)slots, (double*)hist, n, G, B, W,
+                       pack, gbp};
+  return ltt_f64::launch<true, V>(in, plan, s);
+}
+
+template <bool ROUTE>
+int dispatch_vec(int vec, int quant, const void* ohb, int64_t row_bytes,
                  const void* binsT, const void* w, int64_t ws_r,
                  int64_t ws_c, const void* leaf_in, const void* table,
                  const void* slots, void* hist, void* leaf_out, int64_t n,
                  int G, int B, int L, int K, int W, int pack, int gbp,
-                 cudaStream_t s) {
+                 const int64_t* plan, cudaStream_t s) {
   if (vec == 16)
-    return launch<16, QUANT, ROUTE>(ohb, row_bytes, binsT, w, ws_r, ws_c,
-                                    leaf_in, table, slots, hist, leaf_out, n,
-                                    G, B, L, K, W, pack, gbp, s);
+    return launch<16, ROUTE>(quant, ohb, row_bytes, binsT, w, ws_r, ws_c,
+                             leaf_in, table, slots, hist, leaf_out, n, G, B,
+                             L, K, W, pack, gbp, plan, s);
   if (vec == 4)
-    return launch<4, QUANT, ROUTE>(ohb, row_bytes, binsT, w, ws_r, ws_c,
-                                   leaf_in, table, slots, hist, leaf_out, n,
-                                   G, B, L, K, W, pack, gbp, s);
-  return launch<1, QUANT, ROUTE>(ohb, row_bytes, binsT, w, ws_r, ws_c,
-                                 leaf_in, table, slots, hist, leaf_out, n, G,
-                                 B, L, K, W, pack, gbp, s);
+    return launch<4, ROUTE>(quant, ohb, row_bytes, binsT, w, ws_r, ws_c,
+                            leaf_in, table, slots, hist, leaf_out, n, G, B,
+                            L, K, W, pack, gbp, plan, s);
+  return launch<1, ROUTE>(quant, ohb, row_bytes, binsT, w, ws_r, ws_c,
+                          leaf_in, table, slots, hist, leaf_out, n, G, B, L,
+                          K, W, pack, gbp, plan, s);
 }
 
 }  // namespace
@@ -248,30 +291,22 @@ int dispatch_vec(int vec, const void* ohb, int64_t row_bytes,
 // (quant) int32, zeroed by the caller and accumulated here.  With
 // ``route`` the (L, K) f32 table routes each row first over binsT (G, n)
 // uint8 and leaf_out (n,) receives the new leaf ids; without it binsT,
-// table and leaf_out are unused.  Returns the launch's cudaGetLastError().
+// table and leaf_out are unused.  ``plan`` is the f32 launch geometry
+// (ops/histogram.py onehot_hist_plan; unused with quant).  Returns the
+// launch's cudaGetLastError() (or the shared-memory attribute's error).
 extern "C" int ltt_onehot_hist(
     const void* ohb, int64_t row_bytes, int vec, const void* binsT,
     const void* w, int64_t ws_r, int64_t ws_c, int quant,
     const void* leaf_in, const void* table, const void* slots, void* hist,
     void* leaf_out, int64_t n, int G, int B, int L, int K, int W, int pack,
-    int gbp, int route, void* stream) {
+    int gbp, int route, const int64_t* plan, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (quant && route)
-    return dispatch_vec<true, true>(vec, ohb, row_bytes, binsT, w, ws_r,
-                                    ws_c, leaf_in, table, slots, hist,
-                                    leaf_out, n, G, B, L, K, W, pack, gbp, s);
-  if (quant)
-    return dispatch_vec<true, false>(vec, ohb, row_bytes, binsT, w, ws_r,
-                                     ws_c, leaf_in, table, slots, hist,
-                                     leaf_out, n, G, B, L, K, W, pack, gbp,
-                                     s);
   if (route)
-    return dispatch_vec<false, true>(vec, ohb, row_bytes, binsT, w, ws_r,
-                                     ws_c, leaf_in, table, slots, hist,
-                                     leaf_out, n, G, B, L, K, W, pack, gbp,
-                                     s);
-  return dispatch_vec<false, false>(vec, ohb, row_bytes, binsT, w, ws_r,
-                                    ws_c, leaf_in, table, slots, hist,
-                                    leaf_out, n, G, B, L, K, W, pack, gbp, s);
+    return dispatch_vec<true>(vec, quant, ohb, row_bytes, binsT, w, ws_r,
+                              ws_c, leaf_in, table, slots, hist, leaf_out, n,
+                              G, B, L, K, W, pack, gbp, plan, s);
+  return dispatch_vec<false>(vec, quant, ohb, row_bytes, binsT, w, ws_r,
+                             ws_c, leaf_in, table, slots, hist, leaf_out, n,
+                             G, B, L, K, W, pack, gbp, plan, s);
 }

@@ -29,6 +29,9 @@ device.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -315,6 +318,233 @@ PACKED_STRIP = 42
 MAX_KERNEL_SLOTS = 12288
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry of the f64 shared-memory histograms (kernels D, E, F, K)
+# ---------------------------------------------------------------------------
+#: dynamic shared memory one CTA may use on an H100 (227 KB)
+SMEM_PER_CTA = 232_448
+#: shared memory of one H100 SM (228 KB); the hardware keeps 1 KB of it
+#: per resident CTA
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_CTA = 1024
+#: SMs of an H100 SXM, the geometry's default when no card is asked
+H100_SMS = 132
+#: csrc/hist_f64.cuh: at most 8 warps a CTA (one private histogram each,
+#: 255 registers a thread), so at most 8 slots a CTA
+MAX_SLOTS_PER_CTA = 8
+#: rows a thread scans per batch (kScanBatch), ring stages, and list
+#: entries beyond one batch (the list is processed when one more batch
+#: might not fit)
+SCAN_BATCH = 8
+RING_STAGES = 3
+LIST_SLACK = 1024
+#: bytes of one ring stage: one-hot rows (D, E), rows of bins (F, K); a
+#: stage holds at most 32 rows (a warp picks its rows with one ballot)
+ONEHOT_STAGE_BYTES = 17_408
+BINS_STAGE_BYTES = 1_536
+MAX_STAGE_ROWS = 32
+#: one-hot rows of a frontier of at most COLS_MAX_SLOTS slots: one slot
+#: a CTA, whose COLS_THREADS threads each own 4 bytes of every row's
+#: columns (every thread adds every landed row, however the rows fall
+#: over the slots)
+COLS_THREADS = 128
+COLS_MAX_SLOTS = 128
+#: CTAs a column-owner launch aims at for each slot (its share follows
+#: the slot's work, so a large leaf needs many), in at most this many
+#: waves of CTAs
+COLS_CTAS_PER_SLOT = 8
+COLS_MAX_WAVES = 4
+#: leaf ids each CTA of a column-owner launch samples to share the CTAs
+#: out over the slot chunks (kSample), and the most chunks the sample
+#: serves (kMaxSampledChunks)
+CHUNK_SAMPLE = 1024
+MAX_SAMPLED_CHUNKS = 128
+#: otherwise one private histogram a warp: the fewest a CTA keeps before
+#: its groups are split
+MIN_WARPS_PER_CTA = 4
+
+
+class HistPlan(NamedTuple):
+    """Launch geometry of one f64 shared-memory histogram launch
+    (csrc/hist_f64.cuh).  The kernel reads it as given: the W slots fall
+    into ``chunks`` chunks of ``slots_per_cta``, the groups into grid z
+    chunks of ``groups_per_cta``, and the grid x CTAs of each group chunk
+    are shared out over the slot chunks on the card, from the data
+    (:func:`chunk_ctas`); the CTA has one warp per private histogram,
+    ``slots_per_cta * copies`` of them, or COLS_THREADS column owners
+    (``cols``); the byte offsets carve its dynamic shared memory (the
+    f64 histograms start at 0); a staged row takes ``row_stride`` bytes
+    (payload, then the three f32 weights at the payload's 16-byte
+    round-up).  ``shared`` 1: the CTAs go to the slot chunks by their
+    sampled work, else in equal shares."""
+    slots_per_cta: int
+    copies: int
+    groups_per_cta: int
+    chunks: int
+    stage_rows: int
+    list_rows: int
+    off_stage: int
+    off_list: int
+    off_count: int
+    smem_bytes: int
+    grid: tuple
+    threads: int
+    row_stride: int
+    cols: int              # 1: COLS_THREADS column owners, one slot
+    shared: int            # 1: CTAs by sampled work (chunk_ctas)
+
+    def as_args(self):
+        """The int64 array the C entry point reads (Plan in
+        csrc/hist_f64.cuh, in this order)."""
+        import ctypes
+        vals = (self.slots_per_cta, self.copies, self.groups_per_cta,
+                self.chunks, self.stage_rows, self.list_rows,
+                self.off_stage, self.off_list, self.off_count,
+                self.smem_bytes, *self.grid, self.threads, self.row_stride,
+                self.cols, self.shared)
+        return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _f64_layout(units: int, warps: int, gc: int, B: int, stage_rows: int,
+                rstride: int):
+    """(list_rows, off_stage, off_list, off_count, smem) of
+    csrc/hist_f64.cuh with ``units`` f64 histograms and ``warps`` warps:
+    the histograms, the ring, the list's rows (uint32) and slot masks
+    (uint16), and the list's counter."""
+    # the list's space first holds the sample that shares the CTAs out
+    list_rows = max(32 * warps * SCAN_BATCH + LIST_SLACK,
+                    MAX_SAMPLED_CHUNKS + CHUNK_SAMPLE + 3)
+    off_stage = _round_up(units * gc * B * 3 * 8, 16)
+    off_list = off_stage + RING_STAGES * stage_rows * rstride
+    off_count = off_list + _round_up(6 * list_rows, 16)
+    smem = off_count + 16
+    return list_rows, off_stage, off_list, off_count, smem
+
+
+@functools.lru_cache(maxsize=None)
+def _f64_units(G: int, B: int, rstride: int, stage_bytes: int,
+               cols: bool):
+    """(histograms, ring stage rows, groups per CTA): more histograms
+    first, then longer stages (down to half the longest), before the
+    groups split (column owners: when not one histogram fits; one
+    histogram a warp: when fewer than MIN_WARPS_PER_CTA fit)."""
+    top = max(1, min(MAX_STAGE_ROWS, stage_bytes // rstride))
+    least = 1 if cols else MIN_WARPS_PER_CTA
+
+    def fits(units, gc, rows):
+        warps = COLS_THREADS // 32 if cols else units
+        return _f64_layout(units, warps, gc, B, rows,
+                           rstride)[-1] <= SMEM_PER_CTA
+
+    def most_units(gc, rows):
+        return max([u for u in range(1, MAX_SLOTS_PER_CTA + 1)
+                    if fits(u, gc, rows)], default=0)
+
+    units, rows = max((most_units(G, r), r)
+                      for r in range(max(1, top // 2), top + 1))
+    if units >= least:
+        return units, rows, G
+    gc = max([g for g in range(1, G + 1) if fits(least, g, top)],
+             default=1)
+    return max(1, most_units(gc, top)), top, gc
+
+
+def _f64_hist_plan(n: int, W: int, G: int, B: int, payload: int,
+                   num_sms: int, stage_bytes: int,
+                   onehot: bool) -> HistPlan:
+    """One-hot rows of a frontier of at most COLS_MAX_SLOTS slots take
+    one slot a CTA with column owners (two CTAs an SM at 28 x 63), so
+    every landed row is added by all of a CTA's threads whichever slot it
+    is in, and the kernel shares the CTAs out over the slots by their
+    sampled work (:func:`chunk_ctas`; a tree's middle rounds put most
+    rows in a few slots), aiming at COLS_CTAS_PER_SLOT CTAs a slot in up
+    to COLS_MAX_WAVES waves.  Every other launch keeps as many histograms
+    as fit beside the ring and the list (at most 8, :func:`_f64_units`),
+    one a warp: S = min(W, that) slots, C copies of each, and the CTAs in
+    equal shares (a warp adds only its slot's rows, so a share by the
+    chunk's work would still leave its other warps idle) of one wave.
+    Every slot chunk gets at least one CTA."""
+    rstride = _round_up(max(payload, 1), 16) + 16
+    cols = onehot and W <= COLS_MAX_SLOTS
+    units, stage_rows, gc = _f64_units(G, B, rstride, stage_bytes, cols)
+    S = 1 if cols else max(1, min(W, units))
+    C = 1 if cols else max(1, units // S)
+    threads = COLS_THREADS if cols else 32 * S * C
+    list_rows, off_stage, off_list, off_count, smem = _f64_layout(
+        S * C, threads // 32, gc, B, stage_rows, rstride)
+    chunks, gz = max(1, -(-W // S)), -(-G // gc)
+    ctas = num_sms * max(1, min(SMEM_PER_SM // (smem
+                                               + SMEM_RESERVED_PER_CTA),
+                                2048 // threads))
+    wave = ctas // gz
+    if cols:
+        wave = min(COLS_MAX_WAVES * wave,
+                   max(wave, COLS_CTAS_PER_SLOT * chunks))
+    # no more CTAs than the rows can give 32 each
+    T = max(chunks, min(wave, chunks * -(-max(n, 1) // 32)))
+    return HistPlan(S, C, gc, chunks, stage_rows, list_rows, off_stage,
+                    off_list, off_count, smem, (T, 1, gz), threads,
+                    rstride, int(cols), int(cols and chunks > 1))
+
+
+def chunk_ctas(plan: HistPlan, hits=None):
+    """The CTAs of each slot chunk, as csrc/hist_f64.cuh pick_chunk shares
+    a group chunk's grid x CTAs out.  With ``plan.shared`` (and at most
+    MAX_SAMPLED_CHUNKS chunks) chunk c costs its landed rows' staged
+    bytes plus the leaf-id scan every chunk makes, ``hits[c]`` being the
+    number of its landed rows among CHUNK_SAMPLE evenly spaced leaf ids;
+    otherwise every chunk costs the same.  Chunk c takes one CTA plus its
+    cost's share of the rest, rounded down, so every chunk gets at least
+    one CTA and the sum is at most grid x."""
+    T, n = plan.grid[0], plan.chunks
+    if plan.shared and n <= MAX_SAMPLED_CHUNKS:
+        cost = [h * plan.row_stride + 4 * CHUNK_SAMPLE for h in hits]
+    else:
+        cost = [1] * n
+    total, spare = sum(cost), T - n
+    return [1 + spare * c // total for c in cost]
+
+
+def chunk_rows(n: int, ctas: int):
+    """The row ranges [begin, end) of a chunk's ``ctas`` CTAs: equal
+    ranges of whole warps (csrc/hist_f64.cuh)."""
+    per = _round_up(-(-n // ctas), 32)
+    return [(min(n, i * per), min(n, i * per + per)) for i in range(ctas)]
+
+
+def onehot_hist_plan(n: int, W: int, G: int, B: int, row_bytes: int,
+                     num_sms: int = H100_SMS) -> HistPlan:
+    """Geometry of kernels D and E with f32 weights: staged rows are the
+    ``row_bytes``-byte one-hot rows (42 KB histograms at 28 x 63: up to
+    COLS_MAX_SLOTS slots one a CTA, two CTAs an SM; a wider frontier 4
+    slots a CTA, one warp each)."""
+    return _f64_hist_plan(n, W, G, B, row_bytes, num_sms,
+                          ONEHOT_STAGE_BYTES, True)
+
+
+def bins_hist_plan(n: int, W: int, G: int, B: int,
+                   num_sms: int = H100_SMS) -> HistPlan:
+    """Geometry of kernels F and K: staged rows are the G bin bytes (5
+    private histograms at 28 x 63)."""
+    return _f64_hist_plan(n, W, G, B, G, num_sms, BINS_STAGE_BYTES, False)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_args(kind: str, n: int, W: int, G: int, B: int, payload: int,
+               index: int):
+    """The C plan array of one launch shape on card ``index`` (a launch
+    of the same shapes reuses it; the kernels only read it)."""
+    sms = _num_sms(index)
+    plan = (bins_hist_plan(n, W, G, B, sms) if kind == "bins"
+            else onehot_hist_plan(n, W, G, B, payload, sms))
+    return plan.as_args()
+
+
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """f32 -> the nearest bf16 value (ties to even), returned as f32: the
     cast every TPU histogram body applies to its f32 weights before the
@@ -480,8 +710,8 @@ def _onehot_vec(ohb: torch.Tensor) -> int:
 def _onehot_launch(name: str, ohb, w, leaf_id, slots, *, max_group_bin,
                    pack, num_groups, binsT=None, route_tab=None):
     """Launch kernel D (``route_tab`` given) or E on CUDA tensors.
-    ``w`` is (N, 3) with any strides.  Returns (hist, new leaf ids or
-    None)."""
+    ``w`` is (N, 3) with any strides.  f32 weights take the geometry of
+    :func:`onehot_hist_plan`.  Returns (hist, new leaf ids or None)."""
     G, B = num_groups, max_group_bin
     N = leaf_id.shape[0]
     W = slots.shape[0]
@@ -491,12 +721,14 @@ def _onehot_launch(name: str, ohb, w, leaf_id, slots, *, max_group_bin,
     route = route_tab is not None
     L, K = route_tab.shape if route else (0, 0)
     leaf_out = torch.empty_like(leaf_id) if route else None
+    plan = None if quant else _plan_args(
+        "onehot", N, W, G, B, ohb.shape[1], ohb.device.index or 0)
     kernels.launch(name, ohb.data_ptr(), ohb.shape[1], _onehot_vec(ohb),
                    binsT.data_ptr() if route else None, w.data_ptr(),
                    w.stride(0), w.stride(1), int(quant), leaf_id.data_ptr(),
                    route_tab.data_ptr() if route else None, slots.data_ptr(),
                    acc.data_ptr(), leaf_out.data_ptr() if route else None,
-                   N, G, B, L, K, W, pack, G * B // pack, int(route))
+                   N, G, B, L, K, W, pack, G * B // pack, int(route), plan)
     return (acc if quant else acc.to(torch.float32)), leaf_out
 
 
@@ -734,8 +966,9 @@ def bins_hist_plain(bins: torch.Tensor, w: torch.Tensor,
 def _bins_hist(name: str, bins: torch.Tensor, w: torch.Tensor,
                leaf_id: torch.Tensor, slots: torch.Tensor,
                max_group_bin: int, dtype) -> torch.Tensor:
-    """Kernel F (f32 ``w``) or I (int32 ``w``) under the launch count
-    ``name`` on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel F or K (f32 ``w``, the geometry of :func:`bins_hist_plan`)
+    or I (int32 ``w``) under the launch count ``name`` on CUDA tensors,
+    the plain version on CPU tensors."""
     _check(bins, "bins", torch.uint8, 2)
     _check(w, "w", dtype, 2)
     _check(leaf_id, "leaf_id", torch.int32, 1)
@@ -748,13 +981,22 @@ def _bins_hist(name: str, bins: torch.Tensor, w: torch.Tensor,
     dev = _same_device(bins, w, leaf_id, slots)
     if dev.type != "cuda":
         return bins_hist_plain(bins, w, leaf_id, slots, max_group_bin)
-    quant = dtype == torch.int32
-    acc = torch.zeros((slots.shape[0], G, max_group_bin, 3), device=dev,
-                      dtype=torch.int32 if quant else torch.float64)
+    W = slots.shape[0]
+    if dtype == torch.int32:
+        acc = torch.zeros((W, G, max_group_bin, 3), device=dev,
+                          dtype=torch.int32)
+        kernels.launch(name, bins.data_ptr(), w.data_ptr(),
+                       leaf_id.data_ptr(), slots.data_ptr(), acc.data_ptr(),
+                       N, G, max_group_bin, W)
+        return acc
+    acc = torch.zeros((W, G, max_group_bin, 3), device=dev,
+                      dtype=torch.float64)
+    words = int(G % 4 == 0 and bins.data_ptr() % 4 == 0)
     kernels.launch(name, bins.data_ptr(), w.data_ptr(), leaf_id.data_ptr(),
-                   slots.data_ptr(), acc.data_ptr(), N, G, max_group_bin,
-                   slots.shape[0])
-    return acc if quant else acc.to(torch.float32)
+                   slots.data_ptr(), acc.data_ptr(), N, G, max_group_bin, W,
+                   words, _plan_args("bins", N, W, G, max_group_bin, G,
+                                     dev.index or 0))
+    return acc.to(torch.float32)
 
 
 def bins_hist(bins: torch.Tensor, w: torch.Tensor, leaf_id: torch.Tensor,

@@ -39,9 +39,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 
+# the f32 histograms take a launch plan as their last argument before
+# the stream: an int64 array from ops/histogram.py HistPlan.as_args
 _ONEHOT_ARGS = [_P, _I64, _I, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P,
-                _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+                _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
 _BINS_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]
+_BINS_F64_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P]
 # kernel name -> (source file, C entry point, argtypes)
 KERNELS: Dict[str, tuple] = {
     "fused_route_hist": (
@@ -65,10 +68,10 @@ KERNELS: Dict[str, tuple] = {
                           _ONEHOT_ARGS),
     "hist_pre_packed": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
     "hist_pre": ("onehot_hist.cu", "ltt_onehot_hist", _ONEHOT_ARGS),
-    "bins_hist": ("bins_hist.cu", "ltt_bins_hist", _BINS_ARGS),
+    "bins_hist": ("bins_hist.cu", "ltt_bins_hist", _BINS_F64_ARGS),
     # kernel K: F's template behind the pallas_paired plan
     "bins_hist_paired": ("bins_hist.cu", "ltt_bins_hist_paired",
-                         _BINS_ARGS),
+                         _BINS_F64_ARGS),
     # kernel I (int8 weights) behind its two entry points
     "bins_hist_q": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),
     "bins_hist_q_packed": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),

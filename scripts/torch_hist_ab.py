@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Time the f32 histogram kernels D, E, F and K of two trees on one card,
+in turns.
+
+    git archive <commit> | tar -x -C build/ab_parent   # the other tree
+    python3 scripts/torch_hist_ab.py --parent build/ab_parent [--rounds]
+
+Runs the other tree, this tree, this tree, the other tree, each in its
+own process that imports lightgbm_tpu_torch from that tree (building its
+kernels into that tree's build/kernels), and times each kernel's wrapper
+at chip_smoke.py's phase-2 bench shape (1,000,000 rows, 28 groups, 63
+bins; the same seeded inputs): D (pack 4, f32) at W=126 with a pending
+route table and on a tree's first round, E pre_packed at W=126 and on
+the first round, E pre over all 255 leaves and on the first round, F
+and K at W=126 and on the first round.  Prints the median of CUDA-event
+timed launches for each, the card's name and power limit, and writes
+chiprun_out/hist_ab.json.
+
+With --rounds it times kernel D where training runs it instead: each
+process trains two float-gradient trees (the fused_streamed plan) on
+chip_smoke.py's workload (make_data 1,000,000 x 28, BENCH_PARAMS with
+quantized_grad off), keeps the inputs of the second tree's D launches,
+one a grower round, and times D again on each (the median of CUDA-event
+timed launches).  Prints each round's width W, its landed rows, the
+largest slot's share of them and both trees' times, the sums per tree,
+and writes chiprun_out/hist_ab_rounds.json.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_ab", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_tree(root: str, n: int, reps: int) -> dict:
+    """{case: median ms} of the kernels of the tree at ``root``."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    if not os.path.abspath(H.__file__).startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {H.__file__}, not the tree at {root}")
+    cs = _chip_smoke()
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(13)
+    G, B, L = 28, 63, 255
+    binsT = torch.from_numpy(rng.randint(0, B, (G, n)).astype(np.uint8)).to(
+        dev)
+    bins = binsT.t().contiguous()
+    leaf = rng.randint(0, L, n).astype(np.int32)
+    leaf[rng.rand(n) < 0.01] = -1
+    leaf = torch.from_numpy(leaf).to(dev)
+    counts = (leaf >= 0).to(torch.float32)
+    grad = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev) * counts
+    hess = torch.from_numpy(rng.rand(n).astype(np.float32) * 0.25).to(
+        dev) * counts
+    wT = torch.stack([grad, hess, counts]).contiguous()
+    w = wT.t().contiguous()
+    table = cs.random_route_table(rng, L, G, B).to(dev)
+    oh4 = H.precompute_bin_onehot_packed(bins, max_group_bin=B, pack=4)
+    root_leaf = torch.where(leaf >= 0, 0, -1).to(torch.int32)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    s126 = torch.from_numpy(rng.permutation(2 * L)[:126].astype(
+        np.int32)).to(dev)
+    s126_l = torch.from_numpy(rng.permutation(L)[:126].astype(np.int32)).to(
+        dev)
+    all_l = torch.arange(L, dtype=torch.int32, device=dev)
+    kw = dict(max_group_bin=B, pack=4, num_groups=G)
+    zt = torch.zeros_like(table)
+    cases = {
+        "D W=126": lambda: H.fused_onehot_hist(oh4, binsT, wT, leaf, table,
+                                               s126, **kw),
+        "D first round": lambda: H.fused_onehot_hist(
+            oh4, binsT, wT, root_leaf, zt, one, **kw),
+        "E pre_packed W=126": lambda: H.hist_pre_packed(oh4, w, leaf,
+                                                        s126_l, **kw),
+        "E pre_packed first round": lambda: H.hist_pre_packed(
+            oh4, w, root_leaf, one, **kw),
+        "E pre all 255": lambda: H.hist_pre(oh4, w, leaf, all_l, **kw),
+        "E pre first round": lambda: H.hist_pre(oh4, w, root_leaf, one,
+                                                **kw),
+        "F W=126": lambda: H.bins_hist(bins, w, leaf, s126_l, B),
+        "F first round": lambda: H.bins_hist(bins, w, root_leaf, one, B),
+        "K W=126": lambda: H.bins_hist_paired(bins, w, leaf, s126_l, B),
+        "K first round": lambda: H.bins_hist_paired(bins, w, root_leaf, one,
+                                                    B),
+    }
+    return {k: cs.time_ms(fn, dev, reps) for k, fn in cases.items()}
+
+
+def capture_rounds(root: str, trees: int = 2):
+    """(histogram module, kernel D's wrapper, [(args, kwargs)] of the last
+    tree's D launches) of ``trees`` fused_streamed trees trained with the
+    tree at ``root``."""
+    sys.path.insert(0, os.path.abspath(root))
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.boosting import create_boosting
+    from lightgbm_tpu_torch.ops import histogram as H
+    if not os.path.abspath(H.__file__).startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {H.__file__}, not the tree at {root}")
+    cs = _chip_smoke()
+    X, y, _ = cs.make_data(1_000_000, 28, seed=7)
+    cfg = lgb.Config.from_params(dict(cs.BENCH_PARAMS, quantized_grad=False))
+    gbdt = create_boosting(cfg, lgb.Dataset(X, label=y).construct(cfg))
+    if gbdt.grower.plan.name != "fused_streamed":
+        raise RuntimeError(f"plan {gbdt.grower.plan.name}, not fused_streamed")
+    calls, d = [], H.fused_onehot_hist
+
+    def kept(*args, **kwargs):
+        calls.append((args, kwargs))
+        return d(*args, **kwargs)
+    H.fused_onehot_hist = kept
+    try:
+        for _ in range(trees):
+            calls.clear()
+            gbdt.train_one_iter()
+    finally:
+        H.fused_onehot_hist = d
+    return H, d, list(calls)
+
+
+def time_rounds(d, calls, reps: int) -> list:
+    """[{W, landed, top_share, ms}] of kernel D on each kept launch."""
+    import torch
+    cs = _chip_smoke()
+    out = []
+    for args, kwargs in calls:
+        slots = args[5]
+        _, leaf = d(*args, **kwargs)
+        hits = (leaf[None, :] == slots[:, None]) & (slots[:, None] >= 0)
+        per = hits.sum(1)
+        landed = int(per.sum())
+        ms = cs.time_ms(lambda: d(*args, **kwargs), torch.device("cuda"),
+                        reps)
+        out.append(dict(W=int(slots.shape[0]), landed=landed,
+                        top_share=int(per.max()) / max(landed, 1), ms=ms))
+    return out
+
+
+def _runs(flag: str, parent: str):
+    runs = []
+    for label, root in (("parent", parent), ("change", HERE),
+                        ("change", HERE), ("parent", parent)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            flag, root], capture_output=True, text=True)
+        if r.returncode != 0:
+            print(r.stdout, r.stderr, file=sys.stderr)
+            return None
+        runs.append((label, json.loads(r.stdout.strip().splitlines()[-1])))
+    return runs
+
+
+def rounds_main(parent: str, card: str) -> int:
+    runs = _runs("--time-rounds", parent)
+    if runs is None:
+        return 1
+    print(f"card: {card}")
+    print("kernel D, one launch a grower round of a fused_streamed tree")
+    print(f"{'round':>5} {'W':>4} {'landed':>8} {'top slot':>8} "
+          f"{'parent ms (run 1, 4)':>22} {'change ms (run 2, 3)':>22}  ratio")
+    par = [r for lab, r in runs if lab == "parent"]
+    chg = [r for lab, r in runs if lab == "change"]
+    if any(len(r) != len(par[0]) for r in par + chg):
+        print("the trees ran different rounds", file=sys.stderr)
+        return 1
+    for i, c in enumerate(chg[0]):
+        p = [r[i]["ms"] for r in par]
+        m = [r[i]["ms"] for r in chg]
+        print(f"{i:>5} {c['W']:>4} {c['landed']:>8} {c['top_share']:>8.3f} "
+              f"{p[0]:>10.4f} {p[1]:>10.4f}  {m[0]:>10.4f} {m[1]:>10.4f}  "
+              f"{np.mean(m) / np.mean(p):.3f}")
+    sums = {lab: [sum(x["ms"] for x in r) for r in rs]
+            for lab, rs in (("parent", par), ("change", chg))}
+    print("per tree: parent " + ", ".join(f"{x:.4f}" for x in sums["parent"])
+          + " ms; change " + ", ".join(f"{x:.4f}" for x in sums["change"])
+          + f" ms ({card})")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "hist_ab_rounds.json"),
+              "w") as fh:
+        json.dump(dict(card=card, parent=par, change=chg, sums=sums), fh,
+                  indent=1)
+    return 0
+
+
+def main(argv) -> int:
+    if "--time-root" in argv:
+        root = argv[argv.index("--time-root") + 1]
+        print(json.dumps(time_tree(root, 1_000_000, 20)))
+        return 0
+    if "--time-rounds" in argv:
+        _, d, calls = capture_rounds(argv[argv.index("--time-rounds") + 1])
+        print(json.dumps(time_rounds(d, calls, 10)))
+        return 0
+    if "--parent" not in argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    parent = argv[argv.index("--parent") + 1]
+    cs = _chip_smoke()
+    card = cs.card_line()
+    if "--rounds" in argv:
+        return rounds_main(parent, card)
+    runs = _runs("--time-root", parent)
+    if runs is None:
+        return 1
+    print(f"card: {card}")
+    print(f"{'case':<26} {'parent ms (run 1, 4)':>22} "
+          f"{'change ms (run 2, 3)':>22}  ratio")
+    table = {}
+    for case in runs[0][1]:
+        p = [r[case] for lab, r in runs if lab == "parent"]
+        c = [r[case] for lab, r in runs if lab == "change"]
+        ratio = np.mean(c) / np.mean(p)
+        table[case] = dict(parent_ms=p, change_ms=c, ratio=ratio)
+        print(f"{case:<26} {p[0]:>10.4f} {p[1]:>10.4f}  {c[0]:>10.4f} "
+              f"{c[1]:>10.4f}  {ratio:.3f}")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "hist_ab.json"), "w") as fh:
+        json.dump(dict(card=card, cases=table), fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

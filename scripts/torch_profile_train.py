@@ -52,8 +52,11 @@ KERNEL_SYMBOLS = {
     "frontier_hist (A, G)": "frontier_hist_kernel",
     "route (B, H)": "route_kernel",
     "predict_level (C)": "predict_level_kernel",
-    "onehot_hist (D, E)": "onehot_hist_kernel",
-    "bins_hist (F, I, K)": "bins_hist_kernel",
+    "hist_f64, one-hot rows (D, E)": "hist_f64_kernel<true",
+    "route_rows (D's routing)": "route_rows_kernel",
+    "hist_f64, rows of bins (F, K)": "hist_f64_kernel<false",
+    "onehot_hist_q (D, E with int8 weights)": "onehot_hist_q_kernel",
+    "bins_hist_q (I)": "bins_hist_q_kernel",
     "seg_hist (J)": "seg_hist_kernel",
 }
 

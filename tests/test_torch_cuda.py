@@ -4,10 +4,11 @@ the card machine runs these with ``python -m pytest -m cuda
 tests/test_torch_cuda.py``.
 
 Integer outputs (leaf ids, int32 histograms, the count channel) are
-held bit for bit.  The f32 grad/hess channels of kernels D, E and F are
-sums of the same bf16 values accumulated in f64 by both sides (atomics
-on the card, index_add_ in the plain version) and rounded once, so they
-agree to one f32 ulp of the bin's absolute sum S (``F32_ULP * S``)."""
+held bit for bit.  The f32 grad/hess channels of kernels D, E, F and K
+are sums of the same bf16 values accumulated in f64 by both sides
+(shared-memory histograms flushed with global atomics on the card,
+index_add_ in the plain version) and rounded once, so they agree to one
+f32 ulp of the bin's absolute sum S (``F32_ULP * S``)."""
 import numpy as np
 import pytest
 import torch
@@ -248,3 +249,184 @@ def test_seg_hist_kernel_matches_plain(dev, case):
     assert hk.dtype == torch.int32 and torch.equal(hk, hp)
     assert torch.equal(hk, H.tiled_hist_plain(binsT, wT, leaf, slots, B))
     assert torch.equal(hk, H.seg_hist(binsT_p, wT_p, blk_slot, W, B))
+
+
+# ---------------------------------------------------------------------------
+# The f64 shared-memory designs of kernels D, E (streamed one-hot) and F, K
+# (bin matrix) at the edges of their launch geometry
+# ---------------------------------------------------------------------------
+EDGE_CASES = ["W=2S-1", "W=2S", "W=2S+1", "W=kS-1", "W=kS", "W=kS+1",
+              "duplicate and negative slots", "first round",
+              "B=255 group split", "first round, B=255 group split",
+              "zero weights, bins >= B"]
+
+
+def _edge_inputs(dev, case, cap_of):
+    """Inputs of one edge case: (bins, binsT, wT, leaf, tab, slots, B, G).
+    ``cap_of(N, G, B)`` is the kernel's slots per CTA on a wide frontier,
+    so the W cases straddle two slot chunks (2S) or the k-th, the first
+    past the one-hot's column-owner frontiers (kS)."""
+    G, B = (40, 255) if case.endswith("group split") else (7, 36)
+    N = 6000
+    (binsT, _, leaf, tab, slots), _ = _inputs(dev, N, G, B, 48, seed=9)
+    bins = binsT.t().contiguous()
+    g = torch.Generator().manual_seed(3)
+    cnt = (leaf >= 0).float()
+    wT = torch.stack([torch.randn(N, generator=g).to(dev) * cnt,
+                      torch.rand(N, generator=g).to(dev) * cnt,
+                      cnt]).contiguous()
+    span = torch.from_numpy(np.random.RandomState(4).permutation(96).astype(
+        np.int32)).to(dev)
+    if case.startswith("W="):
+        S = cap_of(N, G, B)
+        k = 2 if "2S" in case else H.COLS_MAX_SLOTS // S + 1
+        W = k * S + (-1 if case.endswith("-1") else
+                     1 if case.endswith("+1") else 0)
+        slots = span[:W] if W <= 96 else torch.arange(
+            W, dtype=torch.int32, device=dev) % 48
+    elif case == "duplicate and negative slots":
+        slots = torch.cat([span[:10], span[3:6], torch.full(
+            (4,), -1, dtype=torch.int32, device=dev), span[:2]])
+    elif case.startswith("first round"):
+        leaf = torch.where(leaf >= 0, 0, -1).to(torch.int32)
+        tab = torch.zeros_like(tab)
+        slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    elif case == "zero weights, bins >= B":
+        wT[:, ::5] = 0.0                       # rows with no weight at all
+        wT[0, 1::7] = 0.0                      # one channel zero
+        bins[::3, 2] = B + 4
+        binsT = bins.t().contiguous()
+    return bins, binsT, wT, leaf, tab, slots, B, G
+
+
+def _onehot_cap(pack):
+    def cap(N, G, B):
+        return H.onehot_hist_plan(N, 1000, G, B,
+                                  H.onehot_width(G, B, pack)).slots_per_cta
+    return cap
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("pack", [1, 2, 4])
+@pytest.mark.parametrize("entry", ["fused_onehot_hist", "hist_pre_packed",
+                                   "hist_pre"])
+def test_onehot_f64_kernel_edges(dev, entry, pack, case):
+    bins, binsT, wT, leaf, tab, slots, B, G = _edge_inputs(
+        dev, case, _onehot_cap(pack))
+    ohb = (H.precompute_bin_onehot(bins, max_group_bin=B) if pack == 1
+           else H.precompute_bin_onehot_packed(bins, max_group_bin=B,
+                                               pack=pack))
+    kw = dict(max_group_bin=B, pack=pack, num_groups=G)
+    plan = H.onehot_hist_plan(leaf.shape[0], slots.shape[0], G, B,
+                              ohb.shape[1])
+    if case.endswith("group split"):
+        assert plan.grid[2] > 1
+    assert plan.cols == (slots.shape[0] <= H.COLS_MAX_SLOTS)
+    n0 = kernels.LAUNCHES[entry]
+    if entry == "fused_onehot_hist":
+        hk, lk = H.fused_onehot_hist(ohb, binsT, wT, leaf, tab, slots, **kw)
+        hp, lp = H.fused_onehot_hist_plain(ohb, binsT, wT, leaf, tab, slots,
+                                           **kw)
+        assert torch.equal(lk, lp)              # leaf_out under chunking
+        lf = lp
+    else:
+        w = wT.t().contiguous()
+        hk = getattr(H, entry)(ohb, w, leaf, slots, **kw)
+        hp = getattr(H, entry + "_plain")(ohb, w, leaf, slots, **kw)
+        lf = leaf
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    assert hk.shape == (slots.shape[0], G, B, 3)
+    _assert_close(hk, hp, H.onehot_hist_plain(ohb, wT.t().abs(), lf, slots,
+                                              **kw))
+    assert hk[..., 2].sum() > 0
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+@pytest.mark.parametrize("entry", ["bins_hist", "bins_hist_paired"])
+def test_bins_f64_kernel_edges(dev, entry, case):
+    def cap(N, G, B):
+        return H.bins_hist_plan(N, 1000, G, B).slots_per_cta
+    bins, _, wT, leaf, _, slots, B, G = _edge_inputs(dev, case, cap)
+    w = wT.t().contiguous()
+    plan = H.bins_hist_plan(leaf.shape[0], slots.shape[0], G, B)
+    if case.endswith("group split"):
+        assert plan.grid[2] > 1
+    n0 = kernels.LAUNCHES[entry]
+    hk = getattr(H, entry)(bins, w, leaf, slots, B)
+    hp = getattr(H, entry + "_plain")(bins, w, leaf, slots, B)
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    assert hk.shape == (slots.shape[0], G, B, 3)
+    _assert_close(hk, hp, H.bins_hist_plain(bins, w.abs(), leaf, slots, B))
+    assert hk[..., 2].sum() > 0
+
+
+def _one_slot_launch(dev, entry, N, leaf_of, W, seed=9):
+    """Kernel ``entry`` (D, E pre_packed or F) on N rows whose leaf ids
+    ``leaf_of(leaf, slots)`` makes from _float_inputs' leaf ids and W
+    frontier slots; returns (launch, plain version, |weights| sums)."""
+    ohb, bins, binsT, wT, leaf, tab, _, B, G = _float_inputs(
+        dev, 4, False, N=N, seed=seed)
+    slots = torch.arange(W, dtype=torch.int32, device=dev) * 3
+    leaf = leaf_of(leaf, slots)
+    tab = torch.zeros_like(tab)           # no split pending: ids unchanged
+    kw = dict(max_group_bin=B, pack=4, num_groups=G)
+    w = wT.t().contiguous()
+    if entry == "fused_onehot_hist":
+        def run():
+            return H.fused_onehot_hist(ohb, binsT, wT, leaf, tab, slots,
+                                       **kw)[0]
+
+        def plain():
+            return H.fused_onehot_hist_plain(ohb, binsT, wT, leaf, tab,
+                                             slots, **kw)[0]
+    elif entry == "hist_pre_packed":
+        def run():
+            return H.hist_pre_packed(ohb, w, leaf, slots, **kw)
+
+        def plain():
+            return H.hist_pre_packed_plain(ohb, w, leaf, slots, **kw)
+    else:
+        def run():
+            return H.bins_hist(bins, w, leaf, slots, B)
+
+        def plain():
+            return H.bins_hist_plain(bins, w, leaf, slots, B)
+    S = H.onehot_hist_plain(ohb, w.abs(), leaf, slots, **kw)
+    return run, plain, S
+
+
+@pytest.mark.parametrize("entry", ["fused_onehot_hist", "hist_pre_packed"])
+def test_onehot_f64_first_round_repeats_bit_identical(dev, entry):
+    """600,000 rows in one slot: every CTA scans and lists many batches,
+    crossing the list's flush point, and twenty launches leave the same
+    bits (each thread reads the list's count before the next batch may
+    add to it), equal to the plain version."""
+    run, plain, S = _one_slot_launch(
+        dev, entry, 600_000, lambda leaf, slots: torch.where(
+            leaf >= 0, 0, -1).to(torch.int32), 1)
+    first = run()
+    for _ in range(20):
+        assert torch.equal(run(), first)
+    _assert_close(first, plain(), S)
+
+
+@pytest.mark.parametrize("W", [16, 64, 126])
+@pytest.mark.parametrize("entry", ["fused_onehot_hist", "hist_pre_packed",
+                                   "bins_hist"])
+def test_f64_kernels_on_a_skewed_frontier(dev, entry, W):
+    """A tree's middle round: one slot holds 60% of the rows, a few others
+    the rest, half the slots none.  The kernel shares its CTAs out over
+    the slot chunks by a sample of the leaf ids; the histogram equals the
+    plain version and repeats bit for bit."""
+    def skewed(leaf, slots):
+        g = torch.Generator().manual_seed(W)
+        n = leaf.shape[0]
+        pick = torch.randint(1, W // 2, (n,), generator=g)
+        big = torch.rand(n, generator=g) < 0.6
+        ids = torch.where(big, 0, pick).to(leaf.device)
+        return torch.where(leaf >= 0, slots[ids], -1).to(torch.int32)
+    run, plain, S = _one_slot_launch(dev, entry, 200_000, skewed, W)
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+    _assert_close(first, plain(), S)

@@ -1,0 +1,193 @@
+"""Launch geometry of the f64 shared-memory histogram kernels (D, E with
+the streamed one-hot, F and K with the bin matrix).
+
+ops/histogram.py onehot_hist_plan and bins_hist_plan alone decide the
+slots per CTA, the group split, the CTAs of a group chunk and the
+shared-memory carve-up; the CUDA kernels only read the plan, and share
+the CTAs out over the slot chunks by the rule of chunk_ctas.  These CPU
+tests hold the plans to what the kernels need: no more shared memory
+than an H100 CTA may use, every (slot, group) pair and every row covered
+exactly once, and the same plan for the same shapes."""
+import numpy as np
+import pytest
+
+from lightgbm_tpu_torch.ops import histogram as H
+
+GROUPS = (1, 2, 7, 13, 28, 32, 33, 40)
+BINS = (2, 15, 36, 63, 64, 255)
+ROWS = (1, 600, 1_000_000)
+
+
+def _plan(kind, n, W, G, B):
+    if kind == "bins":
+        return H.bins_hist_plan(n, W, G, B)
+    pack = int(kind[-1])
+    if (G * B) % pack:
+        return None
+    return H.onehot_hist_plan(n, W, G, B, H.onehot_width(G, B, pack))
+
+
+def _shapes(kind):
+    for G in GROUPS:
+        for B in BINS:
+            for W in range(1, 256):
+                p = _plan(kind, 1_000_000, W, G, B)
+                if p is not None:
+                    yield W, G, B, p
+
+
+KINDS = ["onehot-pack1", "onehot-pack2", "onehot-pack4", "bins"]
+
+
+def _payload(kind, G, B):
+    return G if kind == "bins" else H.onehot_width(G, B, int(kind[-1]))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plan_fits_shared_memory(kind):
+    """The carve-up of csrc/hist_f64.cuh: the private histograms, the
+    three-stage ring, the list (uint32 rows, uint16 slot masks) and its
+    counter, in that order, within one CTA's 232,448 bytes."""
+    for W, G, B, p in _shapes(kind):
+        S, C, gc = p.slots_per_cta, p.copies, p.groups_per_cta
+        where = (W, G, B, p)
+        assert p.smem_bytes <= H.SMEM_PER_CTA, where
+        assert S * C * gc * B * 3 * 8 <= p.off_stage, where
+        assert p.row_stride % 16 == 0, where
+        assert p.row_stride >= -(-_payload(kind, G, B) // 16) * 16 + 12
+        assert p.off_stage % 16 == 0 and p.off_list % 16 == 0, where
+        assert p.off_list >= p.off_stage + 3 * p.stage_rows * p.row_stride
+        assert p.off_count >= p.off_list + 6 * p.list_rows, where
+        assert p.smem_bytes >= p.off_count + 4, where
+        if p.cols:                      # column owners, one slot a CTA
+            assert kind != "bins" and W <= H.COLS_MAX_SLOTS, where
+            assert S == C == 1 and p.threads == H.COLS_THREADS, where
+            assert p.shared == (W > 1), where   # CTAs by sampled work
+        else:                           # one private histogram a warp
+            assert kind == "bins" or W > H.COLS_MAX_SLOTS, where
+            assert p.threads == 32 * S * C <= 256, where
+            assert not p.shared, where
+        assert 1 <= S <= min(W, H.MAX_SLOTS_PER_CTA), where
+        assert 1 <= p.stage_rows <= H.MAX_STAGE_ROWS, where
+        assert p.list_rows >= H.SCAN_BATCH * p.threads, where
+        # the list's space first holds the sample and the chunk counts
+        assert p.list_rows >= H.MAX_SAMPLED_CHUNKS + H.CHUNK_SAMPLE + 3
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plan_covers_each_slot_group_and_row_once(kind):
+    for W, G, B, p in _shapes(kind):
+        gx, gy, gz = p.grid
+        assert gy == 1 and gx >= p.chunks, (W, G, B, p)  # a CTA a chunk
+        S, gc = p.slots_per_cta, p.groups_per_cta
+        seen = [[0] * G for _ in range(W)]
+        for y in range(p.chunks):
+            slots = range(y * S, min(W, y * S + S))
+            assert len(slots) > 0, (W, G, B, p)        # no idle chunk
+            for z in range(gz):
+                groups = range(z * gc, min(G, z * gc + gc))
+                assert len(groups) > 0, (W, G, B, p)
+                for s in slots:
+                    for g in groups:
+                        seen[s][g] += 1
+        assert all(c == 1 for row in seen for c in row), (W, G, B, p)
+    rng = np.random.RandomState(0)
+    for n in ROWS:
+        for W in (1, 8, 126):
+            p = _plan(kind, n, W, 28, 63)
+            hits = rng.randint(0, 50, p.chunks) * (rng.rand(p.chunks) < 0.7)
+            for k in H.chunk_ctas(p, hits.tolist()):
+                rows = [r for b, e in H.chunk_rows(n, k) for r in
+                        range(b, e)]
+                assert rows == list(range(n)), (n, W, k)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plan_is_the_same_for_the_same_shapes(kind):
+    for W, G, B, p in _shapes(kind):
+        assert _plan(kind, 1_000_000, W, G, B) == p
+        assert tuple(p.as_args()) == (
+            p.slots_per_cta, p.copies, p.groups_per_cta, p.chunks,
+            p.stage_rows, p.list_rows, p.off_stage, p.off_list,
+            p.off_count, p.smem_bytes, *p.grid, p.threads, p.row_stride,
+            p.cols, p.shared)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plan_at_the_bench_shape(kind):
+    """28 groups of 63 bins: one slot's f64 histogram (42,336 B) fits
+    without a group split; a first round takes one slot per CTA (one-hot
+    rows: two CTAs an SM, and so up to COLS_MAX_SLOTS slots; past them
+    four private warp histograms a CTA)."""
+    first = _plan(kind, 1_000_000, 1, 28, 63)
+    wide = _plan(kind, 1_000_000, 255 if kind != "bins" else 126, 28, 63)
+    assert first.slots_per_cta == 1 and first.chunks == 1
+    assert first.grid[1:] == (1, 1)
+    if kind != "bins":
+        assert 2 * (first.smem_bytes + 1024) <= H.SMEM_PER_SM
+        assert first.grid[0] == 2 * H.H100_SMS
+        # a wide column-owner launch: more waves, toward
+        # COLS_CTAS_PER_SLOT CTAs a slot
+        narrow = _plan(kind, 1_000_000, H.COLS_MAX_SLOTS, 28, 63)
+        assert narrow.cols and narrow.chunks == H.COLS_MAX_SLOTS
+        T = narrow.grid[0]
+        assert first.grid[0] <= T <= H.COLS_MAX_WAVES * first.grid[0]
+        assert T >= min(H.COLS_MAX_WAVES * first.grid[0],
+                        H.COLS_CTAS_PER_SLOT * narrow.chunks)
+    assert wide.groups_per_cta == 28 and wide.grid[2] == 1
+    assert wide.chunks == -(-(255 if kind != "bins" else 126)
+                            // wide.slots_per_cta)
+    if kind == "bins":              # five private 42 KB warp histograms
+        assert first.copies == 5 and wide.slots_per_cta == 5
+    else:                           # one 42 KB histogram, column owners
+        assert first.cols and first.copies == 1
+        assert wide.slots_per_cta == 4
+    assert wide.copies == 1 and not wide.cols
+
+
+def test_plan_splits_groups_only_past_shared_memory():
+    """40 groups of 255 bins (244,800 B per slot) split over grid z; 7
+    groups of 255 bins do not."""
+    for p in (H.onehot_hist_plan(20480, 20, 40, 255, 10200),
+              H.bins_hist_plan(20480, 20, 40, 255)):
+        assert p.grid[2] > 1 and p.groups_per_cta < 40
+    for p in (H.onehot_hist_plan(20480, 20, 7, 255, 1785),
+              H.bins_hist_plan(20480, 20, 7, 255)):
+        assert p.grid[2] == 1 and p.groups_per_cta == 7
+        # column owners hold one histogram; warps one each, at least 4
+        assert p.cols or p.slots_per_cta * p.copies >= H.MIN_WARPS_PER_CTA
+
+
+def test_plan_of_no_slots_still_launches_one_chunk():
+    """W = 0 (kernel D still routes and writes the leaf ids)."""
+    for p in (H.onehot_hist_plan(5000, 0, 7, 63, 441),
+              H.bins_hist_plan(5000, 0, 7, 63)):
+        assert p.chunks == 1 and p.grid[1] == p.grid[2] == 1
+        assert p.grid[0] >= 1
+
+
+def test_chunk_ctas_follow_the_work():
+    """On a column-owner launch a chunk holding a large leaf takes most of
+    the CTAs and a chunk with no sampled row one or two (its leaf-id
+    scan); warp launches share the CTAs equally; the sum never passes
+    the grid and every chunk gets one."""
+    assert H.COLS_MAX_SLOTS <= H.MAX_SAMPLED_CHUNKS
+    p = H.onehot_hist_plan(1_000_000, 4, 28, 63, 512)
+    assert p.shared and p.grid[0] == 264
+    k = H.chunk_ctas(p, [900, 0, 30, 60])
+    assert min(k) >= 1 and sum(k) <= 264
+    assert k[0] > 200 and k[1] <= 2 and k[0] > k[3] > k[2] > k[1]
+    assert H.chunk_ctas(H.onehot_hist_plan(1_000_000, 1, 28, 63, 512),
+                        [5]) == [264]
+    wide = H.onehot_hist_plan(1_000_000, 255, 28, 63, 512)
+    assert not wide.shared
+    assert H.chunk_ctas(wide) == [wide.grid[0] // wide.chunks] * wide.chunks
+    rng = np.random.RandomState(1)
+    for kind in KINDS:
+        for W in list(range(1, 70)) + [126, 255]:
+            p = _plan(kind, int(rng.randint(1, 2_000_000)), W, 28, 63)
+            hits = (rng.randint(0, 1025, p.chunks)
+                    * (rng.rand(p.chunks) < 0.5)).tolist()
+            k = H.chunk_ctas(p, hits)
+            assert len(k) == p.chunks and min(k) >= 1
+            assert sum(k) <= p.grid[0], (kind, W, p)
