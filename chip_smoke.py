@@ -26,9 +26,12 @@ Phases, in order; any failure exits nonzero:
      its plain version's time and one torch call that computes the same
      histogram (torch.mm of bf16 operands for the f32 weights,
      torch._int_mm of int8 ones for the int8 weights, D's included);
-     the f32 kernels D, E, F and K also print the launch geometry their
-     wrappers pass (slots per CTA, private copies, groups per CTA, slot
-     chunks, grid, threads, shared-memory bytes per CTA);
+     the kernels on shared-memory histograms (A, G, D, E, F, K) also
+     print the launch geometry their wrappers pass (slots and groups
+     per CTA, private copies, slot chunks, grid, threads, shared-memory
+     bytes per CTA); A and G are also held and timed on a tree's first
+     round over the bench's own binned rows (make_data's quantile bins,
+     not uniform ones) with its first-round weights;
   3. train through lgb.train at the bench shape (1,000,000 x 28
      synthetic binary task, 255 leaves, max_bin 63) on the card, each
      run with the launch counters zeroed just before it and read just
@@ -274,6 +277,8 @@ def check_kernels(dev, n, rehearse, card):
               f"(bound {bound:.4f} ms, bytes; plain {plain:.3f} ms; "
               f"library {lib:.4f} ms; {n_hit} of {n} rows in slots; "
               f"{card})")
+        print_geometry("fused_route_hist", label, n, slots.shape[0], G, B,
+                       0, dev)
         if W == 126:
             out["fused_route_hist"] = dict(max_abs_err=0, ms=ms,
                                            plain_ms=plain, bound_ms=bound,
@@ -457,13 +462,22 @@ def library_ms(leaf, slots, wT, oh_bf16, dev, reps):
 
 
 def print_geometry(name, label, n, W, G, B, row_bytes, dev):
-    """Print the launch geometry (ops/histogram.py) that a redesigned f32
-    kernel's wrapper passes for these shapes: slots per CTA, copies,
-    groups per CTA, slot chunks, grid, threads and shared bytes (the
-    kernel shares the grid's x CTAs out over the slot chunks itself, from
-    the leaf ids)."""
+    """Print the launch geometry (ops/histogram.py) that a redesigned
+    kernel's wrapper passes for these shapes: for the f32 kernels slots
+    per CTA, copies, groups per CTA, slot chunks, grid, threads and
+    shared bytes (the kernel shares the grid's x CTAs out over the slot
+    chunks itself, from the leaf ids); for the int32 kernels A and G
+    slots and groups per CTA, grid, threads and shared bytes."""
     from lightgbm_tpu_torch.ops import histogram as H
     sms = H._num_sms(dev.index or 0) if dev.type == "cuda" else H.H100_SMS
+    if name in ("fused_route_hist", "tiled_hist"):
+        p = H.frontier_hist_plan(n, W, G, B, sms)
+        print(f"[phase 2] {name} {label} geometry: {p.slots_per_cta} slots "
+              f"per CTA, {p.groups_per_cta} groups per CTA, grid "
+              f"{list(p.grid)} (row CTAs, group chunks, slot chunks), "
+              f"{p.threads} threads, {p.smem_bytes} B of shared memory per "
+              "CTA")
+        return
     p = (H.bins_hist_plan(n, W, G, B, sms) if name.startswith("bins")
          else H.onehot_hist_plan(n, W, G, B, row_bytes, sms))
     print(f"[phase 2] {name} {label} geometry: {p.slots_per_cta} slots per "
@@ -738,6 +752,8 @@ def check_quant_kernels(dev, n, rehearse, card):
         main = W == 126
         record(name, "main" if main else label, ms, plain_ms, bound, by, lib,
                err, unstable_bins(lambda: fn(*args)), hit, main)
+        if name == "tiled_hist":
+            print_geometry(name, label, n, slots.shape[0], G, b, 0, dev)
     # ---- kernel J: the leaf partition of the leaf ids (timed: sort,
     # searchsorted, scatter and the two gathers), then the segment
     # histogram at W=126, on the first round and over all 255 leaves.
@@ -809,6 +825,51 @@ def check_quant_kernels(dev, n, rehearse, card):
                                  bound_ms=bound, bound_by="bytes",
                                  library_ms=None)
     del oh
+    return out
+
+
+def check_bench_first_round(dev, bins, B, y, rehearse, card):
+    """Phase 2, kernels A and G on a tree's first round over the bench's
+    own binned rows (make_data, quantile bins, not uniform ones) and its
+    first-round weights (binary gradients at the mean label, quantized):
+    every row in one slot, nothing to route.  Bit for bit against the
+    plain versions, timed beside their bound.  Returns {kernel: extra
+    numbers}."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    n, G = bins.shape
+    reps = 3 if rehearse else 20
+    binsT = torch.from_numpy(np.ascontiguousarray(bins.T)).to(dev)
+    p = float(y.mean())
+    grad = torch.from_numpy((p - y).astype(np.float32)).to(dev)
+    hess = torch.full((n,), p * (1 - p), dtype=torch.float32, device=dev)
+    wq, _ = H.quantize_gradients(grad, hess, torch.ones_like(grad))
+    wT = wq.t().contiguous()
+    leaf = torch.zeros(n, dtype=torch.int32, device=dev)
+    slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    table = torch.zeros((1, 16), dtype=torch.float32, device=dev)
+    want = H.tiled_hist_plain(binsT, wT, leaf, slots, B)
+    label = "first round on make_data bins"
+    out = {}
+    for name, run in (
+            ("fused_route_hist", lambda: H.fused_route_hist(
+                binsT, wT, leaf, table, slots, B)[0]),
+            ("tiled_hist", lambda: H.tiled_hist(binsT, wT, leaf, slots, B))):
+        got = run()
+        err = hold_hist(f"{name} {label}", got, want, None)
+        if not torch.equal(run(), got):
+            raise AssertionError(f"{name} {label}: two launches differ")
+        ms = time_ms(run, dev, reps)
+        # every row's leaf id (A writes one too), its weights and G bins
+        nbytes = (8 if name == "fused_route_hist" else 4) * n \
+            + n * (12 + G) + got.numel() * 4
+        bound = nbytes / MEM_BYTES_PER_S * 1e3
+        print(f"[phase 2] {name} {label} (W=1, {G} groups, {B} bins): "
+              f"{ms:.4f} ms (bound {bound:.4f} ms, bytes; max |d| {err:.3g};"
+              f" {n} of {n} rows in the slot; {card})")
+        print_geometry(name, label, n, 1, G, B, 0, dev)
+        out[name] = {"ms_first_round_make_data": ms,
+                     "bound_ms_first_round_make_data": bound}
     return out
 
 
@@ -889,24 +950,31 @@ def main(argv) -> int:
                 if "registers" in line or "spill" in line:
                     print(f"[phase 1] {name}: {line.strip()}")
 
-    # ---- phase 2: kernels against their plain versions
-    numbers = check_kernels(dev, n_rows, rehearse, card)
-    numbers.update(check_float_kernels(dev, n_rows, rehearse, card))
-    numbers.update(check_quant_kernels(dev, n_rows, rehearse, card))
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-
-    # ---- phase 3: train through lgb.train on the card
+    # the bench rows, binned once: phase 2's make_data first round and
+    # phase 3's training
     X, y, w = make_data(n_rows, 28, seed=7)
     Xv, yv, _ = make_data(n_valid, 28, seed=8, w=w)
     params = dict(BENCH_PARAMS, metric=["auc"], device=dev.type)
     cfg = lgb.Config.from_params(params)
     t0 = time.perf_counter()
     train_ds = lgb.Dataset(X, label=y)
-    train_ds.construct(cfg)
+    core = train_ds.construct(cfg)
     valid_ds = lgb.Dataset(Xv, label=yv, reference=train_ds)
-    print(f"[phase 3] binned {n_rows} x 28 in "
+    print(f"[phase 2] binned {n_rows} x 28 in "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 2: kernels against their plain versions
+    numbers = check_kernels(dev, n_rows, rehearse, card)
+    numbers.update(check_float_kernels(dev, n_rows, rehearse, card))
+    numbers.update(check_quant_kernels(dev, n_rows, rehearse, card))
+    for name, extra in check_bench_first_round(
+            dev, core.logical_group_bins(), core.max_group_bin, y, rehearse,
+            card).items():
+        numbers[name].update(extra)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- phase 3: train through lgb.train on the card
     # the float-gradient plans: the default (fused_streamed), the
     # streamed one-hot without the fused route (pre_onehot: its strip
     # ladder takes the pre_packed entry point for every round of a

@@ -162,12 +162,29 @@ class Booster:
         return raw[:, 0] if k == 1 else raw
 
     def _convert_output(self, raw: np.ndarray) -> np.ndarray:
+        """Raw scores -> outputs by the model's objective string
+        (lightgbm_tpu/booster.py _convert_output): sigmoid for binary
+        and multiclassova, softmax for multiclass, exp for the log-link
+        objectives, the inverse of ``sqrt`` regression, and the
+        cross-entropy links; any other objective returns the raw
+        score."""
         obj = canonical_objective(self.objective_str.split()[0]
                                   if self.objective_str else "")
-        if obj == "binary":
+        if obj in ("binary", "multiclassova"):
             m = re.search(r"sigmoid:([0-9.eE+-]+)", self.objective_str)
             sig = float(m.group(1)) if m else 1.0
             return 1.0 / (1.0 + np.exp(-sig * raw))
+        if obj == "multiclass":
+            e = np.exp(raw - raw.max(axis=1, keepdims=True))
+            return e / e.sum(axis=1, keepdims=True)
+        if obj in ("poisson", "gamma", "tweedie"):
+            return np.exp(raw)
+        if obj == "regression" and "sqrt" in self.objective_str:
+            return np.sign(raw) * raw * raw
+        if obj == "cross_entropy":
+            return 1.0 / (1.0 + np.exp(-raw))
+        if obj == "cross_entropy_lambda":
+            return np.log1p(np.exp(raw))
         return raw
 
     # ------------------------------------------------------------------

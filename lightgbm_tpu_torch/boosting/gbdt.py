@@ -78,6 +78,21 @@ class GBDT:
             Log.fatal(f"validation set {name!r} is not bin-aligned to "
                       "the training data — create it with "
                       "reference=<train dataset>")
+        # storage-layout gate (lightgbm_tpu/boosting/gbdt.py:275-290):
+        # equal feature_infos do not imply an equal matrix layout, since
+        # the same data constructed under another bin_packing packs and
+        # reorders its groups differently, and the validation rows are
+        # scored with the TRAINING set's group map
+        def _lay(ds):
+            lay = getattr(ds, "bin_layout", None)
+            return lay.to_state() if lay is not None else None
+        if valid_set is not self.train_set and \
+                _lay(valid_set) != _lay(self.train_set):
+            Log.fatal(f"validation set {name!r} has a different bin-matrix "
+                      f"storage layout ({_lay(valid_set)}) than the "
+                      f"training data ({_lay(self.train_set)}) — construct "
+                      "it with reference=<train dataset> or the same "
+                      "bin_packing setting")
         metrics = create_metrics(self.config)
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data, self.device)

@@ -109,14 +109,24 @@ def _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
     G, N = binsT.shape
     L, K = route_tab.shape
     W = slots.shape[0]
-    hist = torch.zeros((W, G, max_group_bin, 3), dtype=torch.int32,
-                       device=binsT.device)
+    hist, part, plan = _i32_buffers(N, W, G, max_group_bin, binsT.device)
     leaf_out = torch.empty_like(leaf_id)
     kernels.launch("fused_route_hist", binsT.data_ptr(), wT.data_ptr(),
                    leaf_id.data_ptr(), route_tab.data_ptr(),
                    slots.data_ptr(), hist.data_ptr(), leaf_out.data_ptr(),
-                   N, G, max_group_bin, L, K, W)
+                   N, G, max_group_bin, L, K, W, plan, part.data_ptr())
     return hist, leaf_out
+
+
+def _i32_buffers(N, W, G, B, dev):
+    """(hist, scratch of the CTAs' copies, C plan) of one launch of
+    kernel A or G; the kernels write every word of both."""
+    plan = _plan_args("i32", N, W, G, B, 0, dev.index or 0)
+    copies = plan[3]                    # grid x: one copy a CTA
+    hist = torch.empty((W, G, B, 3), dtype=torch.int32, device=dev)
+    part = torch.empty((copies * hist.numel(),), dtype=torch.int32,
+                       device=dev)
+    return hist, part, plan
 
 
 def fused_route_hist(binsT: torch.Tensor, wT: torch.Tensor,
@@ -127,9 +137,11 @@ def fused_route_hist(binsT: torch.Tensor, wT: torch.Tensor,
 
     Kernel A (csrc/fused_route_hist.cu) replaces the Pallas kernel
     _fused_kernel_body_q_tiled (lightgbm_tpu/ops/histogram.py:1412).
-    On the card it is bound by its histogram atomics, not by its ~48 B
-    per row of traffic; one thread per row routes, then adds into every
-    matching slot with int32 atomics (see the source note there).
+    On the card it is bound by its histogram adds, not by its ~48 B per
+    row of traffic: one launch routes the rows, a second adds them into
+    private int32 histograms in shared memory (csrc/hist_i32.cuh, the
+    geometry of :func:`frontier_hist_plan`) and stores one copy a CTA,
+    a third sums the copies (see the source notes there).
 
     Args:
       binsT: (G, N) uint8 transposed group bins.
@@ -190,11 +202,12 @@ def tiled_hist(binsT: torch.Tensor, wT: torch.Tensor, leaf_id: torch.Tensor,
     """Kernel G on CUDA tensors, its plain version on CPU tensors: the
     (W, G, B, 3) int32 histogram following ``slots``.
 
-    Kernel G (csrc/fused_route_hist.cu, kernel A's source) replaces the
-    Pallas kernel _hist_kernel_body_q_tiled
-    (lightgbm_tpu/ops/histogram.py:1021).  ``binsT`` is the (G, N) uint8
-    transposed bin matrix, ``wT`` the (3, N) int32 quantized weights,
-    ``leaf_id`` the (N,) current leaf ids (negative = padded row)."""
+    Kernel G (csrc/fused_route_hist.cu, kernel A's source and its
+    histogram, csrc/hist_i32.cuh) replaces the Pallas kernel
+    _hist_kernel_body_q_tiled (lightgbm_tpu/ops/histogram.py:1021).
+    ``binsT`` is the (G, N) uint8 transposed bin matrix, ``wT`` the (3,
+    N) int32 quantized weights, ``leaf_id`` the (N,) current leaf ids
+    (negative = padded row)."""
     _check(binsT, "binsT", torch.uint8, 2)
     _check(wT, "wT", torch.int32, 2)
     _check(leaf_id, "leaf_id", torch.int32, 1)
@@ -207,11 +220,11 @@ def tiled_hist(binsT: torch.Tensor, wT: torch.Tensor, leaf_id: torch.Tensor,
     dev = _same_device(binsT, wT, leaf_id, slots)
     if dev.type != "cuda":
         return tiled_hist_plain(binsT, wT, leaf_id, slots, max_group_bin)
-    hist = torch.zeros((slots.shape[0], G, max_group_bin, 3),
-                       dtype=torch.int32, device=dev)
+    W = slots.shape[0]
+    hist, part, plan = _i32_buffers(N, W, G, max_group_bin, dev)
     kernels.launch("tiled_hist", binsT.data_ptr(), wT.data_ptr(),
                    leaf_id.data_ptr(), slots.data_ptr(), hist.data_ptr(), N,
-                   G, max_group_bin, slots.shape[0])
+                   G, max_group_bin, W, plan, part.data_ptr())
     return hist
 
 
@@ -529,6 +542,113 @@ def bins_hist_plan(n: int, W: int, G: int, B: int,
     return _f64_hist_plan(n, W, G, B, G, num_sms, BINS_STAGE_BYTES, False)
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry of the int32 shared-memory histogram (kernels A, G)
+# ---------------------------------------------------------------------------
+#: csrc/hist_i32.cuh: threads of a CTA (kThreads), one CTA an SM (its
+#: launch bounds keep 64 registers a thread)
+I32_THREADS = 1024
+#: leaf ids the CTA's leaf -> slot table maps directly (int32 heads);
+#: a row with a larger leaf id scans the slots past the table
+SLOT_TABLE = 2048
+
+
+class I32Plan(NamedTuple):
+    """Launch geometry of one int32 shared-memory histogram launch
+    (csrc/hist_i32.cuh).  The kernel reads it as given: the W slots fall
+    into grid z chunks of ``slots_per_cta``, the G groups into grid y
+    chunks of ``groups_per_cta``, and the grid x CTAs of each (group,
+    slot) chunk take every grid-x-th stride of ``threads`` runs of
+    ``rows_per_thread`` rows (4 where N allows it); the byte
+    offsets carve the CTA's dynamic shared memory: the (S, gc, B, 3)
+    int32 histogram at 0, then the S slot values, the S chain links, the
+    S positions of slots past the table, the ``table`` leaf -> position
+    heads, and the count of slots past the table."""
+    slots_per_cta: int
+    groups_per_cta: int
+    table: int
+    grid: tuple
+    threads: int
+    rows_per_thread: int
+    off_slots: int
+    off_next: int
+    off_far: int
+    off_head: int
+    off_nfar: int
+    smem_bytes: int
+
+    def as_args(self):
+        """The int64 array the C entry points read (Plan in
+        csrc/hist_i32.cuh, in this order)."""
+        import ctypes
+        vals = (self.slots_per_cta, self.groups_per_cta, self.table,
+                *self.grid, self.threads, self.rows_per_thread,
+                self.off_slots, self.off_next,
+                self.off_far, self.off_head, self.off_nfar, self.smem_bytes)
+        return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _i32_layout(S: int, gc: int, B: int):
+    """(off_slots, off_next, off_far, off_head, off_nfar, smem) of a CTA
+    with S slots and gc groups of B bins (csrc/hist_i32.cuh)."""
+    off_slots = _round_up(S * gc * B * 12, 16)
+    off_next = off_slots + _round_up(4 * S, 16)
+    off_far = off_next + _round_up(4 * S, 16)
+    off_head = off_far + _round_up(4 * S, 16)
+    off_nfar = off_head + 4 * SLOT_TABLE
+    return off_slots, off_next, off_far, off_head, off_nfar, off_nfar + 16
+
+
+def _i32_most(budget: int, B: int, S: int = None, gc: int = None) -> int:
+    """The most groups (given S) or slots (given gc) whose layout fits
+    ``budget`` bytes; 0 if none."""
+    def fits(s, g):
+        return _i32_layout(s, g, B)[-1] <= budget
+    lo, hi = 0, 1
+    while fits(*((S, hi) if S is not None else (hi, gc))):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if fits(*((S, mid) if S is not None else (mid, gc))):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def frontier_hist_plan(n: int, W: int, G: int, B: int,
+                       num_sms: int = H100_SMS) -> I32Plan:
+    """Geometry of kernels A and G: one CTA of I32_THREADS threads an SM.
+    Group chunks over all W slots where one group of them fits a CTA
+    (126 slots x 63 bins: 95 KB, so two groups a CTA; a tree's first
+    round takes all 28 groups of its one slot): as few chunks as fit,
+    their groups evened out (32 slots: 4 chunks of 7, not 3 of 9 and
+    one of 1: a thread adds its groups 8 at a time).
+    Only where one group of all W slots overflows a CTA (126 slots x 255
+    bins: 385 KB) do the slots split too, one group a CTA and as many
+    slots as fit.  The SMs are shared equally over the (group, slot)
+    chunks, at least one CTA each and no more than the rows need (a run
+    of rows a thread: 4 rows where N % 4 == 0, so that a thread reads 4
+    rows' leaf ids, weights and bins as words, else 1).  Each CTA's
+    histogram is one copy in the (grid x, W, G, B, 3) scratch that a
+    second launch sums."""
+    G1, W1 = max(G, 1), max(W, 1)
+    if _i32_most(SMEM_PER_CTA, B, gc=1) >= W1:
+        S = W1
+        gy = -(-G1 // _i32_most(SMEM_PER_CTA, B, S=S))
+        gc = -(-G1 // gy)       # the same chunks, evened out
+    else:
+        S, gc, gy = _i32_most(SMEM_PER_CTA, B, gc=1), 1, G1
+    gz = -(-W1 // S)
+    V = 4 if n % 4 == 0 else 1
+    gx = max(1, min(num_sms // (gy * gz),
+                    -(-max(n, 1) // (I32_THREADS * V))))
+    if W == 0:                  # nothing to add: one CTA, no slot
+        gx = gy = gz = 1
+    return I32Plan(S, gc, SLOT_TABLE, (gx, gy, gz), I32_THREADS, V,
+                   *_i32_layout(S, gc, B))
+
+
 @functools.lru_cache(maxsize=None)
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -541,6 +661,7 @@ def _plan_args(kind: str, n: int, W: int, G: int, B: int, payload: int,
     of the same shapes reuses it; the kernels only read it)."""
     sms = _num_sms(index)
     plan = (bins_hist_plan(n, W, G, B, sms) if kind == "bins"
+            else frontier_hist_plan(n, W, G, B, sms) if kind == "i32"
             else onehot_hist_plan(n, W, G, B, payload, sms))
     return plan.as_args()
 

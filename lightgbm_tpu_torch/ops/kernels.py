@@ -47,11 +47,15 @@ _BINS_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]
 _BINS_F64_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P]
 # kernel name -> (source file, C entry point, argtypes)
 KERNELS: Dict[str, tuple] = {
+    # kernels A and G take the plan of ops/histogram.py
+    # frontier_hist_plan and its scratch before the stream
     "fused_route_hist": (
         "fused_route_hist.cu", "ltt_fused_route_hist",
-        [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
+         _P]),
     # kernel G: kernel A's histogram without the routing
-    "tiled_hist": ("fused_route_hist.cu", "ltt_tiled_hist", _BINS_ARGS),
+    "tiled_hist": ("fused_route_hist.cu", "ltt_tiled_hist",
+                   [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _P]),
     "route_apply": (
         "route_apply.cu", "ltt_route_apply",
         [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),

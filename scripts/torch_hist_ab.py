@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
-"""Time the f32 histogram kernels D, E, F and K of two trees on one card,
-in turns.
+"""Time the histogram kernels A, G (int8 weights) and D, E, F, K (f32
+weights) of two trees on one card, in turns.
 
     git archive <commit> | tar -x -C build/ab_parent   # the other tree
-    python3 scripts/torch_hist_ab.py --parent build/ab_parent [--rounds]
+    python3 scripts/torch_hist_ab.py --parent build/ab_parent
+                                     [--rounds | --texts]
 
 Runs the other tree, this tree, this tree, the other tree, each in its
 own process that imports lightgbm_tpu_torch from that tree (building its
 kernels into that tree's build/kernels), and times each kernel's wrapper
 at chip_smoke.py's phase-2 bench shape (1,000,000 rows, 28 groups, 63
-bins; the same seeded inputs): D (pack 4, f32) at W=126 with a pending
-route table and on a tree's first round, E pre_packed at W=126 and on
-the first round, E pre over all 255 leaves and on the first round, F
-and K at W=126 and on the first round.  Prints the median of CUDA-event
-timed launches for each, the card's name and power limit, and writes
+bins; the same seeded inputs): A (fused route + int8 histogram) at
+W=126 with a pending route table and on a tree's first round, G at
+W=126 and on the first round, D (pack 4, f32) at W=126 with a pending
+route table and on the first round, E pre_packed at W=126 and on the
+first round, E pre over all 255 leaves and on the first round, F and K
+at W=126 and on the first round.  Prints the median of CUDA-event timed
+launches for each, the card's name and power limit, and writes
 chiprun_out/hist_ab.json.
 
-With --rounds it times kernel D where training runs it instead: each
-process trains two float-gradient trees (the fused_streamed plan) on
-chip_smoke.py's workload (make_data 1,000,000 x 28, BENCH_PARAMS with
-quantized_grad off), keeps the inputs of the second tree's D launches,
-one a grower round, and times D again on each (the median of CUDA-event
-timed launches).  Prints each round's width W, its landed rows, the
-largest slot's share of them and both trees' times, the sums per tree,
-and writes chiprun_out/hist_ab_rounds.json.
+With --rounds it times kernels A and D where training runs them
+instead: each process trains two trees of the fused_tiled plan (int8
+gradients, kernel A) and two of the fused_streamed plan (f32 gradients,
+kernel D) on chip_smoke.py's workload (make_data 1,000,000 x 28,
+BENCH_PARAMS, with quantized_grad off for D), keeps the inputs of each
+second tree's launches, one a grower round, and times the kernel again
+on each (the median of CUDA-event timed launches).  Prints each round's
+width W, its landed rows, the largest slot's share of them and both
+trees' times, the sums per tree, and writes
+chiprun_out/hist_ab_rounds.json.
+
+With --texts each process trains ten trees of the main path (the
+fused_tiled plan, BENCH_PARAMS) on the same workload and prints the
+sha256 of the model text; the script exits 1 unless all four digests
+are equal (the int32 histograms make the trees exact whichever kernel
+built them), and writes chiprun_out/hist_ab_texts.json.
 """
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -80,7 +92,15 @@ def time_tree(root: str, n: int, reps: int) -> dict:
     all_l = torch.arange(L, dtype=torch.int32, device=dev)
     kw = dict(max_group_bin=B, pack=4, num_groups=G)
     zt = torch.zeros_like(table)
+    wq, _ = H.quantize_gradients(grad, hess, counts)
+    wqT = wq.t().contiguous()
     cases = {
+        "A W=126": lambda: H.fused_route_hist(binsT, wqT, leaf, table, s126,
+                                              B),
+        "A first round": lambda: H.fused_route_hist(binsT, wqT, root_leaf,
+                                                    zt, one, B),
+        "G W=126": lambda: H.tiled_hist(binsT, wqT, leaf, s126_l, B),
+        "G first round": lambda: H.tiled_hist(binsT, wqT, root_leaf, one, B),
         "D W=126": lambda: H.fused_onehot_hist(oh4, binsT, wT, leaf, table,
                                                s126, **kw),
         "D first round": lambda: H.fused_onehot_hist(
@@ -101,10 +121,19 @@ def time_tree(root: str, n: int, reps: int) -> dict:
     return {k: cs.time_ms(fn, dev, reps) for k, fn in cases.items()}
 
 
-def capture_rounds(root: str, trees: int = 2):
-    """(histogram module, kernel D's wrapper, [(args, kwargs)] of the last
-    tree's D launches) of ``trees`` fused_streamed trees trained with the
-    tree at ``root``."""
+#: --rounds: kernel -> (plan, its wrapper in ops/histogram.py, the
+#: position of the slots among its arguments, BENCH_PARAMS changes)
+ROUND_KERNELS = {
+    "A": ("fused_tiled", "fused_route_hist", 4, {}),
+    "D": ("fused_streamed", "fused_onehot_hist", 5,
+          {"quantized_grad": False}),
+}
+
+
+def capture_rounds(root: str, kernel: str, X, y, trees: int = 2):
+    """(kernel's wrapper, [(args, kwargs)] of the last tree's launches of
+    it) of ``trees`` trees of its plan trained with the tree at
+    ``root``."""
     sys.path.insert(0, os.path.abspath(root))
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.boosting import create_boosting
@@ -112,33 +141,33 @@ def capture_rounds(root: str, trees: int = 2):
     if not os.path.abspath(H.__file__).startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {H.__file__}, not the tree at {root}")
     cs = _chip_smoke()
-    X, y, _ = cs.make_data(1_000_000, 28, seed=7)
-    cfg = lgb.Config.from_params(dict(cs.BENCH_PARAMS, quantized_grad=False))
+    plan, wrapper, _, change = ROUND_KERNELS[kernel]
+    cfg = lgb.Config.from_params(dict(cs.BENCH_PARAMS, **change))
     gbdt = create_boosting(cfg, lgb.Dataset(X, label=y).construct(cfg))
-    if gbdt.grower.plan.name != "fused_streamed":
-        raise RuntimeError(f"plan {gbdt.grower.plan.name}, not fused_streamed")
-    calls, d = [], H.fused_onehot_hist
+    if gbdt.grower.plan.name != plan:
+        raise RuntimeError(f"plan {gbdt.grower.plan.name}, not {plan}")
+    calls, d = [], getattr(H, wrapper)
 
     def kept(*args, **kwargs):
         calls.append((args, kwargs))
         return d(*args, **kwargs)
-    H.fused_onehot_hist = kept
+    setattr(H, wrapper, kept)
     try:
         for _ in range(trees):
             calls.clear()
             gbdt.train_one_iter()
     finally:
-        H.fused_onehot_hist = d
-    return H, d, list(calls)
+        setattr(H, wrapper, d)
+    return d, list(calls)
 
 
-def time_rounds(d, calls, reps: int) -> list:
-    """[{W, landed, top_share, ms}] of kernel D on each kept launch."""
+def time_rounds(kernel, d, calls, reps: int) -> list:
+    """[{W, landed, top_share, ms}] of the kernel on each kept launch."""
     import torch
     cs = _chip_smoke()
     out = []
     for args, kwargs in calls:
-        slots = args[5]
+        slots = args[ROUND_KERNELS[kernel][2]]
         _, leaf = d(*args, **kwargs)
         hits = (leaf[None, :] == slots[:, None]) & (slots[:, None] >= 0)
         per = hits.sum(1)
@@ -148,6 +177,39 @@ def time_rounds(d, calls, reps: int) -> list:
         out.append(dict(W=int(slots.shape[0]), landed=landed,
                         top_share=int(per.max()) / max(landed, 1), ms=ms))
     return out
+
+
+def text_digest(root: str, trees: int = 10) -> dict:
+    """{plan, trees, sha256 of the model text} of ``trees`` main-path
+    trees trained with the tree at ``root``."""
+    sys.path.insert(0, os.path.abspath(root))
+    import lightgbm_tpu_torch as lgb
+    if not os.path.abspath(lgb.__file__).startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {lgb.__file__}, not the tree at {root}")
+    cs = _chip_smoke()
+    X, y, _ = cs.make_data(1_000_000, 28, seed=7)
+    bst = lgb.train(dict(cs.BENCH_PARAMS), lgb.Dataset(X, label=y), trees,
+                    verbose_eval=False, keep_training_booster=True)
+    text = bst.model_to_string()
+    return dict(plan=bst.gbdt.grower.plan.name, trees=bst.num_trees(),
+                sha256=hashlib.sha256(text.encode()).hexdigest())
+
+
+def texts_main(parent: str, card: str) -> int:
+    runs = _runs("--text-root", parent)
+    if runs is None:
+        return 1
+    print(f"card: {card}")
+    for label, r in runs:
+        print(f"{label}: plan {r['plan']}, {r['trees']} trees, model text "
+              f"sha256 {r['sha256']}")
+    same = len({r["sha256"] for _, r in runs}) == 1
+    print(f"model texts byte-identical across parent and change: {same}")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "hist_ab_texts.json"),
+              "w") as fh:
+        json.dump(dict(card=card, runs=runs, identical=same), fh, indent=1)
+    return 0 if same else 1
 
 
 def _runs(flag: str, parent: str):
@@ -168,30 +230,35 @@ def rounds_main(parent: str, card: str) -> int:
     if runs is None:
         return 1
     print(f"card: {card}")
-    print("kernel D, one launch a grower round of a fused_streamed tree")
-    print(f"{'round':>5} {'W':>4} {'landed':>8} {'top slot':>8} "
-          f"{'parent ms (run 1, 4)':>22} {'change ms (run 2, 3)':>22}  ratio")
-    par = [r for lab, r in runs if lab == "parent"]
-    chg = [r for lab, r in runs if lab == "change"]
-    if any(len(r) != len(par[0]) for r in par + chg):
-        print("the trees ran different rounds", file=sys.stderr)
-        return 1
-    for i, c in enumerate(chg[0]):
-        p = [r[i]["ms"] for r in par]
-        m = [r[i]["ms"] for r in chg]
-        print(f"{i:>5} {c['W']:>4} {c['landed']:>8} {c['top_share']:>8.3f} "
-              f"{p[0]:>10.4f} {p[1]:>10.4f}  {m[0]:>10.4f} {m[1]:>10.4f}  "
-              f"{np.mean(m) / np.mean(p):.3f}")
-    sums = {lab: [sum(x["ms"] for x in r) for r in rs]
-            for lab, rs in (("parent", par), ("change", chg))}
-    print("per tree: parent " + ", ".join(f"{x:.4f}" for x in sums["parent"])
-          + " ms; change " + ", ".join(f"{x:.4f}" for x in sums["change"])
-          + f" ms ({card})")
+    record = {"card": card}
+    for kernel, (plan, *_) in ROUND_KERNELS.items():
+        print(f"kernel {kernel}, one launch a grower round of a {plan} tree")
+        print(f"{'round':>5} {'W':>4} {'landed':>8} {'top slot':>8} "
+              f"{'parent ms (run 1, 4)':>22} {'change ms (run 2, 3)':>22}  "
+              "ratio")
+        par = [r[kernel] for lab, r in runs if lab == "parent"]
+        chg = [r[kernel] for lab, r in runs if lab == "change"]
+        if any(len(r) != len(par[0]) for r in par + chg):
+            print("the trees ran different rounds", file=sys.stderr)
+            return 1
+        for i, c in enumerate(chg[0]):
+            p = [r[i]["ms"] for r in par]
+            m = [r[i]["ms"] for r in chg]
+            print(f"{i:>5} {c['W']:>4} {c['landed']:>8} "
+                  f"{c['top_share']:>8.3f} {p[0]:>10.4f} {p[1]:>10.4f}  "
+                  f"{m[0]:>10.4f} {m[1]:>10.4f}  "
+                  f"{np.mean(m) / np.mean(p):.3f}")
+        sums = {lab: [sum(x["ms"] for x in r) for r in rs]
+                for lab, rs in (("parent", par), ("change", chg))}
+        print(f"kernel {kernel} per tree: parent "
+              + ", ".join(f"{x:.4f}" for x in sums["parent"])
+              + " ms; change " + ", ".join(f"{x:.4f}" for x in sums["change"])
+              + f" ms ({card})")
+        record[kernel] = dict(plan=plan, parent=par, change=chg, sums=sums)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "hist_ab_rounds.json"),
               "w") as fh:
-        json.dump(dict(card=card, parent=par, change=chg, sums=sums), fh,
-                  indent=1)
+        json.dump(record, fh, indent=1)
     return 0
 
 
@@ -200,9 +267,17 @@ def main(argv) -> int:
         root = argv[argv.index("--time-root") + 1]
         print(json.dumps(time_tree(root, 1_000_000, 20)))
         return 0
+    if "--text-root" in argv:
+        print(json.dumps(text_digest(argv[argv.index("--text-root") + 1])))
+        return 0
     if "--time-rounds" in argv:
-        _, d, calls = capture_rounds(argv[argv.index("--time-rounds") + 1])
-        print(json.dumps(time_rounds(d, calls, 10)))
+        root = argv[argv.index("--time-rounds") + 1]
+        X, y, _ = _chip_smoke().make_data(1_000_000, 28, seed=7)
+        out = {}
+        for kernel in ROUND_KERNELS:
+            d, calls = capture_rounds(root, kernel, X, y)
+            out[kernel] = time_rounds(kernel, d, calls, 10)
+        print(json.dumps(out))
         return 0
     if "--parent" not in argv:
         print(__doc__, file=sys.stderr)
@@ -212,6 +287,8 @@ def main(argv) -> int:
     card = cs.card_line()
     if "--rounds" in argv:
         return rounds_main(parent, card)
+    if "--texts" in argv:
+        return texts_main(parent, card)
     runs = _runs("--time-root", parent)
     if runs is None:
         return 1

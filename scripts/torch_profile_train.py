@@ -2,7 +2,7 @@
 """Where the port's training time goes, on one CUDA card.
 
     python3 scripts/torch_profile_train.py [--rows N] [--trees T]
-                                           [--plan PLAN]
+                                           [--plan PLAN] [--parent DIR]
 
 Trains chip_smoke.py's workload (its make_data 1,000,000 x 28 binary
 task and its BENCH_PARAMS: 255 leaves, max_bin 63) with
@@ -16,12 +16,21 @@ window, each hand-written kernel's launches and mean device ms per
 launch, on seg_tiled the leaf partition's device time per round and
 its share of the device time, the top CUDA kernels and host operators
 by time, and writes the full table to
-chiprun_out/torch_profile_train.txt.
+chiprun_out/torch_profile_train.txt.  On fused_tiled it also prints
+kernel A's mean device ms per call: its routing launch plus its
+histogram launches.
+
+With --parent DIR (another tree, e.g. ``git archive <commit>`` unpacked
+into build/ab_parent) it profiles that tree and this one in turns
+(other, this, this, other), each by its own copy of this script in its
+own process, and prints each run's summary lines (wall, device time,
+each kernel's mean ms per launch).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -49,7 +58,9 @@ PLANS = {
 }
 #: hand-written kernel (the kernels it serves) -> its CUDA symbol
 KERNEL_SYMBOLS = {
-    "frontier_hist (A, G)": "frontier_hist_kernel",
+    "hist_i32 (A, G)": "hist_i32_kernel",
+    "sum_copies (A's and G's copies)": "sum_copies_kernel",
+    "routing_pass (A's routing)": "routing_pass_kernel",
     "route (B, H)": "route_kernel",
     "predict_level (C)": "predict_level_kernel",
     "hist_f64, one-hot rows (D, E)": "hist_f64_kernel<true",
@@ -82,12 +93,39 @@ def _device_us(prof):
                if getattr(e.device_type, "name", "") == "CUDA")
 
 
+def in_turns(parent: str, argv) -> int:
+    """Profile the tree at ``parent`` and this one in turns (other, this,
+    this, other), each by its own copy of this script; print each run's
+    summary lines."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rest = [a for i, a in enumerate(argv) if a != "--parent"
+            and (i == 0 or argv[i - 1] != "--parent")]
+    for label, root in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        script = os.path.join(os.path.abspath(root), "scripts",
+                              "torch_profile_train.py")
+        r = subprocess.run([sys.executable, script, *rest],
+                           capture_output=True, text=True,
+                           cwd=os.path.abspath(root))
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
+            return 1
+        for line in r.stdout.splitlines():
+            if line.startswith(("card:", "plan:", "wall ", "kernel ",
+                                "leaf partition")):
+                print(f"[{label}] {line}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--trees", type=int, default=5)
     ap.add_argument("--plan", choices=sorted(PLANS), default="fused_tiled")
+    ap.add_argument("--parent", default=None)
     args = ap.parse_args()
+    if args.parent is not None:
+        return in_turns(args.parent, sys.argv[1:])
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -137,15 +175,29 @@ def main() -> int:
     print(f"wall {wall_ms:.1f} ms/tree (under the profiler); device "
           f"kernels {dev_ms:.2f} ms/tree; device idle share "
           f"{1 - dev_ms / wall_ms:.3f} ({card})")
+    per_symbol = {}
     for label, sym in KERNEL_SYMBOLS.items():
         hits = [e for e in dev_events if sym in e.key]
         n = sum(e.count for e in hits)
         if n:
             us = sum(_dev_time(e) for e in hits)
+            per_symbol[sym] = (n, us)
             print(f"kernel {label}: {n} launches in {args.trees} trees, "
                   f"mean {us / 1e3 / n:.4f} ms per launch, "
                   f"{us / 1e3 / args.trees / dev_ms:.3f} of device time "
                   f"({card})")
+    parts = [per_symbol.get(k) for k in ("routing_pass_kernel",
+                                         "hist_i32_kernel",
+                                         "sum_copies_kernel")]
+    if plan == "fused_tiled" and all(parts):
+        # one call of kernel A: its routing launch, the histogram and the
+        # sum of the copies
+        calls = parts[0][0]
+        us = sum(u for _, u in parts)
+        print(f"kernel A (routing + histogram + copies' sum): {calls} calls "
+              f"in {args.trees} trees, mean {us / 1e3 / calls:.4f} ms per "
+              f"call, {us / 1e3 / args.trees / dev_ms:.3f} of device time "
+              f"({card})")
     if counted.calls:
         # the partition of one round (the last profiled one), alone
         grower = gbdt.grower

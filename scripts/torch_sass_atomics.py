@@ -9,7 +9,12 @@
    a compare-and-swap loop (ATOMS.CAST.SPIN).
 2. Builds the port's kernel libraries (lightgbm_tpu_torch/csrc) and
    counts, for every kernel function, its shared CAS loops, shared
-   atomics and global atomics.
+   atomics and other atomics (global, or generic where the compiler
+   cannot tell a pointer's space, e.g. across a call).
+3. Checks that the int32 histogram of kernels A and G
+   (fused_route_hist.cu with hist_i32.cuh) compiles to no shared
+   compare-and-swap loop (ATOMS.CAST.SPIN) and that its shared adds are
+   native ATOMS.ADD; exits 1 otherwise.
 
 Needs nvcc and cuobjdump (the CUDA toolkit), no card.  Output goes to
 standard output and chiprun_out/sass_atomics.txt (the full listing).
@@ -82,7 +87,8 @@ def main() -> int:
         print(f"  {name}: {', '.join(ops) or 'no atomic'}")
     libs = sorted(set(kernels.build_kernels().values()))
     print("kernel functions: shared CAS loops / shared atomics / global "
-          "atomics")
+          "or generic atomics")
+    i32 = {"cas": 0, "adds": 0}
     for lib in libs:
         funcs, text = sass_by_function(lib)
         listing.append(text)
@@ -92,10 +98,17 @@ def main() -> int:
             glob = sum(not o.startswith("ATOMS") for o in ops)
             print(f"  {os.path.basename(lib)} {name}: {cas} / {shared} / "
                   f"{glob}  ({', '.join(sorted(set(ops))) or '-'})")
+            if os.path.basename(lib).startswith("libfused_route_hist_"):
+                i32["cas"] += cas
+                i32["adds"] += sum(o.startswith("ATOMS.ADD") for o in ops)
     with open(os.path.join(ROOT, "chiprun_out", "sass_atomics.txt"),
               "w") as fh:
         fh.write("\n".join(listing))
-    return 0
+    ok = i32["cas"] == 0 and i32["adds"] > 0
+    print(f"fused_route_hist.cu (kernels A, G): {i32['cas']} shared CAS "
+          f"loops (0 expected), {i32['adds']} native shared ATOMS.ADD: "
+          f"{'ok' if ok else 'FAILED'}")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

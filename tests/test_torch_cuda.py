@@ -430,3 +430,112 @@ def test_f64_kernels_on_a_skewed_frontier(dev, entry, W):
     for _ in range(3):
         assert torch.equal(run(), first)
     _assert_close(first, plain(), S)
+
+
+# ---------------------------------------------------------------------------
+# The int32 shared-memory histogram of kernels A (fused route + histogram)
+# and G (histogram only), csrc/hist_i32.cuh, against their plain versions
+# ---------------------------------------------------------------------------
+I32_CASES = ["W=1", "first round", "W=42", "W=126", "W=0", "all negative",
+             "duplicate and negative slots", "B=255 slot chunks", "skewed",
+             "bins >= B, zero weights", "slots past the table",
+             "odd rows, slots past the table"]
+
+
+def _i32_inputs(dev, case, N=20000, G=7, L=160, seed=21):
+    """(binsT, wT, leaf, tab, slots, B) of one case: _inputs over L
+    leaves (post-route leaf ids below 2L), then the case's edits.  N is
+    a multiple of 4 (the kernel's 4-rows-a-thread loop) except in the
+    odd-rows case (one row a thread)."""
+    B = 255 if case.startswith("B=255") else 63
+    if case.startswith("odd rows"):
+        N += 3
+    (binsT, wT, leaf, tab, _), B = _inputs(dev, N, G, B, L, seed)
+    perm = torch.from_numpy(np.random.RandomState(seed).permutation(
+        2 * L).astype(np.int32)).to(dev)
+    W = {"W=1": 1, "W=42": 42, "W=0": 0}.get(case, 126)
+    slots = perm[:W]
+    if case == "W=1":                    # a leaf that holds rows
+        slots = perm[perm < L - 4][:1]
+    if case == "first round":
+        leaf = torch.where(leaf >= 0, 0, -1).to(torch.int32)
+        tab = torch.zeros_like(tab)
+        slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    elif case == "all negative":
+        slots = torch.full((5,), -1, dtype=torch.int32, device=dev)
+    elif case == "duplicate and negative slots":
+        slots = torch.cat([perm[:10], perm[3:6], torch.full(
+            (4,), -1, dtype=torch.int32, device=dev), perm[:2]])
+    elif case == "skewed":                   # one slot holds 90% of rows
+        g = torch.Generator().manual_seed(seed)
+        big = (torch.rand(N, generator=g) < 0.9).to(dev)
+        other = slots[torch.randint(1, W, (N,), generator=g).to(dev)]
+        leaf = torch.where(leaf >= 0, torch.where(big, slots[0], other),
+                           -1).to(torch.int32)
+        tab = torch.zeros_like(tab)
+    elif case == "bins >= B, zero weights":
+        binsT[2, ::3] = B + 4
+        wT[:, ::5] = 0                          # rows with no weight
+        wT[0, 1::7] = 0                         # one channel zero
+    elif case.endswith("slots past the table"):  # leaf ids >= SLOT_TABLE
+        far = H.SLOT_TABLE + 1000
+        g = torch.Generator().manual_seed(seed)
+        move = (torch.rand(N, generator=g) < 0.5).to(dev)
+        leaf = torch.where(move & (leaf >= 0), leaf + far, leaf).to(
+            torch.int32)
+        slots = torch.cat([perm[:20], perm[:12] + far, perm[:1] + far])
+    return binsT, wT.contiguous(), leaf, tab, slots, B
+
+
+@pytest.mark.parametrize("case", I32_CASES)
+@pytest.mark.parametrize("entry", ["fused_route_hist", "tiled_hist"])
+def test_i32_kernel_matches_plain(dev, entry, case):
+    binsT, wT, leaf, tab, slots, B = _i32_inputs(dev, case)
+    G, N = binsT.shape
+    plan = H.frontier_hist_plan(N, slots.shape[0], G, B)
+    if case.startswith("B=255"):
+        assert plan.grid[2] > 1                 # the slot-chunk path
+    assert plan.rows_per_thread == (1 if case.startswith("odd") else 4)
+    n0 = kernels.LAUNCHES[entry]
+    if entry == "fused_route_hist":
+        hk, lk = H.fused_route_hist(binsT, wT, leaf, tab, slots, B)
+        hp, lp = H.fused_route_hist_plain(binsT, wT, leaf, tab, slots, B)
+        assert torch.equal(lk, lp)
+    else:
+        hk = H.tiled_hist(binsT, wT, leaf, slots, B)
+        hp = H.tiled_hist_plain(binsT, wT, leaf, slots, B)
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    assert hk.dtype == torch.int32 and hk.shape == (slots.shape[0], G, B, 3)
+    assert torch.equal(hk, hp)
+    empty = case in ("W=0", "all negative")
+    assert bool(hk[..., 2].sum() > 0) != empty
+
+
+@pytest.mark.parametrize("entry", ["fused_route_hist", "tiled_hist"])
+def test_i32_first_round_repeats_bit_identical(dev, entry):
+    """1,000,000 rows of 28 groups in one slot, the bench's first round:
+    every CTA adds into the same bins and flushes into the same 5,292
+    words; twenty launches leave the same bits, equal to the plain
+    version."""
+    N, G, B = 1_000_000, 28, 63
+    rng = np.random.RandomState(8)
+    binsT = torch.from_numpy(rng.randint(0, B, (G, N)).astype(
+        np.uint8)).to(dev)
+    leaf = torch.zeros(N, dtype=torch.int32, device=dev)
+    grad = torch.from_numpy(rng.randn(N).astype(np.float32)).to(dev)
+    hess = torch.full((N,), 0.25, device=dev)
+    wq, _ = H.quantize_gradients(grad, hess, torch.ones_like(grad))
+    wT = wq.t().contiguous()
+    slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    tab = torch.zeros((4, 16), dtype=torch.float32, device=dev)
+    if entry == "fused_route_hist":
+        def run():
+            return H.fused_route_hist(binsT, wT, leaf, tab, slots, B)[0]
+    else:
+        def run():
+            return H.tiled_hist(binsT, wT, leaf, slots, B)
+    first = run()
+    for _ in range(20):
+        assert torch.equal(run(), first)
+    assert torch.equal(first, H.tiled_hist_plain(binsT, wT, leaf, slots, B))
+    assert int(first[..., 2].sum()) == N * G

@@ -191,3 +191,137 @@ def test_chunk_ctas_follow_the_work():
             k = H.chunk_ctas(p, hits)
             assert len(k) == p.chunks and min(k) >= 1
             assert sum(k) <= p.grid[0], (kind, W, p)
+
+
+# ---------------------------------------------------------------------------
+# The int32 shared-memory histogram of kernels A and G (csrc/hist_i32.cuh):
+# ops/histogram.py frontier_hist_plan
+# ---------------------------------------------------------------------------
+I32_GROUPS = (1, 2, 7, 28, 33, 40)
+I32_BINS = (2, 16, 63, 64, 255)
+
+
+def _i32_shapes(B):
+    for G in I32_GROUPS:
+        for W in range(0, 256):
+            yield W, G, H.frontier_hist_plan(1_000_000, W, G, B)
+
+
+@pytest.mark.parametrize("B", I32_BINS)
+def test_i32_plan_fits_shared_memory(B):
+    """The carve-up of csrc/hist_i32.cuh: the (S, gc, B, 3) int32
+    histogram, the S slot values, chain links and far positions, the
+    leaf -> slot table and its counter, in that order and 16-byte
+    aligned, within one CTA's 232,448 bytes."""
+    for W, G, p in _i32_shapes(B):
+        S, gc = p.slots_per_cta, p.groups_per_cta
+        where = (W, G, B, p)
+        assert p.smem_bytes <= H.SMEM_PER_CTA, where
+        assert S * gc * B * 12 <= p.off_slots, where
+        assert p.off_next >= p.off_slots + 4 * S, where
+        assert p.off_far >= p.off_next + 4 * S, where
+        assert p.off_head >= p.off_far + 4 * S, where
+        assert p.off_nfar >= p.off_head + 4 * p.table, where
+        assert p.smem_bytes >= p.off_nfar + 4, where
+        for off in (p.off_slots, p.off_next, p.off_far, p.off_head,
+                    p.off_nfar):
+            assert off % 16 == 0, where
+        assert p.table == H.SLOT_TABLE and p.threads == H.I32_THREADS
+        assert p.threads % 32 == 0 and p.threads <= 1024
+        assert 1 <= S and 1 <= gc <= G, where
+
+
+@pytest.mark.parametrize("B", I32_BINS)
+def test_i32_plan_covers_each_slot_and_group_once(B):
+    """Grid y chunks of gc groups and grid z chunks of S slots cover
+    every (slot, group) pair exactly once, no chunk is empty, and every
+    chunk has at least one CTA."""
+    for W, G, p in _i32_shapes(B):
+        gx, gy, gz = p.grid
+        S, gc = p.slots_per_cta, p.groups_per_cta
+        where = (W, G, B, p)
+        assert gx >= 1 and gy >= 1 and gz >= 1, where
+        if W == 0:
+            assert p.grid == (1, 1, 1), where
+            continue
+        seen = np.zeros((W, G), np.int32)
+        for y in range(gy):
+            groups = range(y * gc, min(G, y * gc + gc))
+            assert len(groups) > 0, where
+            for z in range(gz):
+                slots = range(z * S, min(W, z * S + S))
+                assert len(slots) > 0, where
+                seen[slots.start:slots.stop, groups.start:groups.stop] += 1
+        assert (seen == 1).all(), where
+        # one wave, one CTA an SM: no more CTAs than SMs (unless the
+        # chunks alone outnumber them)
+        assert gx * gy * gz <= max(gy * gz, H.H100_SMS), where
+
+
+@pytest.mark.parametrize("n", [1, 511, 512, 513, 2048, 5000, 20482])
+def test_i32_plan_covers_each_row_once(n):
+    """A thread takes the run of V rows from (x * threads + t) * V, then
+    every gx * threads * V rows on (t < threads): the gx CTAs of a chunk
+    take every row once; V is 4 only where N is a multiple of 4 (the
+    kernel then reads each run's leaf ids and weights as int4 and a
+    group's bins as one word)."""
+    for W in (1, 42, 126):
+        p = H.frontier_hist_plan(n, W, 28, 63)
+        gx, T, V = p.grid[0], p.threads, p.rows_per_thread
+        assert V == (4 if n % 4 == 0 else 1)
+        assert gx <= -(-n // (T * V)), (n, W, p)   # no CTA without rows
+        starts = np.concatenate([np.arange((x * T + t) * V, n, gx * T * V)
+                                 for x in range(gx) for t in range(T)])
+        rows = (starts[:, None] + np.arange(V)[None, :]).ravel()
+        rows = rows[rows < n]
+        assert np.array_equal(np.sort(rows), np.arange(n)), (n, W)
+
+
+def test_i32_plan_at_the_bench_shape():
+    """28 groups of 63 bins, one CTA of 1024 threads an SM.  A first
+    round: all 28 groups of its one slot in a CTA (21 KB), one chunk,
+    every SM.  126 slots: two groups of all of them a CTA (190 KB), no
+    slot chunk, 14 group chunks of 9 CTAs.  255 bins: one group of 126
+    slots (385 KB) does not fit, so the slots split, one group a CTA."""
+    first = H.frontier_hist_plan(1_000_000, 1, 28, 63)
+    assert (first.slots_per_cta, first.groups_per_cta) == (1, 28)
+    assert first.grid == (H.H100_SMS, 1, 1)
+    assert first.rows_per_thread == 4 and first.threads == 1024
+    wide = H.frontier_hist_plan(1_000_000, 126, 28, 63)
+    assert wide.slots_per_cta == 126 and wide.grid[2] == 1
+    assert wide.groups_per_cta == 2 and wide.grid[1:] == (14, 1)
+    assert wide.grid[0] == H.H100_SMS // 14
+    b255 = H.frontier_hist_plan(1_000_000, 126, 28, 255)
+    assert b255.groups_per_cta == 1 and b255.grid[2] > 1
+    assert b255.grid[0] * b255.grid[1] * b255.grid[2] >= H.H100_SMS // 2
+
+
+@pytest.mark.parametrize("B", I32_BINS)
+def test_i32_plan_takes_all_slots_then_fewest_group_chunks(B):
+    """Where one group of all W slots fits a CTA, the plan takes every
+    slot and the fewest group chunks that fit (one chunk fewer would
+    not), their sizes evened out; past that, slot chunks of one group,
+    as many slots as fit."""
+    for W, G, p in _i32_shapes(B):
+        S, gc = p.slots_per_cta, p.groups_per_cta
+        if W == 0:
+            continue
+        if p.grid[2] == 1:
+            gy = p.grid[1]
+            assert S == W and gc == -(-G // gy)
+            if gy > 1:
+                assert H._i32_layout(S, -(-G // (gy - 1)), B)[-1] \
+                    > H.SMEM_PER_CTA, (W, G, B, p)
+        else:
+            assert gc == 1 and H._i32_layout(W, 1, B)[-1] > H.SMEM_PER_CTA
+            assert H._i32_layout(S + 1, 1, B)[-1] > H.SMEM_PER_CTA
+
+
+def test_i32_plan_is_the_same_for_the_same_shapes():
+    for W in (0, 1, 42, 126, 255):
+        p = H.frontier_hist_plan(1_000_000, W, 28, 63)
+        assert H.frontier_hist_plan(1_000_000, W, 28, 63) == p
+        assert tuple(p.as_args()) == (
+            p.slots_per_cta, p.groups_per_cta, p.table, *p.grid, p.threads,
+            p.rows_per_thread, p.off_slots, p.off_next, p.off_far, p.off_head, p.off_nfar,
+            p.smem_bytes)
