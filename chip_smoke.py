@@ -26,12 +26,14 @@ Phases, in order; any failure exits nonzero:
      its plain version's time and one torch call that computes the same
      histogram (torch.mm of bf16 operands for the f32 weights,
      torch._int_mm of int8 ones for the int8 weights, D's included);
-     the kernels on shared-memory histograms (A, G, D, E, F, K) also
+     the kernels on shared-memory histograms (A, G, I, D, E, F, K) also
      print the launch geometry their wrappers pass (slots and groups
      per CTA, private copies, slot chunks, grid, threads, shared-memory
-     bytes per CTA); A and G are also held and timed on a tree's first
-     round over the bench's own binned rows (make_data's quantile bins,
-     not uniform ones) with its first-round weights;
+     bytes per CTA); A, G and I are also held and timed on a tree's
+     first round over the bench's own binned rows (make_data's quantile
+     bins, not uniform ones) with its first-round weights, beside one
+     torch._int_mm of that histogram; kernel B is timed as its
+     wrapper's call and as its one launch alone;
   3. train through lgb.train at the bench shape (1,000,000 x 28
      synthetic binary task, 255 leaves, max_bin 63) on the card, each
      run with the launch counters zeroed just before it and read just
@@ -137,6 +139,27 @@ def time_ms(fn, dev, reps: int) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of one call of ``fn``: the summed time of
+    the device work (kernels, memory sets and copies) its ``reps`` calls
+    put on the card, from torch.profiler, without the host's time between
+    them.  A call whose host work outlasts its device work shows less
+    here than between two CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                           # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()
+             if getattr(e.device_type, "name", "") == "CUDA")
+    return us / 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +313,8 @@ def check_kernels(dev, n, rehearse, card):
                                            library_ms_first_round=lib)
     del oh
 
-    # ---- kernel B
+    # ---- kernel B: the wrapper's call, and its one launch alone (the
+    # outputs allocated once)
     values = torch.from_numpy(rng.randn(L).astype(np.float32)).to(dev)
     lk, vk = H.route_apply_tiled(binsT, leaf, table, values)
     lp, vp = H.route_apply_plain(binsT, leaf, table, values)
@@ -299,15 +323,32 @@ def check_kernels(dev, n, rehearse, card):
         raise AssertionError("route_apply: kernel != plain")
     b_ms = time_ms(lambda: H.route_apply_tiled(binsT, leaf, table, values),
                    dev, reps)
+    b_launch = b_device = None              # not measured on the CPU
+    if dev.type == "cuda":
+        from lightgbm_tpu_torch.ops import kernels
+        args = (binsT.data_ptr(), leaf.data_ptr(), table.data_ptr(),
+                values.data_ptr(), lk.data_ptr(), vk.data_ptr(), n, G, L,
+                table.shape[1], H._num_sms(dev.index or 0))
+        b_launch = time_ms(lambda: kernels.launch("route_apply", *args),
+                           dev, reps)
+        b_device = device_ms(lambda: H.route_apply_tiled(
+            binsT, leaf, table, values), reps)
     b_plain = time_ms(lambda: H.route_apply_plain(binsT, leaf, table,
                                                   values), dev, 3)
+    # leaf ids in and out, values out, the chosen group's bin for rows of
+    # splitting leaves, the table and the leaf values
     b_bound = ((12 * n + split_rows(leaf, table)
-                + (table.numel() + 6 * L) * 4)
+                + (table.numel() + L) * 4)
                / MEM_BYTES_PER_S * 1e3)
-    print(f"[phase 2] route_apply: {b_ms:.4f} ms (bound {b_bound:.4f} ms, "
-          f"bytes; plain {b_plain:.3f} ms; {card})")
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+    print(f"[phase 2] route_apply: {b_ms:.4f} ms the call, {fmt(b_launch)} "
+          f"its launch (CUDA events around each), {fmt(b_device)} of "
+          f"device time a call (profiler) (bound {b_bound:.4f} ms, bytes; "
+          f"plain {b_plain:.3f} ms; {card})")
     out["route_apply"] = dict(max_abs_err=0.0, ms=b_ms, plain_ms=b_plain,
-                              bound_ms=b_bound)
+                              bound_ms=b_bound, launch_ms=b_launch,
+                              device_ms=b_device)
 
     # ---- kernel C on random ensembles with NaN / zero / categorical
     F = 28
@@ -461,22 +502,30 @@ def library_ms(leaf, slots, wT, oh_bf16, dev, reps):
     return ms
 
 
+#: the int32 shared-memory histograms (csrc/hist_i32.cuh): A and G on the
+#: transposed bins, I behind its two entry points on the row-major ones
+I32_KERNELS = ("fused_route_hist", "tiled_hist", "bins_hist_q",
+               "bins_hist_q_packed")
+
+
 def print_geometry(name, label, n, W, G, B, row_bytes, dev):
     """Print the launch geometry (ops/histogram.py) that a redesigned
     kernel's wrapper passes for these shapes: for the f32 kernels slots
     per CTA, copies, groups per CTA, slot chunks, grid, threads and
     shared bytes (the kernel shares the grid's x CTAs out over the slot
     chunks itself, from the leaf ids); for the int32 kernels A and G
-    slots and groups per CTA, grid, threads and shared bytes."""
+    slots and groups per CTA, grid, threads and shared bytes; for the
+    int32 kernels A, G and I slots and groups per CTA, grid, threads,
+    rows a thread and shared bytes."""
     from lightgbm_tpu_torch.ops import histogram as H
     sms = H._num_sms(dev.index or 0) if dev.type == "cuda" else H.H100_SMS
-    if name in ("fused_route_hist", "tiled_hist"):
+    if name in I32_KERNELS:
         p = H.frontier_hist_plan(n, W, G, B, sms)
         print(f"[phase 2] {name} {label} geometry: {p.slots_per_cta} slots "
               f"per CTA, {p.groups_per_cta} groups per CTA, grid "
               f"{list(p.grid)} (row CTAs, group chunks, slot chunks), "
-              f"{p.threads} threads, {p.smem_bytes} B of shared memory per "
-              "CTA")
+              f"{p.threads} threads, {p.rows_per_thread} rows a thread, "
+              f"{p.smem_bytes} B of shared memory per CTA")
         return
     p = (H.bins_hist_plan(n, W, G, B, sms) if name.startswith("bins")
          else H.onehot_hist_plan(n, W, G, B, row_bytes, sms))
@@ -752,8 +801,7 @@ def check_quant_kernels(dev, n, rehearse, card):
         main = W == 126
         record(name, "main" if main else label, ms, plain_ms, bound, by, lib,
                err, unstable_bins(lambda: fn(*args)), hit, main)
-        if name == "tiled_hist":
-            print_geometry(name, label, n, slots.shape[0], G, b, 0, dev)
+        print_geometry(name, label, n, slots.shape[0], G, b, 0, dev)
     # ---- kernel J: the leaf partition of the leaf ids (timed: sort,
     # searchsorted, scatter and the two gathers), then the segment
     # histogram at W=126, on the first round and over all 255 leaves.
@@ -829,17 +877,20 @@ def check_quant_kernels(dev, n, rehearse, card):
 
 
 def check_bench_first_round(dev, bins, B, y, rehearse, card):
-    """Phase 2, kernels A and G on a tree's first round over the bench's
-    own binned rows (make_data, quantile bins, not uniform ones) and its
-    first-round weights (binary gradients at the mean label, quantized):
-    every row in one slot, nothing to route.  Bit for bit against the
-    plain versions, timed beside their bound.  Returns {kernel: extra
-    numbers}."""
+    """Phase 2, kernels A, G and I on a tree's first round over the
+    bench's own binned rows (make_data, quantile bins, not uniform ones)
+    and its first-round weights (binary gradients at the mean label,
+    quantized): every row in one slot, nothing to route.  A and G read
+    the transposed bins and weights, I (its pallas_q entry) the row-major
+    ones.  Bit for bit against the plain versions, timed beside their
+    bound and one torch._int_mm of the same histogram.  Returns {kernel:
+    extra numbers}."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
     n, G = bins.shape
     reps = 3 if rehearse else 20
-    binsT = torch.from_numpy(np.ascontiguousarray(bins.T)).to(dev)
+    bins_rm = torch.from_numpy(np.ascontiguousarray(bins)).to(dev)
+    binsT = bins_rm.t().contiguous()
     p = float(y.mean())
     grad = torch.from_numpy((p - y).astype(np.float32)).to(dev)
     hess = torch.full((n,), p * (1 - p), dtype=torch.float32, device=dev)
@@ -849,12 +900,17 @@ def check_bench_first_round(dev, bins, B, y, rehearse, card):
     slots = torch.zeros(1, dtype=torch.int32, device=dev)
     table = torch.zeros((1, 16), dtype=torch.float32, device=dev)
     want = H.tiled_hist_plain(binsT, wT, leaf, slots, B)
+    oh = int8_onehot(bins_rm, B)
+    lib = int8_library_ms(leaf, slots, wT, oh, dev, reps)
+    del oh
     label = "first round on make_data bins"
     out = {}
     for name, run in (
             ("fused_route_hist", lambda: H.fused_route_hist(
                 binsT, wT, leaf, table, slots, B)[0]),
-            ("tiled_hist", lambda: H.tiled_hist(binsT, wT, leaf, slots, B))):
+            ("tiled_hist", lambda: H.tiled_hist(binsT, wT, leaf, slots, B)),
+            ("bins_hist_q", lambda: H.bins_hist_q(bins_rm, wq, leaf, slots,
+                                                  B))):
         got = run()
         err = hold_hist(f"{name} {label}", got, want, None)
         if not torch.equal(run(), got):
@@ -865,11 +921,13 @@ def check_bench_first_round(dev, bins, B, y, rehearse, card):
             + n * (12 + G) + got.numel() * 4
         bound = nbytes / MEM_BYTES_PER_S * 1e3
         print(f"[phase 2] {name} {label} (W=1, {G} groups, {B} bins): "
-              f"{ms:.4f} ms (bound {bound:.4f} ms, bytes; max |d| {err:.3g};"
-              f" {n} of {n} rows in the slot; {card})")
+              f"{ms:.4f} ms (bound {bound:.4f} ms, bytes; library "
+              f"{lib:.4f} ms; max |d| {err:.3g}; {n} of {n} rows in the "
+              f"slot; {card})")
         print_geometry(name, label, n, 1, G, B, 0, dev)
         out[name] = {"ms_first_round_make_data": ms,
-                     "bound_ms_first_round_make_data": bound}
+                     "bound_ms_first_round_make_data": bound,
+                     "library_ms_first_round_make_data": lib}
     return out
 
 

@@ -41,10 +41,10 @@
 // the sums once to f32 (see onehot_hist.cu for why that makes the result
 // independent of the order of the adds up to f32 rounding boundaries:
 // the design below changes where the f64 adds happen, not what they add).
-// I adds the int32 quantized weights (in [-127, 127]) with int32 global
-// atomics and no rounding: int32 atomic addition wraps modulo 2^32, which
-// is associative and commutative, so every schedule leaves the same bits,
-// and below QUANT_ROW_LIMIT rows (rows * 127 < 2^31) no sum wraps.
+// I adds the int32 quantized weights (in [-127, 127]) with no rounding:
+// int32 addition wraps modulo 2^32, which is associative and commutative,
+// so every schedule leaves the same bits, and below QUANT_ROW_LIMIT rows
+// (rows * 127 < 2^31) no sum wraps.
 //
 // What bounds F and K on an H100: the bytes in principle, 4 bytes of
 // leaf id per row (once per slot chunk, from L2 after the first) and
@@ -68,13 +68,25 @@
 // atomicAdd(double*) is a CAS loop on sm_90a).  One global f64 add per
 // nonzero bin at the end.
 //
-// Kernel I keeps the first design: one thread per row, the frontier
-// slots in shared memory, int32 global atomics.
+// Kernel I is kernel A's and G's int32 histogram (csrc/hist_i32.cuh)
+// in its row-major layout: private int32 histograms in shared memory
+// (native shared ATOMS.ADD), group chunks over all W slots (slot chunks
+// only where one group of them overflows a CTA), a leaf -> slot table,
+// one copy a CTA summed by a second launch; geometry from
+// ops/histogram.py frontier_hist_plan.  A thread reads 4 rows' leaf ids
+// and 12 weights as int4 and each row's bins of its group chunk as the
+// aligned words that cover them.  What bounds it: the shared adds (3 * G
+// a landed row) and, at a wide frontier, every group chunk's re-read of
+// the rows (each chunk pulls every landed row's 32-byte sector of bins,
+// mostly from L2: the 28 MB bin matrix fits the H100's 50 MB).  The
+// first design (one thread a row, a scan of the W slots a row, 3 * G
+// global atomics a landed row) took ~1.9 ms on a tree's first round.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "hist_f64.cuh"
+#include "hist_i32.cuh"
 
 namespace {
 
@@ -89,40 +101,6 @@ int launch_f64(const void* bins, const void* w, const void* leaf_in,
   cudaStream_t s = (cudaStream_t)stream;
   return words ? ltt_f64::launch<false, 4>(in, plan, s)
                : ltt_f64::launch<false, 1>(in, plan, s);
-}
-
-// ---------------------------------------------------------------------------
-// Kernel I: int32 weights, one thread per row, int32 global atomics
-// ---------------------------------------------------------------------------
-__global__ void bins_hist_q_kernel(
-    const uint8_t* __restrict__ bins, const int32_t* __restrict__ w,
-    const int32_t* __restrict__ leaf_in, const int32_t* __restrict__ slots,
-    int32_t* __restrict__ hist, int64_t n, int G, int B, int W) {
-  extern __shared__ int32_t s_slots[];
-  for (int i = threadIdx.x; i < W; i += blockDim.x) s_slots[i] = slots[i];
-  __syncthreads();
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int leaf = leaf_in[row];
-  if (leaf < 0) return;
-  const int32_t w0 = __ldg(w + row * 3);
-  const int32_t w1 = __ldg(w + row * 3 + 1);
-  const int32_t w2 = __ldg(w + row * 3 + 2);
-  if (w0 == 0 && w1 == 0 && w2 == 0) return;
-  const uint8_t* r = bins + row * G;
-  const int64_t slot_stride = (int64_t)G * B * 3;
-  for (int s = 0; s < W; ++s) {
-    if (s_slots[s] != leaf) continue;
-    int32_t* h = hist + s * slot_stride;
-    for (int g = 0; g < G; ++g) {
-      const int bin = __ldg(r + g);
-      if (bin >= B) continue;
-      int32_t* p = h + ((int64_t)g * B + bin) * 3;
-      if (w0) atomicAdd(p, w0);
-      if (w1) atomicAdd(p + 1, w1);
-      if (w2) atomicAdd(p + 2, w2);
-    }
-  }
 }
 
 }  // namespace
@@ -153,19 +131,18 @@ extern "C" int ltt_bins_hist_paired(const void* bins, const void* w,
 }
 
 // Kernel I.  bins (n, G) uint8 row-major, wq (n, 3) int32 quantized,
-// leaf_in (n,) int32, slots (W,) int32 -> hist (W, G, B, 3) int32 (zeroed
-// by the caller, accumulated here).  Returns cudaGetLastError().
+// leaf_in (n,) int32, slots (W,) int32 -> hist (W, G, B, 3) int32 (every
+// word written); plan: the int64 launch plan of ops/histogram.py
+// frontier_hist_plan; part: its (grid_x, W, G, B, 3) int32 scratch.  Two
+// launches on ``stream``: the histogram and the sum of its copies.
+// Returns the first nonzero cudaGetLastError().
 extern "C" int ltt_bins_hist_q(const void* bins, const void* wq,
                                const void* leaf_in, const void* slots,
                                void* hist, int64_t n, int G, int B, int W,
+                               const int64_t* plan, void* part,
                                void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  const size_t smem = (size_t)(W > 0 ? W : 1) * sizeof(int32_t);
-  bins_hist_q_kernel<<<(unsigned)blocks, threads, smem,
-                       (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, (const int32_t*)wq, (const int32_t*)leaf_in,
-      (const int32_t*)slots, (int32_t*)hist, n, G, B, W);
-  return (int)cudaGetLastError();
+  const ltt_i32::In in{(const uint8_t*)bins, (const int32_t*)wq,
+                       (const int32_t*)leaf_in, (const int32_t*)slots,
+                       (int32_t*)hist, (int32_t*)part, n, G, B, W};
+  return ltt_i32::launch<true>(in, plan, (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
 // Frontier histograms of the transposed bins with int8-quantized
 // weights: the fused route + histogram (kernel A) and the same
 // histogram without routing (kernel G).  One histogram kernel
-// (csrc/hist_i32.cuh), two entry points.
+// (csrc/hist_i32.cuh in its transposed layout; kernel I, bins_hist.cu,
+// runs its row-major one), two entry points.
 //
 // Kernel A replaces the Pallas kernel _fused_kernel_body_q_tiled
 // (lightgbm_tpu/ops/histogram.py:1412, entry point
@@ -91,7 +92,7 @@ extern "C" int ltt_fused_route_hist(
   const ltt_i32::In in{(const uint8_t*)binsT, (const int32_t*)wT,
                        (const int32_t*)leaf_out, (const int32_t*)slots,
                        (int32_t*)hist, (int32_t*)part, n, G, B, W};
-  return ltt_i32::launch(in, plan, (cudaStream_t)stream);
+  return ltt_i32::launch<false>(in, plan, (cudaStream_t)stream);
 }
 
 // Kernel G.  The same histogram of the rows' current leaf ids: binsT
@@ -107,5 +108,5 @@ extern "C" int ltt_tiled_hist(const void* binsT, const void* wT,
   const ltt_i32::In in{(const uint8_t*)binsT, (const int32_t*)wT,
                        (const int32_t*)leaf_in, (const int32_t*)slots,
                        (int32_t*)hist, (int32_t*)part, n, G, B, W};
-  return ltt_i32::launch(in, plan, (cudaStream_t)stream);
+  return ltt_i32::launch<false>(in, plan, (cudaStream_t)stream);
 }

@@ -1,6 +1,8 @@
-// The int32 shared-memory frontier histogram of the transposed bins
-// with int8-quantized weights, shared by kernels A (fused_route_hist.cu,
-// after its routing launch) and G (the same histogram without routing).
+// The int32 shared-memory frontier histogram with int8-quantized
+// weights, shared by kernels A (fused_route_hist.cu, after its routing
+// launch) and G (the same histogram without routing), which read the
+// transposed bins and weights, and kernel I (bins_hist.cu), which reads
+// the row-major ones.
 //
 // The function: hist (W, G, B, 3) int32, where slot position s holds the
 // sums of (w0, w1, w2) of the rows whose leaf id equals slots[s], at
@@ -8,6 +10,16 @@
 // slot gets it twice, as the TPU's slot one-hot does), a negative slot
 // or leaf matches nothing, a bin >= B matches nothing, and a row whose
 // three weights are zero adds nothing.
+//
+// Two layouts of the same inputs (the template's kRowMajor):
+//  - transposed (A, G): binsT (G, n) uint8, a group's bins of 4
+//    consecutive rows in one 32-bit word; wT (3, n) int32, a channel of
+//    4 rows in one int4;
+//  - row-major (I): bins (n, G) uint8, a row's G bins contiguous (row
+//    stride G); w (n, 3) int32, 4 rows' 12 weights in three int4.
+// Everything past the loads (the shared histogram, the leaf -> slot
+// table, the chains, the far list, the adds, the copies and their sum)
+// is one code path for both.
 //
 // Layout of the work (the launch plan is Python's: ops/histogram.py
 // frontier_hist_plan; the kernel reads it as given).  A CTA of 1024
@@ -26,14 +38,17 @@
 // however the rows fall over the slots, so a skewed frontier costs no
 // balance.
 //
-// A thread takes 4 consecutive rows at a time (1 where the rows or
-// pointers are not aligned for it): their leaf ids as one int4, the
-// table's chains (no scan of the W slots),
-// and if any landed, their weights as three int4 and their bins a tile
-// of 8 groups at a time, one 32-bit word a group; then one shared
-// atomicAdd(int*) a nonzero weight, group and slot position: on sm_90a a
-// native ATOMS.ADD, not a compare-and-swap loop
-// (scripts/torch_sass_atomics.py).
+// A thread takes 4 consecutive rows at a time where the plan says so
+// (rows_per_thread: N % 4 == 0 and the pointers aligned for it; else
+// 1): their leaf ids as one int4, the table's chains (no scan of the W
+// slots), and if any landed, their weights as three int4 and their bins
+// a tile of 8 groups at a time as 8 32-bit words, byte k of word j row
+// k's bin of group j.  Transposed, word j is one load; row-major, each
+// row's 8 bins are cut from the (at most 3) aligned words that cover
+// them with funnel shifts and the 4 x 8 bytes transposed with byte
+// permutes into the same 8 words.  Then one shared atomicAdd(int*) a
+// nonzero weight, group and slot position: on sm_90a a native ATOMS.ADD,
+// not a compare-and-swap loop (scripts/torch_sass_atomics.py).
 //
 // At the end each CTA stores its histogram with plain stores as copy
 // blockIdx.x of a (grid_x, W, G, B, 3) scratch, and a second launch sums
@@ -74,13 +89,14 @@ struct Plan {
         off_nfar((int)a[12]), smem((int)a[13]) {}
 };
 
-// What a launch reads and writes: binsT (G, n) uint8, wT (3, n) int32,
-// leaf (n,) int32, slots (W,) int32 -> hist (W, G, B, 3) int32, every
-// word written; part is the (grid_x, W, G, B, 3) int32 scratch of the
-// CTAs' copies, every word written before it is read.
+// What a launch reads and writes: bins uint8 and w int32 in the
+// launch's layout (transposed: (G, n) and (3, n); row-major: (n, G) and
+// (n, 3)), leaf (n,) int32, slots (W,) int32 -> hist (W, G, B, 3) int32,
+// every word written; part is the (grid_x, W, G, B, 3) int32 scratch of
+// the CTAs' copies, every word written before it is read.
 struct In {
-  const uint8_t* binsT;
-  const int32_t* wT;
+  const uint8_t* bins;
+  const int32_t* w;
   const int32_t* leaf;
   const int32_t* slots;
   int32_t* hist;
@@ -89,16 +105,29 @@ struct In {
   int G, B, W;
 };
 
+// Where row ``row``'s bin of group ``g`` is, and the bytes from one
+// group to the next of a row.
+template <bool kRowMajor>
+__device__ __forceinline__ const uint8_t* bin_at(const In& in, int64_t row,
+                                                 int g) {
+  return kRowMajor ? in.bins + row * in.G + g
+                   : in.bins + (int64_t)g * in.n + row;
+}
+template <bool kRowMajor>
+__device__ __forceinline__ int64_t group_stride(const In& in) {
+  return kRowMajor ? 1 : in.n;
+}
+
 // Add one row's weights at its gcn bins (bins from ``b``, a group every
-// ``n`` bytes) into the (gcn, B, 3) histogram at ``h``.
+// ``gs`` bytes) into the (gcn, B, 3) histogram at ``h``.
 __device__ __forceinline__ void add_row(int32_t* h, const uint8_t* b,
-                                        int64_t n, int gcn, int B,
+                                        int64_t gs, int gcn, int B,
                                         int32_t w0, int32_t w1, int32_t w2) {
   for (int gt = 0; gt < gcn; gt += kGroupTile) {
     int bin[kGroupTile];
 #pragma unroll
     for (int k = 0; k < kGroupTile; ++k)
-      bin[k] = gt + k < gcn ? (int)__ldg(b + (int64_t)(gt + k) * n) : B;
+      bin[k] = gt + k < gcn ? (int)__ldg(b + (int64_t)(gt + k) * gs) : B;
 #pragma unroll
     for (int k = 0; k < kGroupTile; ++k) {
       if (bin[k] >= B) continue;
@@ -116,17 +145,17 @@ __device__ __forceinline__ void add_row(int32_t* h, const uint8_t* b,
 __device__ __forceinline__ void add_at_slots(
     int32_t* s_hist, const int32_t* s_slot, const int32_t* s_next,
     const int32_t* s_far, int nfar, int leaf, int q, bool far,
-    int slot_words, const uint8_t* b, int64_t n, int gcn, int B, int32_t w0,
-    int32_t w1, int32_t w2) {
+    int slot_words, const uint8_t* b, int64_t gs, int gcn, int B,
+    int32_t w0, int32_t w1, int32_t w2) {
   if (far) {
     for (int f = 0; f < nfar; ++f) {
       const int qf = s_far[f];
       if (s_slot[qf] == leaf)
-        add_row(s_hist + qf * slot_words, b, n, gcn, B, w0, w1, w2);
+        add_row(s_hist + qf * slot_words, b, gs, gcn, B, w0, w1, w2);
     }
   } else {
     for (; q >= 0; q = s_next[q])
-      add_row(s_hist + q * slot_words, b, n, gcn, B, w0, w1, w2);
+      add_row(s_hist + q * slot_words, b, gs, gcn, B, w0, w1, w2);
   }
 }
 
@@ -145,18 +174,22 @@ struct Slots {
 // A row whose leaf id is past the table: every far slot equal to it.
 // Rare, so kept out of line (its registers stay out of the row loops).
 __device__ __noinline__ void add_far_row(const Slots& sl, int leaf,
-                                         const uint8_t* b, int64_t n,
+                                         const uint8_t* b, int64_t gs,
                                          int gcn, int B, int32_t w0,
                                          int32_t w1, int32_t w2) {
   add_at_slots(sl.hist, sl.slot, sl.next, sl.far, sl.nfar, leaf, -1, true,
-               sl.slot_words, b, n, gcn, B, w0, w1, w2);
+               sl.slot_words, b, gs, gcn, B, w0, w1, w2);
 }
 
-// One row a thread (any n): the thread's rows are tid + k * stride of
-// the CTA's rows.
+// One row a thread (any n, any alignment): the thread's rows are tid +
+// k * stride of the CTA's rows.
+template <bool kRowMajor>
 __device__ __forceinline__ void add_rows1(const In& in, const Slots& sl,
-                                          const uint8_t* bins, int gcn) {
+                                          int g0, int gcn) {
   const int64_t n = in.n;
+  const int64_t gs = group_stride<kRowMajor>(in);
+  const int64_t cs = kRowMajor ? 1 : n;       // channel stride of w
+  const int64_t rs = kRowMajor ? 3 : 1;       // row stride of w
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
   for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        row < n; row += step) {
@@ -165,15 +198,94 @@ __device__ __forceinline__ void add_rows1(const In& in, const Slots& sl,
     const bool far = leaf >= sl.table;
     const int q = far ? -1 : sl.head[leaf];
     if (far ? sl.nfar == 0 : q < 0) continue;
-    const int32_t w0 = __ldg(in.wT + row), w1 = __ldg(in.wT + n + row),
-                  w2 = __ldg(in.wT + 2 * n + row);
+    const int32_t* wr = in.w + row * rs;
+    const int32_t w0 = __ldg(wr), w1 = __ldg(wr + cs),
+                  w2 = __ldg(wr + 2 * cs);
     if ((w0 | w1 | w2) == 0) continue;
+    const uint8_t* b = bin_at<kRowMajor>(in, row, g0);
     if (far)
-      add_far_row(sl, leaf, bins + row, n, gcn, in.B, w0, w1, w2);
+      add_far_row(sl, leaf, b, gs, gcn, in.B, w0, w1, w2);
     else
       add_at_slots(sl.hist, sl.slot, sl.next, sl.far, sl.nfar, leaf, q,
-                   false, sl.slot_words, bins + row, n, gcn, in.B, w0, w1,
-                   w2);
+                   false, sl.slot_words, b, gs, gcn, in.B, w0, w1, w2);
+  }
+}
+
+// The 4 x 4 byte transpose: byte k of col[j] = byte j of row k (rows a,
+// b, c, d).
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b,
+                                           uint32_t c, uint32_t d,
+                                           uint32_t* col) {
+  const uint32_t t0 = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
+  const uint32_t t1 = __byte_perm(c, d, 0x5140);  // c0 d0 c1 d1
+  const uint32_t t2 = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
+  const uint32_t t3 = __byte_perm(c, d, 0x7362);  // c2 d2 c3 d3
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// The bins of groups [g0 + gt, g0 + gt + kGroupTile) of rows r0..r0+3
+// (groups past gcn read as anything; the adds skip them) as kGroupTile
+// words, byte k of word j row k's bin of group gt + j.  Transposed: one
+// word a group.  Row-major (n % 4 == 0 and bins 4-byte aligned, so the
+// words covering any of its bytes lie inside it): a row's cnt bytes from
+// byte offset o lie in the aligned words o/4 .. (o + cnt - 1)/4, at most
+// three, cut by funnel shifts, then transposed.
+template <bool kRowMajor>
+__device__ __forceinline__ void load_tile4(const In& in, int64_t r0, int g0,
+                                           int gt, int gcn,
+                                           uint32_t* word) {
+  if constexpr (kRowMajor) {
+    const int cnt = min(kGroupTile, gcn - gt);
+    uint32_t lo[4], hi[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t o = (r0 + k) * in.G + g0 + gt;
+      const uint32_t* p =
+          reinterpret_cast<const uint32_t*>(in.bins) + (o >> 2);
+      const int s = (int)(o & 3);
+      const int last = (s + cnt - 1) >> 2;
+      const uint32_t a = __ldg(p);
+      const uint32_t b = last >= 1 ? __ldg(p + 1) : 0u;
+      const uint32_t c = last >= 2 ? __ldg(p + 2) : 0u;
+      lo[k] = __funnelshift_r(a, b, 8 * s);
+      hi[k] = __funnelshift_r(b, c, 8 * s);
+    }
+    transpose4(lo[0], lo[1], lo[2], lo[3], word);
+    transpose4(hi[0], hi[1], hi[2], hi[3], word + 4);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGroupTile; ++j)
+      word[j] = gt + j < gcn ? __ldg(reinterpret_cast<const uint32_t*>(
+                                   in.bins + (int64_t)(g0 + gt + j) * in.n +
+                                   r0))
+                             : 0u;
+  }
+}
+
+// The weights of rows r0..r0+3: w[c][k] channel c of row k, three int4
+// loads in either layout.
+template <bool kRowMajor>
+__device__ __forceinline__ void load_weights4(const In& in, int64_t r0,
+                                              int32_t (*w)[4]) {
+  if constexpr (kRowMajor) {
+    const int4* p = reinterpret_cast<const int4*>(in.w + r0 * 3);
+    const int4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+    const int32_t f[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                           b.z, b.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) w[ch][k] = f[3 * k + ch];
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int4 v =
+          __ldg(reinterpret_cast<const int4*>(in.w + ch * in.n + r0));
+      w[ch][0] = v.x, w[ch][1] = v.y, w[ch][2] = v.z, w[ch][3] = v.w;
+    }
   }
 }
 
@@ -198,11 +310,13 @@ __device__ __forceinline__ void add_tile4(const Slots& sl, int q, int k,
   }
 }
 
-// Four consecutive rows a thread (n % 4 == 0): a run with a landed row
-// loads its three weight int4 and its first tile of bin words together.
-// Rows past the table go one by one through the far list.
+// Four consecutive rows a thread (n % 4 == 0, pointers aligned): a run
+// with a landed row loads its three weight int4 and its first tile of
+// bin words together.  Rows past the table go one by one through the
+// far list.
+template <bool kRowMajor>
 __device__ __forceinline__ void add_rows4(const In& in, const Slots& sl,
-                                          const uint8_t* bins, int gcn) {
+                                          int g0, int gcn) {
   const int64_t n = in.n;
   const int B = in.B;
   const int64_t step = ((int64_t)gridDim.x * blockDim.x) * 4;
@@ -220,35 +334,22 @@ __device__ __forceinline__ void add_rows4(const In& in, const Slots& sl,
     }
     if (!any) continue;
     uint32_t word[kGroupTile];
-#pragma unroll
-    for (int j = 0; j < kGroupTile; ++j)
-      word[j] = j < gcn ? __ldg(reinterpret_cast<const uint32_t*>(
-                              bins + (int64_t)j * n + r0))
-                        : 0u;
+    load_tile4<kRowMajor>(in, r0, g0, 0, gcn, word);
     int32_t w[3][4];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(in.wT + c * n + r0));
-      w[c][0] = v.x, w[c][1] = v.y, w[c][2] = v.z, w[c][3] = v.w;
-    }
+    load_weights4<kRowMajor>(in, r0, w);
     int top = -1;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if ((w[0][k] | w[1][k] | w[2][k]) == 0) q[k] = -1, far[k] = false;
       if (far[k])
-        add_far_row(sl, leaf[k], bins + r0 + k, n, gcn, B, w[0][k], w[1][k],
+        add_far_row(sl, leaf[k], bin_at<kRowMajor>(in, r0 + k, g0),
+                    group_stride<kRowMajor>(in), gcn, B, w[0][k], w[1][k],
                     w[2][k]);
       top = max(top, q[k]);
     }
     if (top < 0) continue;
     for (int gt = 0; gt < gcn; gt += kGroupTile) {
-      if (gt > 0) {
-#pragma unroll
-        for (int j = 0; j < kGroupTile; ++j)
-          word[j] = gt + j < gcn ? __ldg(reinterpret_cast<const uint32_t*>(
-                                       bins + (int64_t)(gt + j) * n + r0))
-                                 : 0u;
-      }
+      if (gt > 0) load_tile4<kRowMajor>(in, r0, g0, gt, gcn, word);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         add_tile4(sl, q[k], k, word, gt, gcn, B, w[0][k], w[1][k],
@@ -257,9 +358,10 @@ __device__ __forceinline__ void add_rows4(const In& in, const Slots& sl,
   }
 }
 
-// V rows a thread at a time: add_rows4 (needs n % 4 == 0, 16-byte
-// aligned leaf ids and weights, 4-byte aligned bins) or add_rows1.
-template <int V>
+// V rows a thread at a time in the given layout: add_rows4 (the plan's
+// rows_per_thread 4: n % 4 == 0, 16-byte aligned leaf ids and weights,
+// 4-byte aligned bins) or add_rows1.
+template <int V, bool kRowMajor>
 __global__ void __launch_bounds__(kThreads, 1)
     hist_i32_kernel(In in, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -296,11 +398,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (sn > 0 && gcn > 0) {
     const Slots sl{s_hist, s_slot, s_next, s_far, s_head, nfar, p.table,
                    gcn * row3};
-    const uint8_t* bins = in.binsT + (int64_t)g0 * in.n;
     if constexpr (V == 4)
-      add_rows4(in, sl, bins, gcn);
+      add_rows4<kRowMajor>(in, sl, g0, gcn);
     else
-      add_rows1(in, sl, bins, gcn);
+      add_rows1<kRowMajor>(in, sl, g0, gcn);
   }
   __syncthreads();
   // store the CTA's copy: a warp per (slot, group) row of 3B words
@@ -339,38 +440,46 @@ __global__ void sum_copies_kernel(const int32_t* __restrict__ part,
 }
 
 // Launch the histogram on ``stream`` with the plan's geometry (shared
-// memory past 48 KB opted in), four rows a thread where the plan says so
-// (rows_per_thread) and the pointers are aligned for it, else one; then
-// the sum of its grid_x copies into hist.  Returns the first nonzero
-// cudaGetLastError().
-template <int V>
+// memory past 48 KB opted in) and rows a thread.  Returns the first
+// nonzero cudaGetLastError().
+template <int V, bool kRowMajor>
 int launch_v(const In& in, const Plan& p, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      hist_i32_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      p.smem);
+      hist_i32_kernel<V, kRowMajor>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
   // all of the SM's 228 KB as shared memory, so two 105 KB CTAs fit
-  e = cudaFuncSetAttribute(hist_i32_kernel<V>,
+  e = cudaFuncSetAttribute(hist_i32_kernel<V, kRowMajor>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  hist_i32_kernel<V><<<dim3((unsigned)p.grid_x, (unsigned)p.grid_y,
-                            (unsigned)p.grid_z),
-                       (unsigned)p.threads, (size_t)p.smem, stream>>>(in, p);
+  hist_i32_kernel<V, kRowMajor><<<dim3((unsigned)p.grid_x,
+                                       (unsigned)p.grid_y,
+                                       (unsigned)p.grid_z),
+                                  (unsigned)p.threads, (size_t)p.smem,
+                                  stream>>>(in, p);
   return (int)cudaGetLastError();
 }
 
-inline int launch(const In& in, const int64_t* plan, cudaStream_t stream) {
+// The histogram in the given layout, then the sum of its grid_x copies
+// into hist.  A plan of 4 rows a thread on pointers or rows not aligned
+// for it is refused (cudaErrorMisalignedAddress): the wrapper's plan
+// decides, from the same pointers.
+template <bool kRowMajor>
+int launch(const In& in, const int64_t* plan, cudaStream_t stream) {
   const int64_t words = (int64_t)in.W * in.G * in.B * 3;
   if (words == 0) return 0;
   const Plan p(plan);
-  const bool aligned = in.n % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(in.leaf) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(in.wT) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(in.binsT) % 4 == 0;
-  const int rc = p.rows_per_thread == 4 && aligned
-                     ? launch_v<4>(in, p, stream)
-                     : launch_v<1>(in, p, stream);
+  if (p.rows_per_thread == 4) {
+    const bool aligned = in.n % 4 == 0 &&
+                         reinterpret_cast<uintptr_t>(in.leaf) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(in.w) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(in.bins) % 4 == 0;
+    if (!aligned) return (int)cudaErrorMisalignedAddress;
+  }
+  const int rc = p.rows_per_thread == 4
+                     ? launch_v<4, kRowMajor>(in, p, stream)
+                     : launch_v<1, kRowMajor>(in, p, stream);
   if (rc != 0) return rc;
   sum_copies_kernel<<<(unsigned)((words + 31) / 32), dim3(32, 8), 0,
                       stream>>>(in.part, in.hist, words, p.grid_x);

@@ -1,13 +1,12 @@
-// Per-row split routing shared by the fused route+histogram kernel and
-// the exit-route kernel.
+// Per-row split routing shared by the routing passes of the fused
+// route+histogram kernels and by the exit-route and route-only kernels.
 //
 // CUDA form of lightgbm_tpu_torch/ops/partition.py route_rows (and of
 // the TPU kernels' _route_prologue_T, lightgbm_tpu/ops/histogram.py:1140).
 // The TPU broadcasts the per-leaf route table to rows through a bf16
 // one-hot matrix product; here each thread gathers its leaf's table row
-// directly.  Every route column is an integer below 256 and the value
-// columns are bf16-exact, so the gather reads the same numbers the
-// product produced.
+// directly.  Every route column is an integer below 256, so the gather
+// reads the same numbers the product produced.
 #pragma once
 
 #include <cstdint>

@@ -36,8 +36,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .partition import (ROUTE_FIXED_COLS, apply_route_table,
-                        extend_table_with_values)
+from .partition import ROUTE_FIXED_COLS, apply_route_table
 
 #: int32 histogram-accumulator headroom: quantized weights are int8
 #: (|q| <= 127), so a bin that swallowed every row accumulates at most
@@ -109,8 +108,9 @@ def _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
     G, N = binsT.shape
     L, K = route_tab.shape
     W = slots.shape[0]
-    hist, part, plan = _i32_buffers(N, W, G, max_group_bin, binsT.device)
     leaf_out = torch.empty_like(leaf_id)
+    hist, part, plan = _i32_buffers(N, W, G, max_group_bin, binsT.device,
+                                    i32_aligned(binsT, wT, leaf_out))
     kernels.launch("fused_route_hist", binsT.data_ptr(), wT.data_ptr(),
                    leaf_id.data_ptr(), route_tab.data_ptr(),
                    slots.data_ptr(), hist.data_ptr(), leaf_out.data_ptr(),
@@ -118,10 +118,20 @@ def _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
     return hist, leaf_out
 
 
-def _i32_buffers(N, W, G, B, dev):
+def i32_aligned(bins: torch.Tensor, w: torch.Tensor,
+                leaf_id: torch.Tensor) -> bool:
+    """Whether the int32 histogram (kernels A, G, I) may read 4 rows a
+    thread: the bins 4-byte aligned, the weights and the leaf ids it
+    reads 16-byte aligned (either layout; :func:`frontier_hist_plan`
+    also wants N % 4 == 0)."""
+    return (bins.data_ptr() % 4 == 0 and w.data_ptr() % 16 == 0
+            and leaf_id.data_ptr() % 16 == 0)
+
+
+def _i32_buffers(N, W, G, B, dev, aligned):
     """(hist, scratch of the CTAs' copies, C plan) of one launch of
-    kernel A or G; the kernels write every word of both."""
-    plan = _plan_args("i32", N, W, G, B, 0, dev.index or 0)
+    kernel A, G or I; the kernels write every word of both."""
+    plan = _i32_plan_args(N, W, G, B, aligned, dev.index or 0)
     copies = plan[3]                    # grid x: one copy a CTA
     hist = torch.empty((W, G, B, 3), dtype=torch.int32, device=dev)
     part = torch.empty((copies * hist.numel(),), dtype=torch.int32,
@@ -221,7 +231,8 @@ def tiled_hist(binsT: torch.Tensor, wT: torch.Tensor, leaf_id: torch.Tensor,
     if dev.type != "cuda":
         return tiled_hist_plain(binsT, wT, leaf_id, slots, max_group_bin)
     W = slots.shape[0]
-    hist, part, plan = _i32_buffers(N, W, G, max_group_bin, dev)
+    hist, part, plan = _i32_buffers(N, W, G, max_group_bin, dev,
+                                    i32_aligned(binsT, wT, leaf_id))
     kernels.launch("tiled_hist", binsT.data_ptr(), wT.data_ptr(),
                    leaf_id.data_ptr(), slots.data_ptr(), hist.data_ptr(), N,
                    G, max_group_bin, W, plan, part.data_ptr())
@@ -258,8 +269,10 @@ def route_apply_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
 
     Kernel B (csrc/route_apply.cu) replaces the Pallas kernel
     _route_value_kernel_body (lightgbm_tpu/ops/histogram.py:1632): one
-    thread per row, memory-bound at ~13 B per row; the six value
-    columns are built here before the launch (see the source note)."""
+    launch, memory-bound at ~13 B per row, that derives each leaf's
+    bf16-split keep and right-child values itself from ``values`` (the
+    JAX package builds them as six table columns first; see the source
+    note)."""
     _check(values, "values", torch.float32, 1)
     _check_route(binsT, leaf_id, route_tab)
     G, N = binsT.shape
@@ -269,12 +282,12 @@ def route_apply_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
     dev = _same_device(binsT, leaf_id, route_tab, values)
     if dev.type != "cuda":
         return route_apply_plain(binsT, leaf_id, route_tab, values)
-    table = extend_table_with_values(route_tab, values).contiguous()
     leaf_out = torch.empty_like(leaf_id)
     val_out = torch.empty((N,), dtype=torch.float32, device=dev)
     kernels.launch("route_apply", binsT.data_ptr(), leaf_id.data_ptr(),
-                   table.data_ptr(), leaf_out.data_ptr(), val_out.data_ptr(),
-                   N, G, L, K)
+                   route_tab.data_ptr(), values.data_ptr(),
+                   leaf_out.data_ptr(), val_out.data_ptr(), N, G, L, K,
+                   _num_sms(dev.index or 0))
     return leaf_out, val_out
 
 
@@ -291,7 +304,7 @@ def _check_route(binsT, leaf_id, route_tab) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Kernel H: kernel B's routing without the value columns
+# Kernel H: kernel B's routing without the row values
 # ---------------------------------------------------------------------------
 def route_only_plain(binsT: torch.Tensor, leaf_id: torch.Tensor,
                      route_tab: torch.Tensor) -> torch.Tensor:
@@ -543,7 +556,8 @@ def bins_hist_plan(n: int, W: int, G: int, B: int,
 
 
 # ---------------------------------------------------------------------------
-# Launch geometry of the int32 shared-memory histogram (kernels A, G)
+# Launch geometry of the int32 shared-memory histogram (kernels A, G on
+# the transposed layout, I on the row-major one)
 # ---------------------------------------------------------------------------
 #: csrc/hist_i32.cuh: threads of a CTA (kThreads), one CTA an SM (its
 #: launch bounds keep 64 registers a thread)
@@ -559,8 +573,8 @@ class I32Plan(NamedTuple):
     into grid z chunks of ``slots_per_cta``, the G groups into grid y
     chunks of ``groups_per_cta``, and the grid x CTAs of each (group,
     slot) chunk take every grid-x-th stride of ``threads`` runs of
-    ``rows_per_thread`` rows (4 where N allows it); the byte
-    offsets carve the CTA's dynamic shared memory: the (S, gc, B, 3)
+    ``rows_per_thread`` rows (4 where N and the pointers allow it); the
+    byte offsets carve the CTA's dynamic shared memory: the (S, gc, B, 3)
     int32 histogram at 0, then the S slot values, the S chain links, the
     S positions of slots past the table, the ``table`` leaf -> position
     heads, and the count of slots past the table."""
@@ -617,8 +631,10 @@ def _i32_most(budget: int, B: int, S: int = None, gc: int = None) -> int:
 
 
 def frontier_hist_plan(n: int, W: int, G: int, B: int,
-                       num_sms: int = H100_SMS) -> I32Plan:
-    """Geometry of kernels A and G: one CTA of I32_THREADS threads an SM.
+                       num_sms: int = H100_SMS,
+                       aligned: bool = True) -> I32Plan:
+    """Geometry of kernels A, G (transposed bins and weights) and I
+    (row-major ones): one CTA of I32_THREADS threads an SM.
     Group chunks over all W slots where one group of them fits a CTA
     (126 slots x 63 bins: 95 KB, so two groups a CTA; a tree's first
     round takes all 28 groups of its one slot): as few chunks as fit,
@@ -628,10 +644,20 @@ def frontier_hist_plan(n: int, W: int, G: int, B: int,
     bins: 385 KB) do the slots split too, one group a CTA and as many
     slots as fit.  The SMs are shared equally over the (group, slot)
     chunks, at least one CTA each and no more than the rows need (a run
-    of rows a thread: 4 rows where N % 4 == 0, so that a thread reads 4
-    rows' leaf ids, weights and bins as words, else 1).  Each CTA's
-    histogram is one copy in the (grid x, W, G, B, 3) scratch that a
-    second launch sums."""
+    of rows a thread: 4 rows where N % 4 == 0 and the pointers are
+    ``aligned`` (:func:`i32_aligned`), so that a thread reads 4 rows'
+    leaf ids and weights as int4 and their bins as words, else 1).  Each
+    CTA's histogram is one copy in the (grid x, W, G, B, 3) scratch
+    that a second launch sums.
+
+    Both layouts take the same plan.  Row-major, each group chunk
+    re-reads every landed row's 32-byte sector of bins (transposed, only
+    its own groups' bytes; the 28 MB bin matrix of the bench shape fits
+    the H100's 50 MB L2): at W=126 kernel I takes ~0.04 ms more than G
+    (PERF.md).  Slot chunks of all G groups would read each row once,
+    but a chunk's CTAs would then follow its slots' rows, which a tree's
+    middle rounds put mostly in a few slots; group chunks cost no
+    balance."""
     G1, W1 = max(G, 1), max(W, 1)
     if _i32_most(SMEM_PER_CTA, B, gc=1) >= W1:
         S = W1
@@ -640,7 +666,7 @@ def frontier_hist_plan(n: int, W: int, G: int, B: int,
     else:
         S, gc, gy = _i32_most(SMEM_PER_CTA, B, gc=1), 1, G1
     gz = -(-W1 // S)
-    V = 4 if n % 4 == 0 else 1
+    V = 4 if n % 4 == 0 and aligned else 1
     gx = max(1, min(num_sms // (gy * gz),
                     -(-max(n, 1) // (I32_THREADS * V))))
     if W == 0:                  # nothing to add: one CTA, no slot
@@ -657,13 +683,21 @@ def _num_sms(index: int) -> int:
 @functools.lru_cache(maxsize=256)
 def _plan_args(kind: str, n: int, W: int, G: int, B: int, payload: int,
                index: int):
-    """The C plan array of one launch shape on card ``index`` (a launch
-    of the same shapes reuses it; the kernels only read it)."""
+    """The C plan array of one f64 launch shape on card ``index`` (a
+    launch of the same shapes reuses it; the kernels only read it)."""
     sms = _num_sms(index)
     plan = (bins_hist_plan(n, W, G, B, sms) if kind == "bins"
-            else frontier_hist_plan(n, W, G, B, sms) if kind == "i32"
             else onehot_hist_plan(n, W, G, B, payload, sms))
     return plan.as_args()
+
+
+@functools.lru_cache(maxsize=256)
+def _i32_plan_args(n: int, W: int, G: int, B: int, aligned: bool,
+                   index: int):
+    """The C plan array of one int32 histogram launch shape on card
+    ``index``."""
+    return frontier_hist_plan(n, W, G, B, _num_sms(index),
+                              aligned).as_args()
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -1088,8 +1122,9 @@ def _bins_hist(name: str, bins: torch.Tensor, w: torch.Tensor,
                leaf_id: torch.Tensor, slots: torch.Tensor,
                max_group_bin: int, dtype) -> torch.Tensor:
     """Kernel F or K (f32 ``w``, the geometry of :func:`bins_hist_plan`)
-    or I (int32 ``w``) under the launch count ``name`` on CUDA tensors,
-    the plain version on CPU tensors."""
+    or I (int32 ``w``, the geometry of :func:`frontier_hist_plan`) under
+    the launch count ``name`` on CUDA tensors, the plain version on CPU
+    tensors."""
     _check(bins, "bins", torch.uint8, 2)
     _check(w, "w", dtype, 2)
     _check(leaf_id, "leaf_id", torch.int32, 1)
@@ -1104,12 +1139,13 @@ def _bins_hist(name: str, bins: torch.Tensor, w: torch.Tensor,
         return bins_hist_plain(bins, w, leaf_id, slots, max_group_bin)
     W = slots.shape[0]
     if dtype == torch.int32:
-        acc = torch.zeros((W, G, max_group_bin, 3), device=dev,
-                          dtype=torch.int32)
+        hist, part, plan = _i32_buffers(N, W, G, max_group_bin, dev,
+                                        i32_aligned(bins, w, leaf_id))
         kernels.launch(name, bins.data_ptr(), w.data_ptr(),
-                       leaf_id.data_ptr(), slots.data_ptr(), acc.data_ptr(),
-                       N, G, max_group_bin, W)
-        return acc
+                       leaf_id.data_ptr(), slots.data_ptr(),
+                       hist.data_ptr(), N, G, max_group_bin, W, plan,
+                       part.data_ptr())
+        return hist
     acc = torch.zeros((W, G, max_group_bin, 3), device=dev,
                       dtype=torch.float64)
     words = int(G % 4 == 0 and bins.data_ptr() % 4 == 0)
@@ -1159,7 +1195,9 @@ def bins_hist_q(bins: torch.Tensor, wq: torch.Tensor, leaf_id: torch.Tensor,
     _hist_kernel_body_q, lightgbm_tpu/ops/histogram.py:381) on CUDA
     tensors, its plain version on CPU tensors.  ``wq`` is the (N, 3)
     int32 quantized weights; returns the (W, G, B, 3) int32 histogram
-    following ``slots``."""
+    following ``slots``.  Kernel I (csrc/bins_hist.cu) is kernel G's
+    int32 shared-memory histogram (csrc/hist_i32.cuh) on the row-major
+    bins and weights: the histogram launch and the sum of its copies."""
     return _bins_hist("bins_hist_q", bins, wq, leaf_id, slots,
                       max_group_bin, torch.int32)
 

@@ -43,23 +43,25 @@ _I64 = ctypes.c_int64
 # the stream: an int64 array from ops/histogram.py HistPlan.as_args
 _ONEHOT_ARGS = [_P, _I64, _I, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P,
                 _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
-_BINS_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]
 _BINS_F64_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P]
+# the int32 histograms G and I: inputs, hist, n, G, B, W, then the plan
+# of ops/histogram.py frontier_hist_plan and its scratch before the
+# stream
+_I32_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _P]
 # kernel name -> (source file, C entry point, argtypes)
 KERNELS: Dict[str, tuple] = {
-    # kernels A and G take the plan of ops/histogram.py
-    # frontier_hist_plan and its scratch before the stream
+    # kernel A takes the plan and scratch of G and I
     "fused_route_hist": (
         "fused_route_hist.cu", "ltt_fused_route_hist",
         [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
          _P]),
     # kernel G: kernel A's histogram without the routing
-    "tiled_hist": ("fused_route_hist.cu", "ltt_tiled_hist",
-                   [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _P]),
+    "tiled_hist": ("fused_route_hist.cu", "ltt_tiled_hist", _I32_ARGS),
+    # kernel B: the pending route table, the leaf values and the SMs
     "route_apply": (
         "route_apply.cu", "ltt_route_apply",
-        [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P]),
-    # kernel H: kernel B's routing without the value columns
+        [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P]),
+    # kernel H: kernel B's routing without the row values
     "route_only": ("route_apply.cu", "ltt_route_only",
                    [_P, _P, _P, _P, _I64, _I, _I, _I, _P]),
     "predict_level": (
@@ -76,9 +78,10 @@ KERNELS: Dict[str, tuple] = {
     # kernel K: F's template behind the pallas_paired plan
     "bins_hist_paired": ("bins_hist.cu", "ltt_bins_hist_paired",
                          _BINS_F64_ARGS),
-    # kernel I (int8 weights) behind its two entry points
-    "bins_hist_q": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),
-    "bins_hist_q_packed": ("bins_hist.cu", "ltt_bins_hist_q", _BINS_ARGS),
+    # kernel I (int8 weights, G's histogram on the row-major layout)
+    # behind its two entry points
+    "bins_hist_q": ("bins_hist.cu", "ltt_bins_hist_q", _I32_ARGS),
+    "bins_hist_q_packed": ("bins_hist.cu", "ltt_bins_hist_q", _I32_ARGS),
     # kernel J: the int8 histogram of leaf-partitioned rows
     "seg_hist": ("seg_hist.cu", "ltt_seg_hist",
                  [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P]),

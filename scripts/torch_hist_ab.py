@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the histogram kernels A, G (int8 weights) and D, E, F, K (f32
-weights) of two trees on one card, in turns.
+"""Time the histogram kernels A, G, I (int8 weights) and D, E, F, K (f32
+weights) and the exit route B of two trees on one card, in turns.
 
     git archive <commit> | tar -x -C build/ab_parent   # the other tree
     python3 scripts/torch_hist_ab.py --parent build/ab_parent
@@ -12,22 +12,29 @@ kernels into that tree's build/kernels), and times each kernel's wrapper
 at chip_smoke.py's phase-2 bench shape (1,000,000 rows, 28 groups, 63
 bins; the same seeded inputs): A (fused route + int8 histogram) at
 W=126 with a pending route table and on a tree's first round, G at
-W=126 and on the first round, D (pack 4, f32) at W=126 with a pending
+W=126 and on the first round, I through both entry points (pallas_q,
+q_packed) at W=126 and on the first round and through pallas_q over all
+255 leaves, B's call (route_apply_tiled) and its one launch alone with
+a pending route table, D (pack 4, f32) at W=126 with a pending
 route table and on the first round, E pre_packed at W=126 and on the
 first round, E pre over all 255 leaves and on the first round, F and K
-at W=126 and on the first round.  Prints the median of CUDA-event timed
-launches for each, the card's name and power limit, and writes
+at W=126 and on the first round.  Prints for each the median of CUDA
+events around single calls (which includes the host's time where it
+outlasts the device's) and, as "(device)", the mean device time of a
+call from torch.profiler, the card's name and power limit, and writes
 chiprun_out/hist_ab.json.
 
-With --rounds it times kernels A and D where training runs them
+With --rounds it times kernels A, D and I where training runs them
 instead: each process trains two trees of the fused_tiled plan (int8
-gradients, kernel A) and two of the fused_streamed plan (f32 gradients,
-kernel D) on chip_smoke.py's workload (make_data 1,000,000 x 28,
-BENCH_PARAMS, with quantized_grad off for D), keeps the inputs of each
-second tree's launches, one a grower round, and times the kernel again
-on each (the median of CUDA-event timed launches).  Prints each round's
-width W, its landed rows, the largest slot's share of them and both
-trees' times, the sums per tree, and writes
+gradients, kernel A), two of the fused_streamed plan (f32 gradients,
+kernel D) and two of the q_onthefly plan (int8 gradients, kernel I
+through q_packed up to 126 slots, pallas_q beyond) on chip_smoke.py's
+workload (make_data 1,000,000 x 28, BENCH_PARAMS, with quantized_grad
+off for D), keeps the inputs of each second tree's launches, one a
+grower round, and times the kernel again on each (the median of
+CUDA-event timed launches, and the profiler's device time).  Prints
+each round's width W, its landed rows, the largest slot's share of them
+and both trees' times, the sums per tree, and writes
 chiprun_out/hist_ab_rounds.json.
 
 With --texts each process trains ten trees of the main path (the
@@ -94,6 +101,8 @@ def time_tree(root: str, n: int, reps: int) -> dict:
     zt = torch.zeros_like(table)
     wq, _ = H.quantize_gradients(grad, hess, counts)
     wqT = wq.t().contiguous()
+    values = torch.from_numpy(rng.randn(L).astype(np.float32)).to(dev)
+    b_launch = _route_apply_launch(binsT, leaf, table, values)
     cases = {
         "A W=126": lambda: H.fused_route_hist(binsT, wqT, leaf, table, s126,
                                               B),
@@ -101,6 +110,17 @@ def time_tree(root: str, n: int, reps: int) -> dict:
                                                     zt, one, B),
         "G W=126": lambda: H.tiled_hist(binsT, wqT, leaf, s126_l, B),
         "G first round": lambda: H.tiled_hist(binsT, wqT, root_leaf, one, B),
+        "I pallas_q W=126": lambda: H.bins_hist_q(bins, wq, leaf, s126_l, B),
+        "I q_packed W=126": lambda: H.bins_hist_q_packed(bins, wq, leaf,
+                                                         s126_l, B),
+        "I pallas_q first round": lambda: H.bins_hist_q(bins, wq, root_leaf,
+                                                        one, B),
+        "I q_packed first round": lambda: H.bins_hist_q_packed(
+            bins, wq, root_leaf, one, B),
+        "I pallas_q all 255": lambda: H.bins_hist_q(bins, wq, leaf, all_l,
+                                                    B),
+        "B call": lambda: H.route_apply_tiled(binsT, leaf, table, values),
+        "B launch": b_launch,
         "D W=126": lambda: H.fused_onehot_hist(oh4, binsT, wT, leaf, table,
                                                s126, **kw),
         "D first round": lambda: H.fused_onehot_hist(
@@ -118,22 +138,57 @@ def time_tree(root: str, n: int, reps: int) -> dict:
         "K first round": lambda: H.bins_hist_paired(bins, w, root_leaf, one,
                                                     B),
     }
-    return {k: cs.time_ms(fn, dev, reps) for k, fn in cases.items()}
+    out = {k: cs.time_ms(fn, dev, reps) for k, fn in cases.items()}
+    out.update({f"{k} (device)": cs.device_ms(fn, reps)
+                for k, fn in cases.items()})
+    return out
 
 
-#: --rounds: kernel -> (plan, its wrapper in ops/histogram.py, the
-#: position of the slots among its arguments, BENCH_PARAMS changes)
+def _route_apply_launch(binsT, leaf, table, values):
+    """Kernel B's one launch on preallocated outputs, with the arguments
+    of the tree's own C entry point: the (L,) values beside the plain
+    table and the card's SMs, or (an earlier tree, 10 arguments) the
+    table with its six value columns built first, outside the timed
+    launch."""
+    import torch
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.ops.histogram import _num_sms
+    n, (L, K) = leaf.shape[0], table.shape
+    bufs = [torch.empty_like(leaf),
+            torch.empty(n, dtype=torch.float32, device=leaf.device)]
+    if len(kernels.KERNELS["route_apply"][2]) == 10:
+        from lightgbm_tpu_torch.ops.partition import extend_table_with_values
+        bufs.append(extend_table_with_values(table, values).contiguous())
+        tab, sms = (bufs[2].data_ptr(),), ()
+    else:
+        tab = (table.data_ptr(), values.data_ptr())
+        sms = (_num_sms(leaf.device.index or 0),)
+    ptrs = (binsT.data_ptr(), leaf.data_ptr(), *tab, bufs[0].data_ptr(),
+            bufs[1].data_ptr(), n, binsT.shape[0], L, K, *sms)
+
+    def run():
+        kernels.launch("route_apply", *ptrs)
+        return bufs                 # the buffers live as long as run
+    return run
+
+
+#: --rounds: kernel -> (plan, its wrappers in ops/histogram.py, the
+#: position of the slots among their arguments, the position of the
+#: leaf ids the histogram follows (None: the second output, after the
+#: routing), BENCH_PARAMS changes)
 ROUND_KERNELS = {
-    "A": ("fused_tiled", "fused_route_hist", 4, {}),
-    "D": ("fused_streamed", "fused_onehot_hist", 5,
+    "A": ("fused_tiled", ("fused_route_hist",), 4, None, {}),
+    "D": ("fused_streamed", ("fused_onehot_hist",), 5, None,
           {"quantized_grad": False}),
+    "I": ("q_onthefly", ("bins_hist_q_packed", "bins_hist_q"), 3, 2,
+          {"hist_kernel_tiled": False, "hist_fused_route": False}),
 }
 
 
 def capture_rounds(root: str, kernel: str, X, y, trees: int = 2):
-    """(kernel's wrapper, [(args, kwargs)] of the last tree's launches of
-    it) of ``trees`` trees of its plan trained with the tree at
-    ``root``."""
+    """[(wrapper, args, kwargs)] of the last tree's launches of the
+    kernel, in order, of ``trees`` trees of its plan trained with the
+    tree at ``root``."""
     sys.path.insert(0, os.path.abspath(root))
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.boosting import create_boosting
@@ -141,41 +196,48 @@ def capture_rounds(root: str, kernel: str, X, y, trees: int = 2):
     if not os.path.abspath(H.__file__).startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {H.__file__}, not the tree at {root}")
     cs = _chip_smoke()
-    plan, wrapper, _, change = ROUND_KERNELS[kernel]
+    plan, wrappers, _, _, change = ROUND_KERNELS[kernel]
     cfg = lgb.Config.from_params(dict(cs.BENCH_PARAMS, **change))
     gbdt = create_boosting(cfg, lgb.Dataset(X, label=y).construct(cfg))
     if gbdt.grower.plan.name != plan:
         raise RuntimeError(f"plan {gbdt.grower.plan.name}, not {plan}")
-    calls, d = [], getattr(H, wrapper)
+    calls, kept = [], {w: getattr(H, w) for w in wrappers}
 
-    def kept(*args, **kwargs):
-        calls.append((args, kwargs))
-        return d(*args, **kwargs)
-    setattr(H, wrapper, kept)
+    def keeper(d):
+        def kept_call(*args, **kwargs):
+            calls.append((d, args, kwargs))
+            return d(*args, **kwargs)
+        return kept_call
+    for w, d in kept.items():
+        setattr(H, w, keeper(d))
     try:
         for _ in range(trees):
             calls.clear()
             gbdt.train_one_iter()
     finally:
-        setattr(H, wrapper, d)
-    return d, list(calls)
+        for w, d in kept.items():
+            setattr(H, w, d)
+    return list(calls)
 
 
-def time_rounds(kernel, d, calls, reps: int) -> list:
+def time_rounds(kernel, calls, reps: int) -> list:
     """[{W, landed, top_share, ms}] of the kernel on each kept launch."""
     import torch
     cs = _chip_smoke()
+    _, _, at_slots, at_leaf, _ = ROUND_KERNELS[kernel]
     out = []
-    for args, kwargs in calls:
-        slots = args[ROUND_KERNELS[kernel][2]]
-        _, leaf = d(*args, **kwargs)
+    for d, args, kwargs in calls:
+        slots = args[at_slots]
+        leaf = d(*args, **kwargs)[1] if at_leaf is None else args[at_leaf]
         hits = (leaf[None, :] == slots[:, None]) & (slots[:, None] >= 0)
         per = hits.sum(1)
         landed = int(per.sum())
         ms = cs.time_ms(lambda: d(*args, **kwargs), torch.device("cuda"),
                         reps)
+        dms = cs.device_ms(lambda: d(*args, **kwargs), reps)
         out.append(dict(W=int(slots.shape[0]), landed=landed,
-                        top_share=int(per.max()) / max(landed, 1), ms=ms))
+                        top_share=int(per.max()) / max(landed, 1), ms=ms,
+                        device_ms=dms))
     return out
 
 
@@ -241,19 +303,23 @@ def rounds_main(parent: str, card: str) -> int:
         if any(len(r) != len(par[0]) for r in par + chg):
             print("the trees ran different rounds", file=sys.stderr)
             return 1
-        for i, c in enumerate(chg[0]):
-            p = [r[i]["ms"] for r in par]
-            m = [r[i]["ms"] for r in chg]
-            print(f"{i:>5} {c['W']:>4} {c['landed']:>8} "
-                  f"{c['top_share']:>8.3f} {p[0]:>10.4f} {p[1]:>10.4f}  "
-                  f"{m[0]:>10.4f} {m[1]:>10.4f}  "
-                  f"{np.mean(m) / np.mean(p):.3f}")
-        sums = {lab: [sum(x["ms"] for x in r) for r in rs]
-                for lab, rs in (("parent", par), ("change", chg))}
-        print(f"kernel {kernel} per tree: parent "
-              + ", ".join(f"{x:.4f}" for x in sums["parent"])
-              + " ms; change " + ", ".join(f"{x:.4f}" for x in sums["change"])
-              + f" ms ({card})")
+        for key in ("ms", "device_ms"):
+            print(f"{key}: CUDA events around each launch" if key == "ms"
+                  else f"{key}: device time a launch (profiler)")
+            for i, c in enumerate(chg[0]):
+                p = [r[i][key] for r in par]
+                m = [r[i][key] for r in chg]
+                print(f"{i:>5} {c['W']:>4} {c['landed']:>8} "
+                      f"{c['top_share']:>8.3f} {p[0]:>10.4f} {p[1]:>10.4f}  "
+                      f"{m[0]:>10.4f} {m[1]:>10.4f}  "
+                      f"{np.mean(m) / np.mean(p):.3f}")
+            sums = {lab: [sum(x[key] for x in r) for r in rs]
+                    for lab, rs in (("parent", par), ("change", chg))}
+            print(f"kernel {kernel} per tree ({key}): parent "
+                  + ", ".join(f"{x:.4f}" for x in sums["parent"])
+                  + " ms; change "
+                  + ", ".join(f"{x:.4f}" for x in sums["change"])
+                  + f" ms ({card})")
         record[kernel] = dict(plan=plan, parent=par, change=chg, sums=sums)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "hist_ab_rounds.json"),
@@ -275,8 +341,8 @@ def main(argv) -> int:
         X, y, _ = _chip_smoke().make_data(1_000_000, 28, seed=7)
         out = {}
         for kernel in ROUND_KERNELS:
-            d, calls = capture_rounds(root, kernel, X, y)
-            out[kernel] = time_rounds(kernel, d, calls, 10)
+            calls = capture_rounds(root, kernel, X, y)
+            out[kernel] = time_rounds(kernel, calls, 10)
         print(json.dumps(out))
         return 0
     if "--parent" not in argv:

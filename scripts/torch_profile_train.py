@@ -3,6 +3,7 @@
 
     python3 scripts/torch_profile_train.py [--rows N] [--trees T]
                                            [--plan PLAN] [--parent DIR]
+                                           [--root DIR]
 
 Trains chip_smoke.py's workload (its make_data 1,000,000 x 28 binary
 task and its BENCH_PARAMS: 255 leaves, max_bin 63) with
@@ -14,22 +15,26 @@ warm-up trees, then T trees under torch.profiler.  Prints the card
 device-kernel time per tree and the device idle share of the profiled
 window, each hand-written kernel's launches and mean device ms per
 launch, on seg_tiled the leaf partition's device time per round and
-its share of the device time, the top CUDA kernels and host operators
-by time, and writes the full table to
+its share of the device time, the CUDA launches per tree (device
+kernels, and memory copies and sets, from the profile), the top CUDA
+kernels and host operators by time, and writes the full table to
 chiprun_out/torch_profile_train.txt.  On fused_tiled it also prints
-kernel A's mean device ms per call: its routing launch plus its
-histogram launches.
+kernel A's mean device ms per call (its routing launch plus its
+histogram launches), on q_onthefly and pallas(quantized) kernel I's
+(its histogram launch plus the copies' sum).
 
 With --parent DIR (another tree, e.g. ``git archive <commit>`` unpacked
 into build/ab_parent) it profiles that tree and this one in turns
-(other, this, this, other), each by its own copy of this script in its
-own process, and prints each run's summary lines (wall, device time,
-each kernel's mean ms per launch).
+(other, this, this, other), each by this script in its own process
+that imports lightgbm_tpu_torch from that tree (--root), and prints
+each run's summary lines (wall, device time, launches per tree, each
+kernel's mean ms per launch).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,18 +61,21 @@ PLANS = {
     "pallas_paired": dict(_F32, hist_kernel="paired"),
     "xla": {"quantized_grad": None, "hist_compute_dtype": None},
 }
-#: hand-written kernel (the kernels it serves) -> its CUDA symbol
+#: hand-written kernel (the kernels it serves) -> a pattern of its CUDA
+#: symbol (re.search)
 KERNEL_SYMBOLS = {
-    "hist_i32 (A, G)": "hist_i32_kernel",
-    "sum_copies (A's and G's copies)": "sum_copies_kernel",
+    "hist_i32, transposed (A, G)": r"hist_i32_kernel<\d+(, false)?>",
+    "hist_i32, row-major (I)": r"hist_i32_kernel<\d+, true>",
+    "sum_copies (A's, G's and I's copies)": "sum_copies_kernel",
     "routing_pass (A's routing)": "routing_pass_kernel",
-    "route (B, H)": "route_kernel",
+    "route_value (B)": "route_value_kernel",
+    "route (H; B's first design)": r"\broute_kernel",
     "predict_level (C)": "predict_level_kernel",
     "hist_f64, one-hot rows (D, E)": "hist_f64_kernel<true",
     "route_rows (D's routing)": "route_rows_kernel",
     "hist_f64, rows of bins (F, K)": "hist_f64_kernel<false",
     "onehot_hist_q (D, E with int8 weights)": "onehot_hist_q_kernel",
-    "bins_hist_q (I)": "bins_hist_q_kernel",
+    "bins_hist_q (I's first design)": "bins_hist_q_kernel",
     "seg_hist (J)": "seg_hist_kernel",
 }
 
@@ -95,24 +103,22 @@ def _device_us(prof):
 
 def in_turns(parent: str, argv) -> int:
     """Profile the tree at ``parent`` and this one in turns (other, this,
-    this, other), each by its own copy of this script; print each run's
-    summary lines."""
+    this, other), each in its own process; print each run's summary
+    lines."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     rest = [a for i, a in enumerate(argv) if a != "--parent"
             and (i == 0 or argv[i - 1] != "--parent")]
     for label, root in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        script = os.path.join(os.path.abspath(root), "scripts",
-                              "torch_profile_train.py")
-        r = subprocess.run([sys.executable, script, *rest],
-                           capture_output=True, text=True,
-                           cwd=os.path.abspath(root))
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            *rest, "--root", os.path.abspath(root)],
+                           capture_output=True, text=True, cwd=here)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
             return 1
         for line in r.stdout.splitlines():
             if line.startswith(("card:", "plan:", "wall ", "kernel ",
-                                "leaf partition")):
+                                "leaf partition", "launches:")):
                 print(f"[{label}] {line}")
     return 0
 
@@ -123,13 +129,21 @@ def main() -> int:
     ap.add_argument("--trees", type=int, default=5)
     ap.add_argument("--plan", choices=sorted(PLANS), default="fused_tiled")
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--root", default=None,
+                    help="import lightgbm_tpu_torch from this tree")
     args = ap.parse_args()
     if args.parent is not None:
         return in_turns(args.parent, sys.argv[1:])
+    if args.root is not None:
+        sys.path.insert(0, os.path.abspath(args.root))
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import lightgbm_tpu_torch as lgb
+    if args.root is not None and not os.path.abspath(lgb.__file__).startswith(
+            os.path.abspath(args.root)):
+        raise RuntimeError(f"imported {lgb.__file__}, not the tree at "
+                           f"{args.root}")
     from lightgbm_tpu_torch.boosting import create_boosting
     from lightgbm_tpu_torch.learner.grower import TreeGrower
 
@@ -175,29 +189,38 @@ def main() -> int:
     print(f"wall {wall_ms:.1f} ms/tree (under the profiler); device "
           f"kernels {dev_ms:.2f} ms/tree; device idle share "
           f"{1 - dev_ms / wall_ms:.3f} ({card})")
+    mem = sum(e.count for e in dev_events
+              if e.key.startswith(("Memcpy", "Memset")))
+    kern = sum(e.count for e in dev_events) - mem
+    print(f"launches: {kern / args.trees:.1f} device kernels and "
+          f"{mem / args.trees:.1f} memory copies or sets per tree "
+          f"({card})")
     per_symbol = {}
     for label, sym in KERNEL_SYMBOLS.items():
-        hits = [e for e in dev_events if sym in e.key]
+        hits = [e for e in dev_events if re.search(sym, e.key)]
         n = sum(e.count for e in hits)
         if n:
             us = sum(_dev_time(e) for e in hits)
-            per_symbol[sym] = (n, us)
+            per_symbol[label] = (n, us)
             print(f"kernel {label}: {n} launches in {args.trees} trees, "
                   f"mean {us / 1e3 / n:.4f} ms per launch, "
                   f"{us / 1e3 / args.trees / dev_ms:.3f} of device time "
                   f"({card})")
-    parts = [per_symbol.get(k) for k in ("routing_pass_kernel",
-                                         "hist_i32_kernel",
-                                         "sum_copies_kernel")]
-    if plan == "fused_tiled" and all(parts):
-        # one call of kernel A: its routing launch, the histogram and the
-        # sum of the copies
-        calls = parts[0][0]
-        us = sum(u for _, u in parts)
-        print(f"kernel A (routing + histogram + copies' sum): {calls} calls "
-              f"in {args.trees} trees, mean {us / 1e3 / calls:.4f} ms per "
-              f"call, {us / 1e3 / args.trees / dev_ms:.3f} of device time "
-              f"({card})")
+    labels = list(KERNEL_SYMBOLS)
+    for name, plans, keys in (
+            ("A (routing + histogram + copies' sum)", ("fused_tiled",),
+             ("routing_pass (A's routing)", labels[0], labels[2])),
+            ("I (histogram + copies' sum)",
+             ("q_onthefly", "pallas(quantized)"), (labels[1], labels[2]))):
+        parts = [per_symbol.get(k) for k in keys]
+        if plan in plans and all(parts):
+            # one call: its first launch's count, every launch's time
+            calls = parts[0][0]
+            us = sum(u for _, u in parts)
+            print(f"kernel {name}: {calls} calls in {args.trees} trees, mean "
+                  f"{us / 1e3 / calls:.4f} ms per call, "
+                  f"{us / 1e3 / args.trees / dev_ms:.3f} of device time "
+                  f"({card})")
     if counted.calls:
         # the partition of one round (the last profiled one), alone
         grower = gbdt.grower

@@ -11,10 +11,12 @@
    counts, for every kernel function, its shared CAS loops, shared
    atomics and other atomics (global, or generic where the compiler
    cannot tell a pointer's space, e.g. across a call).
-3. Checks that the int32 histogram of kernels A and G
-   (fused_route_hist.cu with hist_i32.cuh) compiles to no shared
+3. Checks that the int32 histogram (hist_i32.cuh) compiles to no shared
    compare-and-swap loop (ATOMS.CAST.SPIN) and that its shared adds are
-   native ATOMS.ADD; exits 1 otherwise.
+   native ATOMS.ADD, in both libraries that hold it: fused_route_hist.cu
+   (kernels A and G, the transposed layout) and bins_hist.cu (kernel I,
+   the row-major layout, beside kernels F and K, whose whole library
+   must hold no shared CAS loop either); exits 1 otherwise.
 
 Needs nvcc and cuobjdump (the CUDA toolkit), no card.  Output goes to
 standard output and chiprun_out/sass_atomics.txt (the full listing).
@@ -88,7 +90,10 @@ def main() -> int:
     libs = sorted(set(kernels.build_kernels().values()))
     print("kernel functions: shared CAS loops / shared atomics / global "
           "or generic atomics")
-    i32 = {"cas": 0, "adds": 0}
+    # library prefix -> its shared CAS loops and the int32 histogram's
+    # native shared adds
+    i32 = {p: {"cas": 0, "adds": 0} for p in ("libfused_route_hist_",
+                                               "libbins_hist_")}
     for lib in libs:
         funcs, text = sass_by_function(lib)
         listing.append(text)
@@ -98,16 +103,25 @@ def main() -> int:
             glob = sum(not o.startswith("ATOMS") for o in ops)
             print(f"  {os.path.basename(lib)} {name}: {cas} / {shared} / "
                   f"{glob}  ({', '.join(sorted(set(ops))) or '-'})")
-            if os.path.basename(lib).startswith("libfused_route_hist_"):
-                i32["cas"] += cas
-                i32["adds"] += sum(o.startswith("ATOMS.ADD") for o in ops)
+            for prefix, c in i32.items():
+                if os.path.basename(lib).startswith(prefix):
+                    c["cas"] += cas
+                    if "hist_i32_kernel" in name:
+                        c["adds"] += sum(o.startswith("ATOMS.ADD")
+                                         for o in ops)
     with open(os.path.join(ROOT, "chiprun_out", "sass_atomics.txt"),
               "w") as fh:
         fh.write("\n".join(listing))
-    ok = i32["cas"] == 0 and i32["adds"] > 0
-    print(f"fused_route_hist.cu (kernels A, G): {i32['cas']} shared CAS "
-          f"loops (0 expected), {i32['adds']} native shared ATOMS.ADD: "
-          f"{'ok' if ok else 'FAILED'}")
+    ok = True
+    for (prefix, c), what in zip(i32.items(), ("fused_route_hist.cu "
+                                               "(kernels A, G)",
+                                               "bins_hist.cu (kernel I; "
+                                               "F, K)")):
+        good = c["cas"] == 0 and c["adds"] > 0
+        ok &= good
+        print(f"{what}: {c['cas']} shared CAS loops (0 expected), "
+              f"{c['adds']} native shared ATOMS.ADD in the int32 "
+              f"histogram: {'ok' if good else 'FAILED'}")
     return 0 if ok else 1
 
 

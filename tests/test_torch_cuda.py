@@ -122,6 +122,55 @@ def test_route_apply_kernel_matches_plain(dev):
     assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
 
 
+#: f32 leaf values at the edges of kernel B's in-kernel bf16 split: signed
+#: zeros, subnormals, values near 2^-100 and 2^100, values whose low 16
+#: mantissa bits are all set or all clear
+EDGE_VALUES = np.array(
+    [0.0, -0.0, 1e-45, -1e-45, 1.17e-38, -5.9e-39, 2.0 ** -100,
+     -(2.0 ** -100) * 1.2345678, 2.0 ** 100, -(2.0 ** 100) * 1.9999999,
+     1.0, -1.0, 3.1415927, 1.0000001, -0.33333334, 65535.996, 6.1e-5],
+    dtype=np.float32)
+ROUTE_APPLY_CASES = ["right children in the table", "odd rows",
+                     "edge values", "leaf ids past the table",
+                     "no splitting leaf", "values past shared memory"]
+
+
+@pytest.mark.parametrize("case", ROUTE_APPLY_CASES)
+def test_route_apply_kernel_cases(dev, case):
+    """Kernel B (one launch that derives each leaf's keep and
+    right-child values from the (L,) values) against its plain version
+    (the six bf16-split table columns): leaf ids and the values' bits.
+    _inputs' table mixes numerical splits (NaN and zero missing types)
+    and categorical ones, non-splitting leaves and 5% negative leaves."""
+    L = 7000 if case == "values past shared memory" else 48
+    N = 5001 if case == "odd rows" else 5000
+    (binsT, _, leaf, tab, _), _ = _inputs(dev, N=N, L=L)
+    rng = np.random.RandomState(3)
+    if case != "leaf ids past the table":     # right children below L
+        rs = torch.from_numpy(rng.randint(0, L, L)).to(dev)
+        tab[:, 8], tab[:, 9] = (rs // 256).float(), (rs % 256).float()
+    if case == "leaf ids past the table":
+        leaf = torch.where(torch.from_numpy(rng.rand(N) < 0.2).to(dev),
+                           leaf + L, leaf).to(torch.int32)
+    if case == "no splitting leaf":
+        tab[:, 10] = 0
+    vals = rng.randn(L).astype(np.float32) * np.float32(2.0) ** rng.randint(
+        -30, 30, L)
+    if case == "edge values":
+        vals[:len(EDGE_VALUES)] = EDGE_VALUES
+        vals[len(EDGE_VALUES):] = rng.choice(EDGE_VALUES,
+                                             L - len(EDGE_VALUES))
+    vals = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    n0 = kernels.LAUNCHES["route_apply"]
+    lk, vk = H.route_apply_tiled(binsT, leaf, tab, vals)
+    lp, vp = H.route_apply_plain(binsT, leaf, tab, vals)
+    assert kernels.LAUNCHES["route_apply"] == n0 + 1
+    assert torch.equal(lk, lp)
+    assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+    moved = bool((lk != leaf).any())
+    assert moved == (case != "no splitting leaf")
+
+
 def test_predict_level_kernel_matches_plain(dev):
     rng = np.random.RandomState(2)
     t = Tree(4)
@@ -511,7 +560,51 @@ def test_i32_kernel_matches_plain(dev, entry, case):
     assert bool(hk[..., 2].sum() > 0) != empty
 
 
-@pytest.mark.parametrize("entry", ["fused_route_hist", "tiled_hist"])
+#: kernel I's cases: A's and G's, then every one of 255 leaves as a slot,
+#: and row-major pointers not aligned for 4 rows a thread
+I_CASES = I32_CASES + ["W=255 every leaf", "unaligned pointers"]
+
+
+@pytest.mark.parametrize("case", I_CASES)
+@pytest.mark.parametrize("entry", ["bins_hist_q", "bins_hist_q_packed"])
+def test_i_kernel_matches_plain(dev, entry, case):
+    """Kernel I: the same histogram on the row-major bins (N, G) and
+    weights (N, 3) through either entry point, bit for bit."""
+    binsT, wT, leaf, _, slots, B = _i32_inputs(
+        dev, "W=126" if case in ("W=255 every leaf", "unaligned pointers")
+        else case)
+    G, N = binsT.shape
+    bins, wq = binsT.t().contiguous(), wT.t().contiguous()
+    if case == "W=255 every leaf":
+        g = torch.Generator().manual_seed(4)
+        leaf = torch.where(leaf >= 0, torch.randint(
+            0, 255, (N,), generator=g).to(dev), -1).to(torch.int32)
+        slots = torch.arange(255, dtype=torch.int32, device=dev)
+    if case == "unaligned pointers":           # views one element in
+        b1 = torch.empty(N * G + 1, dtype=torch.uint8, device=dev)
+        b1[1:] = bins.reshape(-1)
+        bins = b1[1:].view(N, G)
+        w1 = torch.empty(N * 3 + 1, dtype=torch.int32, device=dev)
+        w1[1:] = wq.reshape(-1)
+        wq = w1[1:].view(N, 3)
+    plan = H.frontier_hist_plan(N, slots.shape[0], G, B,
+                                aligned=H.i32_aligned(bins, wq, leaf))
+    if case.startswith("B=255"):
+        assert plan.grid[2] > 1                 # the slot-chunk path
+    four = not (case.startswith("odd") or case == "unaligned pointers")
+    assert plan.rows_per_thread == (4 if four else 1)
+    n0 = kernels.LAUNCHES[entry]
+    hk = getattr(H, entry)(bins, wq, leaf, slots, B)
+    hp = H.bins_hist_plain(bins, wq, leaf, slots, B)
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    assert hk.dtype == torch.int32 and hk.shape == (slots.shape[0], G, B, 3)
+    assert torch.equal(hk, hp)
+    empty = case in ("W=0", "all negative")
+    assert bool(hk[..., 2].sum() > 0) != empty
+
+
+@pytest.mark.parametrize("entry", ["fused_route_hist", "tiled_hist",
+                                   "bins_hist_q", "bins_hist_q_packed"])
 def test_i32_first_round_repeats_bit_identical(dev, entry):
     """1,000,000 rows of 28 groups in one slot, the bench's first round:
     every CTA adds into the same bins and flushes into the same 5,292
@@ -528,12 +621,16 @@ def test_i32_first_round_repeats_bit_identical(dev, entry):
     wT = wq.t().contiguous()
     slots = torch.zeros(1, dtype=torch.int32, device=dev)
     tab = torch.zeros((4, 16), dtype=torch.float32, device=dev)
+    bins, wq = binsT.t().contiguous(), wq.contiguous()
     if entry == "fused_route_hist":
         def run():
             return H.fused_route_hist(binsT, wT, leaf, tab, slots, B)[0]
-    else:
+    elif entry == "tiled_hist":
         def run():
             return H.tiled_hist(binsT, wT, leaf, slots, B)
+    else:
+        def run():
+            return getattr(H, entry)(bins, wq, leaf, slots, B)
     first = run()
     for _ in range(20):
         assert torch.equal(run(), first)

@@ -10,6 +10,7 @@ than an H100 CTA may use, every (slot, group) pair and every row covered
 exactly once, and the same plan for the same shapes."""
 import numpy as np
 import pytest
+import torch
 
 from lightgbm_tpu_torch.ops import histogram as H
 
@@ -325,3 +326,93 @@ def test_i32_plan_is_the_same_for_the_same_shapes():
             p.slots_per_cta, p.groups_per_cta, p.table, *p.grid, p.threads,
             p.rows_per_thread, p.off_slots, p.off_next, p.off_far, p.off_head, p.off_nfar,
             p.smem_bytes)
+
+
+# ---------------------------------------------------------------------------
+# Kernel I: the same int32 histogram on the row-major bins and weights.
+# The plan is the same for both layouts; 4 rows a thread only where N % 4
+# == 0 and the pointers are aligned (ops/histogram.py i32_aligned)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B", I32_BINS)
+def test_i32_row_major_plan_fits_and_covers_every_slot_and_group(B):
+    """Every W from 0 to 255 at the bench's 28 groups, aligned or not:
+    the carve-up within one CTA's shared memory, every (slot, group)
+    pair in exactly one chunk, and the plan that decides 4 rows a thread
+    otherwise the one of A and G."""
+    for W in range(0, 256):
+        for aligned in (True, False):
+            p = H.frontier_hist_plan(1_000_000, W, 28, B, aligned=aligned)
+            where = (W, B, aligned, p)
+            assert p.smem_bytes <= H.SMEM_PER_CTA, where
+            assert p.slots_per_cta * p.groups_per_cta * B * 12 \
+                <= p.off_slots, where
+            assert p.rows_per_thread == (4 if aligned else 1), where
+            if W == 0:
+                assert p.grid == (1, 1, 1), where
+                continue
+            gx, gy, gz = p.grid
+            S, gc = p.slots_per_cta, p.groups_per_cta
+            seen = np.zeros((W, 28), np.int32)
+            for y in range(gy):
+                for z in range(gz):
+                    seen[z * S:min(W, z * S + S),
+                         y * gc:min(28, y * gc + gc)] += 1
+            assert (seen == 1).all(), where
+            same = H.frontier_hist_plan(1_000_000, W, 28, B)
+            assert p._replace(rows_per_thread=4, grid=same.grid) == same
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", [1, 7, 511, 512, 513, 2048, 5000, 20482,
+                               1_000_000])
+def test_i32_row_major_plan_covers_each_row_once(n, aligned):
+    """A thread takes the run of V rows from (x * threads + t) * V, then
+    every gx * threads * V rows: the gx CTAs of a chunk take every row
+    once, with V = 4 only where N % 4 == 0 and the pointers are aligned
+    (row-major, the 4 rows' leaf ids are one int4 and their 12 weights
+    three; each row's bins are cut from the aligned words that cover
+    them, which lie inside the (N, G) matrix when N % 4 == 0)."""
+    for W in (1, 42, 126, 255):
+        p = H.frontier_hist_plan(n, W, 28, 63, aligned=aligned)
+        gx, T, V = p.grid[0], p.threads, p.rows_per_thread
+        assert V == (4 if n % 4 == 0 and aligned else 1), (n, W, p)
+        assert gx <= -(-n // (T * V)), (n, W, p)
+        if n > 20482:
+            continue
+        starts = np.concatenate([np.arange((x * T + t) * V, n, gx * T * V)
+                                 for x in range(gx) for t in range(T)])
+        rows = (starts[:, None] + np.arange(V)[None, :]).ravel()
+        rows = rows[rows < n]
+        assert np.array_equal(np.sort(rows), np.arange(n)), (n, W)
+
+
+def test_i32_plan_over_every_leaf():
+    """compute_group_histograms_pallas_q with slots=None: one slot per
+    leaf, W = 255 at the bench shape.  One group of all 255 slots of 63
+    bins (192,780 B of histogram) still fits one CTA, so 28 group chunks
+    of one group over every slot and no slot chunk; 255 bins split the
+    slots."""
+    p = H.frontier_hist_plan(1_000_000, 255, 28, 63)
+    assert (p.slots_per_cta, p.groups_per_cta) == (255, 1)
+    assert p.grid[1:] == (28, 1) and p.smem_bytes <= H.SMEM_PER_CTA
+    assert p.grid[0] == H.H100_SMS // 28
+    wide = H.frontier_hist_plan(1_000_000, 255, 28, 255)
+    assert wide.groups_per_cta == 1 and wide.grid[2] > 1
+    assert wide.slots_per_cta * wide.grid[2] >= 255
+
+
+def test_i32_aligned_reads_the_pointers():
+    """Fresh tensors are aligned; a view one element into its storage
+    is not, whichever of the three it is."""
+    bins = torch.zeros((64, 28), dtype=torch.uint8)
+    w = torch.zeros((64, 3), dtype=torch.int32)
+    leaf = torch.zeros(64, dtype=torch.int32)
+    assert H.i32_aligned(bins, w, leaf)
+    assert H.i32_aligned(bins.t().contiguous(), w.t().contiguous(), leaf)
+    b1 = torch.zeros(64 * 28 + 4, dtype=torch.uint8)
+    w1 = torch.zeros(64 * 3 + 4, dtype=torch.int32)
+    l1 = torch.zeros(64 + 4, dtype=torch.int32)
+    assert H.i32_aligned(b1[4:].view(64, 28), w1[4:].view(64, 3), l1[4:])
+    assert not H.i32_aligned(b1[1:65 * 28 - 27].view(64, 28), w, leaf)
+    assert not H.i32_aligned(bins, w1[1:193].view(64, 3), leaf)
+    assert not H.i32_aligned(bins, w, l1[2:66])
