@@ -32,8 +32,11 @@ Phases, in order; any failure exits nonzero:
      bytes per CTA); A, G and I are also held and timed on a tree's
      first round over the bench's own binned rows (make_data's quantile
      bins, not uniform ones) with its first-round weights, beside one
-     torch._int_mm of that histogram; kernel B is timed as its
-     wrapper's call and as its one launch alone;
+     torch._int_mm of that histogram; kernels B and H are timed as
+     their wrappers' calls and as their one launch alone, by CUDA events
+     and by the profiler's device time; J (with its run-plan geometry)
+     by both too; H's bound also with every 32-byte bin sector its
+     routed rows touch read whole;
   3. train through lgb.train at the bench shape (1,000,000 x 28
      synthetic binary task, 255 leaves, max_bin 63) on the card, each
      run with the launch counters zeroed just before it and read just
@@ -64,6 +67,7 @@ prints no result and exits nonzero.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -141,25 +145,41 @@ def time_ms(fn, dev, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, split: bool = False):
     """Mean device milliseconds of one call of ``fn``: the summed time of
     the device work (kernels, memory sets and copies) its ``reps`` calls
     put on the card, from torch.profiler, without the host's time between
     them.  A call whose host work outlasts its device work shows less
-    here than between two CUDA events."""
+    here than between two CUDA events.  With ``split``, {device event
+    name: mean ms a call} instead.  A profiling session that recorded no
+    device event (seen once on the card) is repeated, up to three; if
+    all three record none, None (not measured), never 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                           # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if getattr(e.device_type, "name", "") == "CUDA")
-    return us / 1e3 / reps
+    per = {}
+    for _ in range(3):      # a session that recorded no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+               / 1e3 / reps
+               for e in prof.key_averages()
+               if getattr(e.device_type, "name", "") == "CUDA"}
+        if per:
+            return per if split else sum(per.values())
+    return None
+
+
+def kernel_name(key: str) -> str:
+    """The function name in a profiler event's demangled signature
+    ("void (anonymous namespace)::seg_plan_kernel(int const*, ...)" ->
+    "seg_plan_kernel"); other events as they are."""
+    m = re.search(r"(\w+)(?:<[^>]*>)?\(", key)
+    return m.group(1) if m else key
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +253,21 @@ def split_rows(leaf, table) -> int:
     L = table.shape[0]
     ok = (leaf >= 0) & (leaf < L)
     return int((ok & (table[leaf.clamp(0, L - 1).long(), 10] > 0.5)).sum())
+
+
+def bin_sectors(leaf, table, n) -> int:
+    """The 32-byte sectors of the (G, n) bins that the routing reads:
+    one per distinct (chosen group, row // 32) of the rows whose leaf
+    splits (neighbouring rows of leaves that split on different groups
+    read different sectors)."""
+    import torch
+    L = table.shape[0]
+    lf = leaf.clamp(0, L - 1).long()
+    ok = (leaf >= 0) & (leaf < L) & (table[lf, 10] > 0.5)
+    grp = (table[lf, 0] * 256 + table[lf, 1]).long()
+    row = torch.arange(n, device=leaf.device)
+    addr = (grp * n + row)[ok]
+    return int(torch.unique(addr // 32).numel())
 
 
 def check_kernels(dev, n, rehearse, card):
@@ -826,6 +861,12 @@ def check_quant_kernels(dev, n, rehearse, card):
         err = hold_hist(f"seg_hist {label}", H.seg_hist(*args),
                         H.seg_hist_plain(*args), None)
         ms = time_ms(lambda: H.seg_hist(*args), dev, reps)
+        parts = (device_ms(lambda: H.seg_hist(*args), reps, split=True)
+                 if dev.type == "cuda" else None) or {}
+        dms = sum(parts.values()) if parts else None
+        # each launch's share: the zero fill, the run plan, the histogram
+        launch_ms = ", ".join(
+            f"{kernel_name(k)} {v:.4f}" for k, v in parts.items())
         plain_ms = time_ms(lambda: H.seg_hist_plain(*args), dev, 3)
         hit = int(torch.isin(lf, slots).sum())
         live = int(((blk_slot >= 0) & (blk_slot < slots.shape[0])).sum())
@@ -844,6 +885,21 @@ def check_quant_kernels(dev, n, rehearse, card):
         tag = "" if main else "_" + label.replace(" (W=1)", "").replace(
             " ", "_")
         out["seg_hist"][f"partition_ms{tag}"] = part_ms
+        out["seg_hist"][f"device_ms{tag}"] = dms
+        sms = H._num_sms(dev.index or 0) if dev.type == "cuda" \
+            else H.H100_SMS
+        p = H.seg_hist_plan(binsT_p.shape[1], G, B, slots.shape[0], sms)
+        runs = H.seg_runs(blk_slot, slots.shape[0], p.ctas,
+                          H.SEG_BLOCK // p.rows_per_thread)[-1]
+        print(f"[phase 2] seg_hist {label}: "
+              f"{'not measured' if dms is None else f'{dms:.4f} ms'} of "
+              f"device time a call (profiler: {launch_ms or 'no launch'}); "
+              f"geometry: a grid of {p.ctas} x {p.grid_y} CTAs sharing "
+              f"the live rows, {runs.shape[0]} runs (one atomic flush "
+              f"each), {p.slots_per_cta} slots' histograms a CTA at once, "
+              f"{p.groups_per_cta} groups per CTA, {p.threads} threads, "
+              f"{p.rows_per_thread} rows an item, {p.smem_bytes} B of "
+              f"shared memory per CTA ({card})")
         del binsT_p, wT_p
     del binsT_x, wqT_x
     # ---- kernel H: a pending table, and the zero table of a tree's
@@ -859,19 +915,46 @@ def check_quant_kernels(dev, n, rehearse, card):
             continue
         ms = time_ms(lambda: H.route_only_tiled(binsT, leaf, table), dev,
                      reps)
+        h_launch = h_device = h_launch_device = None  # not on the CPU
+        if dev.type == "cuda":
+            from lightgbm_tpu_torch.ops import kernels
+            args = (binsT.data_ptr(), leaf.data_ptr(), table.data_ptr(),
+                    l_k.data_ptr(), n, G, L, table.shape[1],
+                    H._num_sms(dev.index or 0))
+            h_launch = time_ms(lambda: kernels.launch("route_only", *args),
+                               dev, reps)
+            h_launch_device = device_ms(
+                lambda: kernels.launch("route_only", *args), reps)
+            h_device = device_ms(lambda: H.route_only_tiled(
+                binsT, leaf, table), reps)
         plain_ms = time_ms(lambda: H.route_only_plain(binsT, leaf, table),
                            dev, 3)
         # leaf ids in and out, the chosen group's bin for rows of
         # splitting leaves, the table
         bound = ((8 * n + split_rows(leaf, table) + table.numel() * 4)
                  / MEM_BYTES_PER_S * 1e3)
+        # the same with each 32-byte sector of bins that those rows'
+        # bytes lie in read whole
+        sectors = bin_sectors(leaf, table, n)
+        bound_sec = ((8 * n + 32 * sectors + table.numel() * 4)
+                     / MEM_BYTES_PER_S * 1e3)
         moved = int((l_k != leaf).sum())
-        print(f"[phase 2] route_only: {ms:.4f} ms (bound {bound:.4f} ms, "
-              f"bytes; plain {plain_ms:.3f} ms; {moved} of {n} rows moved;"
-              f" {card})")
+        def fmt(x):
+            return "not measured" if x is None else f"{x:.4f} ms"
+        print(f"[phase 2] route_only: {ms:.4f} ms the call, "
+              f"{fmt(h_launch)} its launch (CUDA events around each), "
+              f"{fmt(h_device)} of device time a call and "
+              f"{fmt(h_launch_device)} a launch (profiler) (bound "
+              f"{bound:.4f} ms, bytes; {bound_sec:.4f} ms counting the "
+              f"{sectors} 32-byte bin sectors the routed rows touch; "
+              f"plain {plain_ms:.3f} ms; {moved} of {n} rows moved; "
+              f"{card})")
         out["route_only"] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound, bound_by="bytes",
-                                 library_ms=None)
+                                 library_ms=None, launch_ms=h_launch,
+                                 device_ms=h_device,
+                                 launch_device_ms=h_launch_device,
+                                 bound_ms_sectors=bound_sec)
     del oh
     return out
 

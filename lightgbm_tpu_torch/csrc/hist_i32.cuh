@@ -2,7 +2,8 @@
 // weights, shared by kernels A (fused_route_hist.cu, after its routing
 // launch) and G (the same histogram without routing), which read the
 // transposed bins and weights, and kernel I (bins_hist.cu), which reads
-// the row-major ones.
+// the row-major ones.  Kernel J (seg_hist.cu) takes its transposed
+// loads and its adds for a CTA of one slot.
 //
 // The function: hist (W, G, B, 3) int32, where slot position s holds the
 // sums of (w0, w1, w2) of the rows whose leaf id equals slots[s], at
@@ -307,6 +308,27 @@ __device__ __forceinline__ void add_tile4(const Slots& sl, int q, int k,
       if (w1) atomicAdd(c + 1, w1);
       if (w2) atomicAdd(c + 2, w2);
     }
+  }
+}
+
+// Add row k's bins of one tile into the (gcn, B, 3) histogram at ``h``:
+// add_tile4's body for one slot (kernel J, whose rows each have one).
+// add_tile4 keeps its own copy: calling this from it made A and G
+// 1.3-1.9% slower by device time on an H100 in two paired runs
+// (scripts/torch_hist_ab.py), where D, whose code is apart, moved
+// 0.7-0.9%.
+__device__ __forceinline__ void add_tile_row(int32_t* h, int k,
+                                             const uint32_t* word, int gt,
+                                             int gcn, int B, int32_t w0,
+                                             int32_t w1, int32_t w2) {
+#pragma unroll
+  for (int j = 0; j < kGroupTile; ++j) {
+    const int bin = (int)((word[j] >> (8 * k)) & 0xffu);
+    if (gt + j >= gcn || bin >= B) continue;
+    int32_t* c = h + ((gt + j) * B + bin) * 3;
+    if (w0) atomicAdd(c, w0);
+    if (w1) atomicAdd(c + 1, w1);
+    if (w2) atomicAdd(c + 2, w2);
   }
 }
 

@@ -34,13 +34,19 @@
 // table stays in cache.  No atomics: each row's outputs are written by
 // its own thread, so the result does not depend on the schedule.
 //
-// Design of B: one launch.  A grid of a few CTAs an SM strides over the
-// rows; each CTA first builds every leaf's (keep, right) value pair in
-// shared memory (L * 8 bytes; past 48 KB each row derives its pair from
-// the values instead), then a thread takes 4 rows at a time
-// (int4 leaf ids in and out, a float4 of values out) where n % 4 == 0
-// and the pointers are aligned, else one.  H keeps its first design: one
-// thread per row in 256-thread CTAs.
+// Design: one template, one launch each.  A grid of a few CTAs an SM
+// strides over the rows; a thread takes 4 rows at a time (int4 leaf ids
+// in and out, for B a float4 of values out) where n % 4 == 0 and the
+// pointers are aligned, else one.  Each CTA first decodes every leaf's
+// route row into a 32-byte record in shared memory (csrc/route.cuh
+// ltt_route_rec: a row then reads two int4 of shared memory, not ~10
+// table words, and a thread issues its 4 rows' bin loads together) and,
+// with its values on (B), builds every leaf's (keep, right) value pair
+// beside it.  Past 48 KB of records (1,536 leaves for H, 1,228 for B
+// with its pairs) each row reads the table instead; B keeps its value
+// pairs in shared memory up to 6,144 leaves, and past that each row
+// builds its own.  With the values off (H) there is no value pair and no
+// value store.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -50,24 +56,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-// CTAs an SM of kernel B's grid (all of its 2048 threads)
+// CTAs an SM of the grid (all of its 2048 threads)
 constexpr int kCtasPerSm = 8;
-// the most leaves whose value pairs B keeps in shared memory (48 KB,
-// the dynamic size a launch may take without opting in)
-constexpr int kSharedLeaves = 48 * 1024 / 8;
-
-// Kernel H: one thread a row.
-__global__ void route_kernel(const uint8_t* __restrict__ binsT,
-                             const int32_t* __restrict__ leaf_in,
-                             const float* __restrict__ table,
-                             int32_t* __restrict__ leaf_out, int64_t n,
-                             int G, int L, int K) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  bool went_right;
-  leaf_out[row] = ltt_route_row(binsT, n, row, G, leaf_in[row], table, L,
-                                K, K - LTT_ROUTE_FIXED_COLS, &went_right);
-}
+// the shared memory a CTA keeps its leaves' route records (32 bytes)
+// and, for B, value pairs (8 bytes) in: 48 KB, the dynamic size a
+// launch may take without opting in; past it each row reads the table
+// and the values
+constexpr int kSharedBytes = 48 * 1024;
 
 // (hi + mid) + lo of v's three bf16-exact parts (ops/partition.py
 // _split3_bf16), in f32 round-to-nearest with no contraction.
@@ -94,40 +89,56 @@ struct RouteIn {
   const uint8_t* binsT;
   const int32_t* leaf_in;
   const float* table;
-  const float* values;
+  const float* values;  // B only
   int32_t* leaf_out;
-  float* val_out;
+  float* val_out;       // B only
   int64_t n;
   int G, L, K;
 };
 
-// Route row ``row`` of leaf ``leaf``; returns its value and sets
-// ``*out`` to its new leaf.
-template <bool kShared>
+// Route row ``row`` of leaf ``leaf``, whose chosen group's bin is
+// ``gb`` where the records are shared (kRec: ltt_route_rec_bin; the
+// table path reads it itself); returns its value (kValues, from the
+// shared pairs where kVal; else 0) and sets ``*out`` to its new leaf.
+template <bool kValues, bool kRec, bool kVal>
 __device__ __forceinline__ float route_value(const RouteIn& in,
+                                             const int4* s_rec,
                                              const float2* s_val,
-                                             int64_t row, int leaf,
+                                             int64_t row, int gb, int leaf,
                                              int* out) {
   bool right;
-  *out = ltt_route_row(in.binsT, in.n, row, in.G, leaf, in.table, in.L,
-                       in.K, in.K - LTT_ROUTE_FIXED_COLS, &right);
-  if (leaf < 0 || leaf >= in.L) return 0.0f;
-  const float2 v = kShared ? s_val[leaf]
-                           : value_pair(in.values, in.table, leaf, in.L,
-                                        in.K);
-  return right ? v.y : v.x;
+  const int nb = in.K - LTT_ROUTE_FIXED_COLS;
+  *out = kRec
+             ? ltt_route_rec_leaf(leaf, gb, s_rec, in.table, in.K, nb, &right)
+             : ltt_route_row(in.binsT, in.n, row, in.G, leaf, in.table,
+                             in.L, in.K, nb, &right);
+  if constexpr (!kValues) {
+    return 0.0f;
+  } else {
+    if (leaf < 0 || leaf >= in.L) return 0.0f;
+    const float2 v = kVal ? s_val[leaf]
+                          : value_pair(in.values, in.table, leaf, in.L,
+                                       in.K);
+    return right ? v.y : v.x;
+  }
 }
 
-// Kernel B: V rows a thread (4: n % 4 == 0 and the leaf and value
-// pointers 16-byte aligned), the grid striding over the rows; with
-// kShared the value pairs of all L leaves in shared memory.
-template <int V, bool kShared>
+// Kernels B (kValues) and H: V rows a thread (4: n % 4 == 0 and the
+// leaf and value pointers 16-byte aligned), the grid striding over the
+// rows; in shared memory, decoded once a CTA, every leaf's route record
+// (kRec, csrc/route.cuh) and, for B, its value pair (kVal).
+template <int V, bool kValues, bool kRec, bool kVal>
 __global__ void __launch_bounds__(kThreads)
     route_value_kernel(RouteIn in) {
-  extern __shared__ float2 s_val[];
-  if constexpr (kShared) {
-    for (int l = threadIdx.x; l < in.L; l += blockDim.x)
-      s_val[l] = value_pair(in.values, in.table, l, in.L, in.K);
+  extern __shared__ int4 s_raw[];
+  int4* s_rec = s_raw;
+  float2* s_val = reinterpret_cast<float2*>(s_raw + (kRec ? 2 * in.L : 0));
+  if constexpr (kRec || kVal) {
+    for (int l = threadIdx.x; l < in.L; l += blockDim.x) {
+      if constexpr (kRec) ltt_route_rec(in.table, l, in.K, s_rec + 2 * l);
+      if constexpr (kVal)
+        s_val[l] = value_pair(in.values, in.table, l, in.L, in.K);
+    }
     __syncthreads();
   }
   const int64_t step = (int64_t)gridDim.x * blockDim.x * V;
@@ -136,32 +147,80 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (V == 4) {
       const int4 lv =
           __ldg(reinterpret_cast<const int4*>(in.leaf_in + r0));
-      int4 lo;
-      float4 vo;
-      vo.x = route_value<kShared>(in, s_val, r0, lv.x, &lo.x);
-      vo.y = route_value<kShared>(in, s_val, r0 + 1, lv.y, &lo.y);
-      vo.z = route_value<kShared>(in, s_val, r0 + 2, lv.z, &lo.z);
-      vo.w = route_value<kShared>(in, s_val, r0 + 3, lv.w, &lo.w);
-      *reinterpret_cast<int4*>(in.leaf_out + r0) = lo;
-      *reinterpret_cast<float4*>(in.val_out + r0) = vo;
+      const int leaf[4] = {lv.x, lv.y, lv.z, lv.w};
+      // with the records shared, the four rows' bin loads are issued
+      // before any of them is used
+      int gb[4] = {-1, -1, -1, -1};
+      if constexpr (kRec) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          gb[k] = ltt_route_rec_bin(in.binsT, in.n, r0 + k, in.G, leaf[k],
+                                    in.L, s_rec);
+      }
+      int out[4];
+      float val[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        val[k] = route_value<kValues, kRec, kVal>(in, s_rec, s_val, r0 + k,
+                                                  gb[k], leaf[k], &out[k]);
+      *reinterpret_cast<int4*>(in.leaf_out + r0) =
+          make_int4(out[0], out[1], out[2], out[3]);
+      if constexpr (kValues)
+        *reinterpret_cast<float4*>(in.val_out + r0) =
+            make_float4(val[0], val[1], val[2], val[3]);
     } else {
       int lo;
-      in.val_out[r0] =
-          route_value<kShared>(in, s_val, r0, __ldg(in.leaf_in + r0), &lo);
+      const int leaf = __ldg(in.leaf_in + r0);
+      const int gb = kRec ? ltt_route_rec_bin(in.binsT, in.n, r0, in.G,
+                                              leaf, in.L, s_rec)
+                          : -1;
+      const float v = route_value<kValues, kRec, kVal>(in, s_rec, s_val, r0,
+                                                       gb, leaf, &lo);
+      if constexpr (kValues) in.val_out[r0] = v;
       in.leaf_out[r0] = lo;
     }
   }
 }
 
-template <int V, bool kShared>
-int launch_b(const RouteIn& in, int sms, cudaStream_t stream) {
+template <int V, bool kValues, bool kRec, bool kVal>
+int launch(const RouteIn& in, int sms, cudaStream_t stream) {
   const int64_t need = (in.n + (int64_t)kThreads * V - 1) / (kThreads * V);
   const int64_t grid = need < (int64_t)sms * kCtasPerSm
                            ? need : (int64_t)sms * kCtasPerSm;
-  const size_t smem = kShared ? (size_t)in.L * sizeof(float2) : 0;
-  route_value_kernel<V, kShared><<<(unsigned)grid, kThreads, smem,
-                                   stream>>>(in);
+  const size_t smem = (size_t)in.L * ((kRec ? 2 * sizeof(int4) : 0) +
+                                      (kVal ? sizeof(float2) : 0));
+  route_value_kernel<V, kValues, kRec, kVal>
+      <<<(unsigned)grid, kThreads, smem, stream>>>(in);
   return (int)cudaGetLastError();
+}
+
+// B at V rows a thread: records and value pairs shared where both fit
+// kSharedBytes, the value pairs alone where they fit, else neither.
+template <int V>
+int launch_b(const RouteIn& in, int sms, cudaStream_t stream) {
+  const int64_t L = in.L;
+  if (L * 40 <= kSharedBytes)             // a 32-byte record, an 8-byte pair
+    return launch<V, true, true, true>(in, sms, stream);
+  if (L * 8 <= kSharedBytes)
+    return launch<V, true, false, true>(in, sms, stream);
+  return launch<V, true, false, false>(in, sms, stream);
+}
+
+// H at V rows a thread: the records shared where they fit kSharedBytes.
+template <int V>
+int launch_h(const RouteIn& in, int sms, cudaStream_t stream) {
+  if ((int64_t)in.L * 32 <= kSharedBytes)
+    return launch<V, false, true, false>(in, sms, stream);
+  return launch<V, false, false, false>(in, sms, stream);
+}
+
+// 4 rows a thread where n % 4 == 0 and the leaf pointers (and B's value
+// pointer) are 16-byte aligned.
+bool rows4(const RouteIn& in) {
+  return in.n % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(in.leaf_in) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(in.leaf_out) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(in.val_out) % 16 == 0;
 }
 
 }  // namespace
@@ -179,28 +238,20 @@ extern "C" int ltt_route_apply(const void* binsT, const void* leaf_in,
   const RouteIn in{(const uint8_t*)binsT, (const int32_t*)leaf_in,
                    (const float*)table, (const float*)values,
                    (int32_t*)leaf_out, (float*)val_out, n, G, L, K};
-  const bool v4 = n % 4 == 0 &&
-                  reinterpret_cast<uintptr_t>(leaf_in) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(leaf_out) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(val_out) % 16 == 0;
-  const bool shared = L <= kSharedLeaves;
   cudaStream_t s = (cudaStream_t)stream;
-  if (v4)
-    return shared ? launch_b<4, true>(in, sms, s)
-                  : launch_b<4, false>(in, sms, s);
-  return shared ? launch_b<1, true>(in, sms, s)
-                : launch_b<1, false>(in, sms, s);
+  return rows4(in) ? launch_b<4>(in, sms, s) : launch_b<1>(in, sms, s);
 }
 
 // Kernel H.  binsT (G, n) uint8, leaf_in (n,) int32, table (L, K) f32 ->
-// leaf_out (n,) int32.  Returns cudaGetLastError().
+// leaf_out (n,) int32; sms: the card's SMs.  B's launch without values.
+// Returns cudaGetLastError().
 extern "C" int ltt_route_only(const void* binsT, const void* leaf_in,
                               const void* table, void* leaf_out, int64_t n,
-                              int G, int L, int K, void* stream) {
+                              int G, int L, int K, int sms, void* stream) {
   if (n <= 0) return 0;
-  route_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                 (cudaStream_t)stream>>>(
-      (const uint8_t*)binsT, (const int32_t*)leaf_in, (const float*)table,
-      (int32_t*)leaf_out, n, G, L, K);
-  return (int)cudaGetLastError();
+  const RouteIn in{(const uint8_t*)binsT, (const int32_t*)leaf_in,
+                   (const float*)table, nullptr, (int32_t*)leaf_out,
+                   nullptr, n, G, L, K};
+  cudaStream_t s = (cudaStream_t)stream;
+  return rows4(in) ? launch_h<4>(in, sms, s) : launch_h<1>(in, sms, s);
 }

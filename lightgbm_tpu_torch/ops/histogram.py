@@ -119,13 +119,13 @@ def _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
 
 
 def i32_aligned(bins: torch.Tensor, w: torch.Tensor,
-                leaf_id: torch.Tensor) -> bool:
-    """Whether the int32 histogram (kernels A, G, I) may read 4 rows a
-    thread: the bins 4-byte aligned, the weights and the leaf ids it
-    reads 16-byte aligned (either layout; :func:`frontier_hist_plan`
-    also wants N % 4 == 0)."""
+                leaf_id: torch.Tensor = None) -> bool:
+    """Whether the int32 histogram (kernels A, G, I, J) may read 4 rows
+    a thread: the bins 4-byte aligned, the weights and the leaf ids it
+    reads (J reads none) 16-byte aligned (either layout;
+    :func:`frontier_hist_plan` also wants N % 4 == 0)."""
     return (bins.data_ptr() % 4 == 0 and w.data_ptr() % 16 == 0
-            and leaf_id.data_ptr() % 16 == 0)
+            and (leaf_id is None or leaf_id.data_ptr() % 16 == 0))
 
 
 def _i32_buffers(N, W, G, B, dev, aligned):
@@ -318,11 +318,11 @@ def route_only_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
     post-route leaf ids.  Kernel H on CUDA tensors, the plain version on
     CPU tensors.
 
-    Kernel H (csrc/route_apply.cu, kernel B's source) replaces the
-    Pallas kernel _route_only_kernel_body
-    (lightgbm_tpu/ops/histogram.py:1654): one thread per row,
-    memory-bound at ~8 B per row plus a bin byte per row of a splitting
-    leaf."""
+    Kernel H (csrc/route_apply.cu) replaces the Pallas kernel
+    _route_only_kernel_body (lightgbm_tpu/ops/histogram.py:1654): kernel
+    B's one launch with its values off (a grid of a few CTAs an SM, 4
+    rows a thread where N and the pointers allow it), memory-bound at ~8
+    B per row plus a bin byte per row of a splitting leaf."""
     _check_route(binsT, leaf_id, route_tab)
     G, N = binsT.shape
     L, K = route_tab.shape
@@ -331,7 +331,8 @@ def route_only_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
         return route_only_plain(binsT, leaf_id, route_tab)
     leaf_out = torch.empty_like(leaf_id)
     kernels.launch("route_only", binsT.data_ptr(), leaf_id.data_ptr(),
-                   route_tab.data_ptr(), leaf_out.data_ptr(), N, G, L, K)
+                   route_tab.data_ptr(), leaf_out.data_ptr(), N, G, L, K,
+                   _num_sms(dev.index or 0))
     return leaf_out
 
 
@@ -1288,6 +1289,128 @@ def seg_hist_plain(binsT_p: torch.Tensor, wT_p: torch.Tensor,
                            max_group_bin)
 
 
+#: csrc/seg_hist.cu: threads of a histogram CTA (kThreads)
+SEG_THREADS = 512
+#: histogram CTAs an SM (two of 512 threads fill an SM's 1024 threads at
+#: 64 registers)
+SEG_CTAS_PER_SM = 2
+#: the most output slots of one launch: the plan's one CTA keeps an int
+#: a slot (and one more) in shared memory
+SEG_MAX_SLOTS = SMEM_PER_CTA // 4 - 1
+
+
+class SegPlan(NamedTuple):
+    """Launch geometry of kernel J (csrc/seg_hist.cu) for one shape.
+    The live rows, listed slot by slot as items of ``rows_per_thread``
+    rows (4 where the pointers and the block allow it), are split evenly
+    over ``ctas`` CTAs by ``grid_y`` group chunks of ``groups_per_cta``
+    groups; a CTA cuts its share at slot boundaries into runs, adds each
+    run into its slot with device-memory atomics, and keeps up to
+    ``slots_per_cta`` slots' histograms at once.  ``smem_bytes`` is a
+    histogram CTA's shared memory (that many (gc, B, 3) int32
+    histograms), ``plan_smem`` the plan's (an int a slot); the wrapper
+    allocates ``meta_words`` int32 of plan."""
+    ctas: int
+    groups_per_cta: int
+    grid_y: int
+    threads: int
+    rows_per_thread: int
+    slots_per_cta: int
+    smem_bytes: int
+    plan_smem: int
+    meta_words: int
+
+    def as_args(self):
+        """The int64 array the C entry point reads (Plan in
+        csrc/seg_hist.cu, in this order)."""
+        import ctypes
+        vals = (self.ctas, self.groups_per_cta, self.grid_y, self.threads,
+                self.rows_per_thread, self.slots_per_cta, self.smem_bytes,
+                self.plan_smem)
+        return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def seg_hist_plan(n_cap: int, G: int, B: int, num_out: int,
+                  num_sms: int = H100_SMS, aligned: bool = True,
+                  block: int = None) -> SegPlan:
+    """Geometry of kernel J: SEG_CTAS_PER_SM CTAs an SM sharing the live
+    rows evenly; all G groups of one slot in a CTA unless their
+    histogram outgrows its shared memory (G * B * 12 bytes past
+    232,448), then the fewest group chunks that fit, evened out; as
+    many slots' histograms at once as SEG_CTAS_PER_SM CTAs fit in an
+    SM's shared memory (5 at the bench's 28 groups of 63 bins)."""
+    block = SEG_BLOCK if block is None else block
+    nblk = n_cap // block
+    G1 = max(G, 1)
+    gy = -(-G1 * B * 12 // SMEM_PER_CTA)
+    while -(-G1 // gy) * B * 12 > SMEM_PER_CTA:
+        gy += 1
+    gc = -(-G1 // gy)
+    gy = -(-G1 // gc)
+    V = 4 if aligned and n_cap % 4 == 0 and block % 4 == 0 else 1
+    per_cta = SMEM_PER_SM // SEG_CTAS_PER_SM - SMEM_RESERVED_PER_CTA
+    K = max(1, per_cta // (gc * B * 12))
+    return SegPlan(SEG_CTAS_PER_SM * num_sms, gc, gy, SEG_THREADS, V, K,
+                   K * gc * B * 12, _round_up(4 * (num_out + 1), 16),
+                   2 * nblk + num_out + 1)
+
+
+def seg_runs(blk_slot: torch.Tensor, num_out: int, ctas: int,
+             per_blk: int):
+    """Kernel J's plan in torch ops, as its first launch builds it on the
+    device and its histogram CTAs walk it: returns (order, boff, runs).
+    ``order`` lists the live blocks (0 <= slot < num_out) slot by slot,
+    each slot's in block order; slot s holds positions boff[s] ..
+    boff[s + 1] - 1 and items (``per_blk`` a block) boff[s] * per_blk ..
+    boff[s + 1] * per_blk - 1.  ``runs`` is (R, 4) int64: the CTA, slot,
+    first item and item past the last of each run, CTA c taking items c
+    * items / ctas .. (c + 1) * items / ctas - 1; each run is one atomic
+    flush.  The kernel's boff is this; the order of a slot's blocks in
+    its list may differ from launch to launch."""
+    dev = blk_slot.device
+    live = (blk_slot >= 0) & (blk_slot < num_out)
+    key = torch.where(live, blk_slot, num_out).long()
+    order = torch.sort(key, stable=True).indices[:int(live.sum())]
+    cnt = torch.bincount(key, minlength=num_out + 1)[:num_out]
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    boff = torch.cat([zero, torch.cumsum(cnt, 0)])
+    items = int(boff[-1]) * per_blk
+    c_lo = torch.arange(ctas + 1, device=dev) * items // ctas
+    # the runs: the items between consecutive CTA and slot boundaries
+    cuts = torch.unique(torch.cat([c_lo, boff * per_blk]))
+    lo, hi = cuts[:-1], cuts[1:]
+    slot = torch.searchsorted(boff * per_blk, lo, right=True) - 1
+    cta = torch.searchsorted(c_lo, lo, right=True) - 1
+    return (order.to(torch.int32), boff.to(torch.int32),
+            torch.stack([cta, slot, lo, hi], 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _seg_plan(n_cap: int, G: int, B: int, num_out: int, aligned: bool,
+              block: int, index: int):
+    """(plan, its C array) of one kernel J launch shape on card
+    ``index``."""
+    plan = seg_hist_plan(n_cap, G, B, num_out, _num_sms(index), aligned,
+                         block)
+    return plan, plan.as_args()
+
+
+def _seg_hist_cuda(binsT_p, wT_p, blk_slot, num_out, max_group_bin, block):
+    """Kernel J's zero fill and two launches."""
+    G, n_cap = binsT_p.shape
+    dev = binsT_p.device
+    plan, args = _seg_plan(n_cap, G, max_group_bin, num_out,
+                           i32_aligned(binsT_p, wT_p), block,
+                           dev.index or 0)
+    hist = torch.empty((num_out, G, max_group_bin, 3), dtype=torch.int32,
+                       device=dev)
+    meta = torch.empty((plan.meta_words,), dtype=torch.int32, device=dev)
+    kernels.launch("seg_hist", binsT_p.data_ptr(), wT_p.data_ptr(),
+                   blk_slot.data_ptr(), hist.data_ptr(), n_cap, G,
+                   max_group_bin, num_out, block, args, meta.data_ptr())
+    return hist
+
+
 def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
              blk_slot: torch.Tensor, num_out: int, max_group_bin: int,
              block: int = SEG_BLOCK) -> torch.Tensor:
@@ -1295,11 +1418,17 @@ def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
     (num_out, G, B, 3) int32 histogram of leaf-partitioned rows.
 
     Kernel J (csrc/seg_hist.cu) replaces the Pallas kernel
-    _hist_kernel_body_seg_tiled (lightgbm_tpu/ops/histogram.py:1520).
+    _hist_kernel_body_seg_tiled (lightgbm_tpu/ops/histogram.py:1520):
+    a plan built on the device from ``blk_slot`` (one CTA), then CTAs
+    that share the live rows evenly and add a shared-memory int32
+    histogram a slot they meet into the zeroed output with device-memory
+    atomics (the geometry of :func:`seg_hist_plan`, the runs of
+    :func:`seg_runs`).
     ``binsT_p`` is the (G, n_cap) uint8 and ``wT_p`` the (3, n_cap)
     int32 operands in partitioned order (ops/partition.py
     apply_partition; gap rows carry zero weight), ``blk_slot`` the
-    (n_cap / block,) int32 output slot of each row block (-1: skip)."""
+    (n_cap / block,) int32 output slot of each row block (-1: skip), in
+    any arrangement over the blocks."""
     _check(binsT_p, "binsT_p", torch.uint8, 2)
     _check(wT_p, "wT_p", torch.int32, 2)
     _check(blk_slot, "blk_slot", torch.int32, 1)
@@ -1315,15 +1444,14 @@ def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
     if dev.type != "cuda":
         return seg_hist_plain(binsT_p, wT_p, blk_slot, num_out,
                               max_group_bin, block)
-    hist = torch.zeros((num_out, G, max_group_bin, 3), dtype=torch.int32,
-                       device=dev)
-    # a CTA walks a run of consecutive blocks and flushes its shared
-    # histogram when the slot changes: about 1024 CTAs in all
-    per_cta = max(1, (n_cap // block) // 1024)
-    kernels.launch("seg_hist", binsT_p.data_ptr(), wT_p.data_ptr(),
-                   blk_slot.data_ptr(), hist.data_ptr(), n_cap, G,
-                   max_group_bin, num_out, block, per_cta)
-    return hist
+    if not 0 <= num_out <= SEG_MAX_SLOTS:
+        raise ValueError(f"num_out {num_out} not in [0, {SEG_MAX_SLOTS}] "
+                         "(kernel J's limit)")
+    if num_out == 0 or G == 0:
+        return torch.zeros((num_out, G, max_group_bin, 3),
+                           dtype=torch.int32, device=dev)
+    return _seg_hist_cuda(binsT_p, wT_p, blk_slot, num_out, max_group_bin,
+                          block)
 
 
 def compute_group_histograms_seg_tiled(

@@ -61,9 +61,9 @@ KERNELS: Dict[str, tuple] = {
     "route_apply": (
         "route_apply.cu", "ltt_route_apply",
         [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P]),
-    # kernel H: kernel B's routing without the row values
+    # kernel H: kernel B's template without the row values
     "route_only": ("route_apply.cu", "ltt_route_only",
-                   [_P, _P, _P, _P, _I64, _I, _I, _I, _P]),
+                   [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P]),
     "predict_level": (
         "predict_level.cu", "ltt_predict_level",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -82,9 +82,10 @@ KERNELS: Dict[str, tuple] = {
     # behind its two entry points
     "bins_hist_q": ("bins_hist.cu", "ltt_bins_hist_q", _I32_ARGS),
     "bins_hist_q_packed": ("bins_hist.cu", "ltt_bins_hist_q", _I32_ARGS),
-    # kernel J: the int8 histogram of leaf-partitioned rows
+    # kernel J: the int8 histogram of leaf-partitioned rows, then its
+    # plan (ops/histogram.py SegPlan) and the run plan's scratch
     "seg_hist": ("seg_hist.cu", "ltt_seg_hist",
-                 [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P]),
+                 [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -21,7 +21,8 @@ kernels and host operators by time, and writes the full table to
 chiprun_out/torch_profile_train.txt.  On fused_tiled it also prints
 kernel A's mean device ms per call (its routing launch plus its
 histogram launches), on q_onthefly and pallas(quantized) kernel I's
-(its histogram launch plus the copies' sum).
+(its histogram launch plus the copies' sum), on seg_tiled kernel J's
+(its run plan and histogram; its zero fill is a memory set).
 
 With --parent DIR (another tree, e.g. ``git archive <commit>`` unpacked
 into build/ab_parent) it profiles that tree and this one in turns
@@ -68,14 +69,20 @@ KERNEL_SYMBOLS = {
     "hist_i32, row-major (I)": r"hist_i32_kernel<\d+, true>",
     "sum_copies (A's, G's and I's copies)": "sum_copies_kernel",
     "routing_pass (A's routing)": "routing_pass_kernel",
-    "route_value (B)": "route_value_kernel",
-    "route (H; B's first design)": r"\broute_kernel",
+    # B: <V, kShared> before H joined its template, <V, true, kRec,
+    # kVal> since; H: <V, false, kRec, kVal>
+    "route_value (B)": (r"route_value_kernel<\d+, (true|false)>"
+                        r"|route_value_kernel<\d+, true(, (true|false)){2}>"),
+    "route_value without values (H)": (r"route_value_kernel<\d+, false"
+                                       r"(, (true|false)){2}>"),
+    "route (H's first design)": r"\broute_kernel",
     "predict_level (C)": "predict_level_kernel",
     "hist_f64, one-hot rows (D, E)": "hist_f64_kernel<true",
     "route_rows (D's routing)": "route_rows_kernel",
     "hist_f64, rows of bins (F, K)": "hist_f64_kernel<false",
     "onehot_hist_q (D, E with int8 weights)": "onehot_hist_q_kernel",
     "bins_hist_q (I's first design)": "bins_hist_q_kernel",
+    "seg_plan (J's run plan)": "seg_plan_kernel",
     "seg_hist (J)": "seg_hist_kernel",
 }
 
@@ -184,6 +191,9 @@ def main() -> int:
     ka = prof.key_averages()
     dev_events = [e for e in ka
                   if getattr(e.device_type, "name", "") == "CUDA"]
+    if not dev_events:
+        raise SystemExit("torch.profiler recorded no device event: "
+                         "device time not measured")
     dev_ms = _device_us(prof) / 1e3 / args.trees
     wall_ms = 1e3 * wall / args.trees
     print(f"wall {wall_ms:.1f} ms/tree (under the profiler); device "
@@ -211,12 +221,15 @@ def main() -> int:
             ("A (routing + histogram + copies' sum)", ("fused_tiled",),
              ("routing_pass (A's routing)", labels[0], labels[2])),
             ("I (histogram + copies' sum)",
-             ("q_onthefly", "pallas(quantized)"), (labels[1], labels[2]))):
-        parts = [per_symbol.get(k) for k in keys]
-        if plan in plans and all(parts):
+             ("q_onthefly", "pallas(quantized)"), (labels[1], labels[2])),
+            ("J (run plan + histogram)",
+             ("seg_tiled(leaf_partition)",),
+             ("seg_plan (J's run plan)", "seg_hist (J)"))):
+        pieces = [per_symbol.get(k) for k in keys]
+        if plan in plans and all(pieces):
             # one call: its first launch's count, every launch's time
-            calls = parts[0][0]
-            us = sum(u for _, u in parts)
+            calls = pieces[0][0]
+            us = sum(u for _, u in pieces)
             print(f"kernel {name}: {calls} calls in {args.trees} trees, mean "
                   f"{us / 1e3 / calls:.4f} ms per call, "
                   f"{us / 1e3 / args.trees / dev_ms:.3f} of device time "

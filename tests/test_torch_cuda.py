@@ -171,6 +171,25 @@ def test_route_apply_kernel_cases(dev, case):
     assert moved == (case != "no splitting leaf")
 
 
+@pytest.mark.parametrize("N", [5000, 5001])
+@pytest.mark.parametrize("L", [1228, 1229, 6144, 6145])
+def test_route_apply_kernel_shared_memory_tiers(dev, L, N):
+    """Kernel B at the leaf counts where its shared memory changes form:
+    route records and value pairs up to 1,228 leaves, the value pairs
+    alone up to 6,144, neither past that; the 4-row and 1-row paths,
+    against its plain version."""
+    (binsT, _, leaf, tab, _), _ = _inputs(dev, N=N, L=L)
+    rng = np.random.RandomState(4)
+    rs = torch.from_numpy(rng.randint(0, L, L)).to(dev)
+    tab[:, 8], tab[:, 9] = (rs // 256).float(), (rs % 256).float()
+    vals = torch.from_numpy(rng.randn(L).astype(np.float32)).to(dev)
+    lk, vk = H.route_apply_tiled(binsT, leaf, tab, vals)
+    lp, vp = H.route_apply_plain(binsT, leaf, tab, vals)
+    assert torch.equal(lk, lp)
+    assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+    assert bool((lk != leaf).any())
+
+
 def test_predict_level_kernel_matches_plain(dev):
     rng = np.random.RandomState(2)
     t = Tree(4)
@@ -298,6 +317,197 @@ def test_seg_hist_kernel_matches_plain(dev, case):
     assert hk.dtype == torch.int32 and torch.equal(hk, hp)
     assert torch.equal(hk, H.tiled_hist_plain(binsT, wT, leaf, slots, B))
     assert torch.equal(hk, H.seg_hist(binsT_p, wT_p, blk_slot, W, B))
+
+
+def _seg_operands(dev, n_cap, G=7, B=63, seed=4, offset=0):
+    """Partition-shaped operands of kernel J: (G, n_cap) bins with some
+    bins >= B and (3, n_cap) int8 weights with 10% zero (gap) rows, as
+    views ``offset`` elements into their storage (an odd offset breaks
+    the 4-row alignment)."""
+    rng = np.random.RandomState(seed)
+    bins = torch.zeros(G * n_cap + offset, dtype=torch.uint8)
+    bins[offset:] = torch.from_numpy(rng.randint(0, B + 4, G * n_cap).astype(
+        np.uint8))
+    w = torch.zeros(3 * n_cap + offset, dtype=torch.int32)
+    wv = rng.randint(-127, 128, (3, n_cap)).astype(np.int32)
+    wv[:, rng.rand(n_cap) < 0.1] = 0
+    w[offset:] = torch.from_numpy(wv.ravel())
+    bins, w = bins.to(dev), w.to(dev)
+    return (bins[offset:].view(G, n_cap), w[offset:].view(3, n_cap))
+
+
+def _seg_block_map(case, nblk, rng):
+    """(blk_slot, num_out) of a block map no leaf partition makes."""
+    if case == "many one-block slots":
+        return rng.permutation(nblk).astype(np.int32), nblk
+    if case == "slots interleaved block by block":
+        return (np.arange(nblk) % 7).astype(np.int32), 7
+    if case == "random slots, dead and out-of-range blocks":
+        return rng.randint(-3, 60, nblk).astype(np.int32), 50
+    # one slot over many runs, then its tail split by a dead block
+    m = np.zeros(nblk, np.int32)
+    m[nblk // 2] = -1
+    return m, 1
+
+
+def _seg_launch(binsT_p, wT_p, blk_slot, W, B, fill=0):
+    """Kernel J's launch as ops/histogram.py _seg_hist_cuda makes it,
+    with its output and its plan's scratch filled with ``fill`` first:
+    (hist, and the plan the launch built: order over the live blocks,
+    boff)."""
+    G, n_cap = binsT_p.shape
+    nblk = n_cap // H.SEG_BLOCK
+    dev = binsT_p.device
+    plan, args = H._seg_plan(n_cap, G, B, W, H.i32_aligned(binsT_p, wT_p),
+                             H.SEG_BLOCK, dev.index or 0)
+    hist = torch.full((W, G, B, 3), fill, dtype=torch.int32, device=dev)
+    meta = torch.full((plan.meta_words,), fill, dtype=torch.int32,
+                      device=dev)
+    kernels.launch("seg_hist", binsT_p.data_ptr(), wT_p.data_ptr(),
+                   blk_slot.data_ptr(), hist.data_ptr(), n_cap, G, B, W,
+                   H.SEG_BLOCK, args, meta.data_ptr())
+    boff = meta[2 * nblk:2 * nblk + W + 1]
+    return hist, (meta[nblk:nblk + int(boff[-1])], boff)
+
+
+@pytest.mark.parametrize("case", [
+    "one slot over many runs", "many one-block slots",
+    "slots interleaved block by block",
+    "random slots, dead and out-of-range blocks",
+    "1 row a thread (operands at an odd offset)"])
+def test_seg_hist_kernel_block_maps(dev, case):
+    """Kernel J on block maps its plan must cut however the slots lie
+    (400 blocks shared by 264 CTAs: slots of one block up to one slot
+    over every CTA), bit for bit against its plain version, and the plan
+    its first launch built equal to ops/histogram.py seg_runs: the same
+    slot offsets, each slot's blocks listed together (in any order
+    within the slot)."""
+    nblk, G, B = 400, 7, 63
+    n_cap = nblk * H.SEG_BLOCK
+    rng = np.random.RandomState(6)
+    odd = case.startswith("1 row")
+    binsT_p, wT_p = _seg_operands(dev, n_cap, G, B, offset=1 if odd else 0)
+    bs, W = _seg_block_map("one slot over many runs" if odd else case,
+                           nblk, rng)
+    blk_slot = torch.from_numpy(bs).to(dev)
+    plan = H.seg_hist_plan(n_cap, G, B, W, H._num_sms(dev.index or 0),
+                           H.i32_aligned(binsT_p, wT_p))
+    assert plan.rows_per_thread == (1 if odd else 4)
+    n0 = kernels.LAUNCHES["seg_hist"]
+    hk, got = _seg_launch(binsT_p, wT_p, blk_slot, W, B)
+    assert kernels.LAUNCHES["seg_hist"] == n0 + 1
+    hp = H.seg_hist_plain(binsT_p, wT_p, blk_slot, W, B)
+    assert hk.dtype == torch.int32 and torch.equal(hk, hp)
+    assert torch.equal(H.seg_hist(binsT_p, wT_p, blk_slot, W, B), hp)
+    assert bool(hk[..., 2].abs().sum() > 0)
+    want = H.seg_runs(blk_slot, W, plan.ctas,
+                      H.SEG_BLOCK // plan.rows_per_thread)
+    assert torch.equal(got[1], want[1])
+    key = blk_slot.long() * nblk
+    o_k, o_p = got[0].long(), want[0].long()
+    assert bool((torch.diff(blk_slot[o_k]) >= 0).all())
+    assert torch.equal(torch.sort(key[o_k] + o_k).values, key[o_p] + o_p)
+
+
+@pytest.mark.parametrize("blocks", [[0, -1], [-1, 0], [0, 0], [0, 1],
+                                    [1, 0], [-1, 3, 0, -1], [2, -1, 0, 1]])
+@pytest.mark.parametrize("odd", [False, True])
+def test_seg_hist_kernel_few_live_blocks(dev, blocks, odd):
+    """Kernel J on two to four 512-row blocks, its output and its plan's
+    scratch filled with a sentinel before the launch.  At 4 rows an item
+    one or two live blocks are 128 or 256 items, fewer than the 264
+    CTAs, so some CTAs have no share: the output is still every word
+    the plain version's, bit for bit (the launch zeroes it), on the
+    4-row path and on the 1-row one (operands at an odd offset), and the
+    plan's offsets equal seg_runs'."""
+    G, B = 7, 63
+    n_cap = len(blocks) * H.SEG_BLOCK
+    W = max(blocks) + 1
+    binsT_p, wT_p = _seg_operands(dev, n_cap, G, B, offset=int(odd))
+    blk_slot = torch.tensor(blocks, dtype=torch.int32, device=dev)
+    plan = H._seg_plan(n_cap, G, B, W, H.i32_aligned(binsT_p, wT_p),
+                       H.SEG_BLOCK, dev.index or 0)[0]
+    assert plan.rows_per_thread == (1 if odd else 4)
+    want = H.seg_runs(blk_slot, W, plan.ctas,
+                      H.SEG_BLOCK // plan.rows_per_thread)
+    hp = H.seg_hist_plain(binsT_p, wT_p, blk_slot, W, B)
+    for fill in (0x7f7f7f7f, -1):
+        hk, (_, boff) = _seg_launch(binsT_p, wT_p, blk_slot, W, B, fill)
+        assert torch.equal(hk, hp), fill
+        assert torch.equal(boff, want[1]), fill
+    assert torch.equal(H.seg_hist(binsT_p, wT_p, blk_slot, W, B), hp)
+
+
+def test_seg_hist_first_round_repeats_bit_identical(dev):
+    """A tree's first round at the bench shape through the leaf
+    partition: 1,000,000 rows of 28 groups in one slot, all 264 CTAs'
+    runs added with atomics into the same 5,292 words; twenty launches
+    leave the same bits, equal to the plain version."""
+    N, G, B = 1_000_448, 28, 63
+    rng = np.random.RandomState(8)
+    binsT = torch.from_numpy(rng.randint(0, B, (G, N)).astype(
+        np.uint8)).to(dev)
+    leaf = torch.zeros(N, dtype=torch.int32, device=dev)
+    leaf[1_000_000:] = -1
+    cnt = (leaf >= 0).float()
+    grad = torch.from_numpy(rng.randn(N).astype(np.float32)).to(dev)
+    wq, _ = H.quantize_gradients(grad * cnt, cnt * 0.25, cnt)
+    perm, blk_leaf, _ = build_leaf_partition(leaf, num_slots=255,
+                                             block=H.SEG_BLOCK)
+    binsT_p = apply_partition(binsT, perm, axis=1)
+    wT_p = apply_partition(wq.t().contiguous(), perm, axis=1)
+    slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    blk_slot = block_slots(blk_leaf, slots, 255)
+
+    def run():
+        return H.seg_hist(binsT_p, wT_p, blk_slot, 1, B)
+    first = run()
+    for _ in range(20):
+        assert torch.equal(run(), first)
+    assert torch.equal(first, H.seg_hist_plain(binsT_p, wT_p, blk_slot, 1,
+                                               B))
+    assert int(first[..., 2].sum()) == 1_000_000 * G
+
+
+ROUTE_ONLY_TABLES = ["numerical and categorical", "numerical only",
+                     "categorical only", "zero table",
+                     "leaf ids past the table",
+                     "records past shared memory"]
+
+
+@pytest.mark.parametrize("table", ROUTE_ONLY_TABLES)
+@pytest.mark.parametrize("path", ["4 rows a thread", "1 row: odd N",
+                                  "1 row: leaf ids at an odd offset"])
+def test_route_only_kernel_cases(dev, path, table):
+    """Kernel H (kernel B's launch with its values off) against its plain
+    version on its 4-row and 1-row paths: _inputs' table mixes NaN and
+    zero missing types, categorical splits and non-splitting leaves; 5%
+    of the rows have a negative leaf.  2,000 leaves' records (64 KB)
+    outgrow a CTA's 48 KB, so each row reads the table."""
+    N = 5001 if path == "1 row: odd N" else 5000
+    L = 2000 if table == "records past shared memory" else 48
+    (binsT, _, leaf, tab, _), _ = _inputs(dev, N=N, L=L)
+    rng = np.random.RandomState(4)
+    if table == "numerical only":
+        tab[:, 7] = 0
+    elif table == "categorical only":
+        tab[:, 7] = 1
+    elif table == "zero table":
+        tab = torch.zeros_like(tab)
+    elif table == "leaf ids past the table":
+        leaf = torch.where(torch.from_numpy(rng.rand(N) < 0.2).to(dev),
+                           leaf + L, leaf).to(torch.int32)
+    if path == "1 row: leaf ids at an odd offset":
+        buf = torch.empty(N + 1, dtype=torch.int32, device=dev)
+        buf[1:] = leaf
+        leaf = buf[1:]
+        assert leaf.data_ptr() % 16 != 0
+    n0 = kernels.LAUNCHES["route_only"]
+    lk = H.route_only_tiled(binsT, leaf, tab)
+    assert kernels.LAUNCHES["route_only"] == n0 + 1
+    lp = H.route_only_plain(binsT, leaf, tab)
+    assert torch.equal(lk, lp)
+    assert bool((lk != leaf).any()) == (table != "zero table")
 
 
 # ---------------------------------------------------------------------------

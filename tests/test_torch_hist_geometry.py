@@ -8,6 +8,8 @@ the CTAs out over the slot chunks by the rule of chunk_ctas.  These CPU
 tests hold the plans to what the kernels need: no more shared memory
 than an H100 CTA may use, every (slot, group) pair and every row covered
 exactly once, and the same plan for the same shapes."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -416,3 +418,244 @@ def test_i32_aligned_reads_the_pointers():
     assert not H.i32_aligned(b1[1:65 * 28 - 27].view(64, 28), w, leaf)
     assert not H.i32_aligned(bins, w1[1:193].view(64, 3), leaf)
     assert not H.i32_aligned(bins, w, l1[2:66])
+
+
+# ---------------------------------------------------------------------------
+# Kernel J: the run plan over the partition blocks (ops/histogram.py
+# seg_hist_plan, the geometry the wrapper passes, and seg_runs, the runs
+# its first launch builds on the device)
+# ---------------------------------------------------------------------------
+def _partition_map(n, L, slots, seed=3, first_round=False):
+    """blk_slot of a real leaf partition of n rows over L leaves (as the
+    grower builds it), and its n_cap."""
+    from lightgbm_tpu_torch.ops.partition import (block_slots,
+                                                  build_leaf_partition)
+    rng = np.random.RandomState(seed)
+    n = -(-n // H.SEG_BLOCK) * H.SEG_BLOCK
+    leaf = np.zeros(n, np.int32) if first_round else rng.randint(
+        0, L, n).astype(np.int32)
+    leaf[rng.rand(n) < 0.01] = -1
+    _, blk_leaf, _ = build_leaf_partition(torch.from_numpy(leaf),
+                                          num_slots=L, block=H.SEG_BLOCK)
+    s = torch.tensor(slots, dtype=torch.int32)
+    return block_slots(blk_leaf, s, L), blk_leaf.shape[0] * H.SEG_BLOCK
+
+
+def _built_maps():
+    """{label: () -> (blk_slot, n_cap, num_out)}: the bench's partitions
+    (1M rows, 255 leaves) at the first round, W=126 and all 255 leaves,
+    the card tests' (20,480 rows, 48 leaves), and block maps no
+    partition makes: slots interleaved block by block, every block its
+    own slot, one slot holding 90% of the blocks (the rest in 50), random
+    slots with dead and out-of-range blocks, no live block, and maps
+    whose live items number fewer than the CTAs (one live block, two
+    one-block slots, two blocks of one slot)."""
+    rng = np.random.RandomState(5)
+    s126 = rng.permutation(255)[:126].tolist()
+    s20 = rng.permutation(48)[:20].tolist()
+    nblk = 2210
+    skew = np.where(np.arange(nblk) < 0.9 * nblk, 0,
+                    1 + np.arange(nblk) % 50)
+
+    def fixed(a, num_out):
+        return lambda: (torch.from_numpy(a.astype(np.int32)),
+                        a.size * 512, num_out)
+
+    def few(live):
+        a = np.full(nblk, -1)
+        a[[3, 1500][:len(live)]] = live
+        return fixed(a, max(live) + 1)
+    return {
+        "bench first round": lambda: (*_partition_map(
+            1_000_000, 255, [0], first_round=True), 1),
+        "bench W=126": lambda: (*_partition_map(1_000_000, 255, s126),
+                                126),
+        "bench all 255 leaves": lambda: (*_partition_map(
+            1_000_000, 255, list(range(255))), 255),
+        "tests W=20": lambda: (*_partition_map(20480, 48, s20), 20),
+        "interleaved slots": fixed(np.arange(nblk) % 7, 7),
+        "one block a slot": fixed(rng.permutation(nblk), nblk),
+        "one slot of 90% of the blocks": fixed(skew, 51),
+        "random with dead and out-of-range blocks": fixed(
+            rng.randint(-3, 60, nblk), 50),
+        "no live block": fixed(np.full(nblk, -1), 4),
+        "one live block": few([0]),
+        "two one-block slots": few([1, 0]),
+        "two blocks of one slot": few([0, 0]),
+        "two blocks, the only two": fixed(np.array([0, 1]), 2),
+    }
+
+
+_MAPS = _built_maps()
+MAPS = list(_MAPS)
+
+
+@functools.lru_cache(maxsize=None)
+def _map(label):
+    return _MAPS[label]()
+
+
+@pytest.mark.parametrize("per_blk", [128, 512])
+@pytest.mark.parametrize("label", MAPS)
+def test_seg_runs_cover_each_live_row_once(label, per_blk):
+    """Every live row (0 <= slot < num_out; items of 4 rows or of one)
+    lies in exactly one run, a run holds items of one slot and one CTA's
+    share (c * items / ctas ..), a dead block lies in none, and each
+    slot's blocks are listed together in block order."""
+    blk_slot, n_cap, num_out = _map(label)
+    p = H.seg_hist_plan(n_cap, 28, 63, num_out)
+    order, boff, runs = H.seg_runs(blk_slot, num_out, p.ctas, per_blk)
+    bs = blk_slot.numpy()
+    live = np.flatnonzero((bs >= 0) & (bs < num_out))
+    assert np.array_equal(np.sort(order.numpy()), live), label
+    assert np.array_equal(bs[order.numpy()], np.sort(bs[live])), label
+    items = int(boff[-1]) * per_blk
+    r = runs.numpy()
+    seen = np.zeros(items, np.int64)
+    for cta, slot, lo, hi in r:
+        assert lo < hi, (label, cta)
+        seen[lo:hi] += 1
+        # one slot: the first and last items' blocks are the slot's
+        assert (bs[order.numpy()[[lo // per_blk, (hi - 1) // per_blk]]]
+                == slot).all(), (label, cta)
+        assert cta * items // p.ctas <= lo, (label, cta)
+        assert hi <= (cta + 1) * items // p.ctas, (label, cta)
+    assert (seen == 1).all() and items == live.size * per_blk, label
+
+
+@pytest.mark.parametrize("label", MAPS)
+def test_seg_runs_bound_the_flushes(label):
+    """The grid is ctas CTAs whatever the map (nothing is read back to
+    the host); a CTA flushes each slot it meets once, so its runs are of
+    distinct slots, consecutive in the list, and all runs (each one
+    atomic flush of a (G, B, 3) histogram) number at most ctas +
+    num_out: one a CTA, and one more each time a share crosses into a
+    slot."""
+    blk_slot, n_cap, num_out = _map(label)
+    p = H.seg_hist_plan(n_cap, 28, 63, num_out)
+    _, boff, runs = H.seg_runs(blk_slot, num_out, p.ctas, 128)
+    r = runs.numpy()
+    for c in np.unique(r[:, 0]):
+        slots = r[r[:, 0] == c, 1]
+        assert (np.diff(slots) > 0).all(), (label, c)
+    assert len(r) <= p.ctas + num_out, (label, len(r))
+    assert len(np.unique(r[:, 0])) <= p.ctas
+    if label == "bench first round":
+        assert len(r) == p.ctas == H.SEG_CTAS_PER_SM * H.H100_SMS
+
+
+@pytest.mark.parametrize("label", MAPS)
+def test_seg_runs_share_the_rows_evenly(label):
+    """The CTAs' shares differ by at most one item (4 rows) however the
+    slots are sized: a first round, a skewed or a wide frontier load
+    every CTA alike; where the items number fewer than the CTAs, a share
+    is one item or none."""
+    blk_slot, n_cap, num_out = _map(label)
+    p = H.seg_hist_plan(n_cap, 28, 63, num_out)
+    _, boff, runs = H.seg_runs(blk_slot, num_out, p.ctas, 128)
+    r = runs.numpy()
+    share = np.bincount(r[:, 0], weights=r[:, 3] - r[:, 2],
+                        minlength=p.ctas)
+    items = int(boff[-1]) * 128
+    assert share.sum() == items and share.size == p.ctas
+    assert share.max() - share.min() <= 1, label
+
+
+@pytest.mark.parametrize("num_out", [1, 20, 126, 255, H.SEG_MAX_SLOTS])
+@pytest.mark.parametrize("G, B", [(7, 63), (28, 63), (28, 255), (40, 255),
+                                  (75, 255), (76, 255), (200, 255),
+                                  (307, 63), (308, 63)])
+def test_seg_plan_scratch_fits(num_out, G, B):
+    """The buffers the wrapper allocates hold what the launches write:
+    the plan (rank and order a block, an offset a slot and one more), a
+    CTA's histogram and the plan's shared memory within 232,448 bytes
+    (SEG_MAX_SLOTS slots at most), and group chunks that cover every
+    group once.  The groups split only where one slot's histogram
+    outgrows a CTA: past G * B * 12 bytes of 232,448 (76 groups of 255
+    bins, 308 of 63)."""
+    n_cap = 1_000_448 + 256 * H.SEG_BLOCK
+    nblk = n_cap // H.SEG_BLOCK
+    p = H.seg_hist_plan(n_cap, G, B, num_out)
+    assert p.meta_words == 2 * nblk + num_out + 1
+    K = p.slots_per_cta
+    assert K >= 1
+    assert p.smem_bytes == K * p.groups_per_cta * B * 12 <= H.SMEM_PER_CTA
+    if K > 1:   # two CTAs of K slots fit an SM; one more slot would not
+        assert H.SEG_CTAS_PER_SM * (p.smem_bytes + H.SMEM_RESERVED_PER_CTA
+                                    ) <= H.SMEM_PER_SM
+        assert H.SEG_CTAS_PER_SM * (
+            p.smem_bytes + p.groups_per_cta * B * 12
+            + H.SMEM_RESERVED_PER_CTA) > H.SMEM_PER_SM
+    assert p.plan_smem >= 4 * (num_out + 1)
+    assert p.plan_smem <= H.SMEM_PER_CTA and p.plan_smem % 16 == 0
+    covered = np.zeros(G, np.int32)
+    for y in range(p.grid_y):
+        groups = range(y * p.groups_per_cta,
+                       min(G, (y + 1) * p.groups_per_cta))
+        assert len(groups) > 0
+        covered[groups.start:groups.stop] += 1
+    assert (covered == 1).all()
+    assert (p.grid_y > 1) == (G * B * 12 > H.SMEM_PER_CTA)
+    if p.grid_y > 1:    # the fewest chunks that fit
+        assert -(-G // (p.grid_y - 1)) * B * 12 > H.SMEM_PER_CTA
+    assert p.threads == H.SEG_THREADS and p.threads % 32 == 0
+    assert p.ctas == H.SEG_CTAS_PER_SM * H.H100_SMS
+
+
+def test_seg_plan_at_the_bench_shape():
+    """1M rows padded to 1,000,448 plus 256 blocks of partition slack:
+    264 CTAs (two an SM), all 28 groups of 63 bins in one 21,168-byte
+    histogram a slot, 5 slots' at once (105,840 bytes a CTA), 4 rows an
+    item on aligned operands and 1 otherwise, the same plan for the
+    same shapes."""
+    n_cap = 1_000_448 + 256 * H.SEG_BLOCK
+    p = H.seg_hist_plan(n_cap, 28, 63, 126)
+    assert p.ctas == 264
+    assert (p.groups_per_cta, p.grid_y, p.slots_per_cta,
+            p.smem_bytes) == (28, 1, 5, 5 * 21168)
+    assert p.rows_per_thread == 4
+    assert H.seg_hist_plan(n_cap, 28, 63, 126, aligned=False
+                           ).rows_per_thread == 1
+    assert H.seg_hist_plan(n_cap, 28, 63, 126, block=510
+                           ).rows_per_thread == 1
+    assert H.seg_hist_plan(n_cap, 28, 63, 126) == p
+    assert tuple(p.as_args()) == (p.ctas, p.groups_per_cta, p.grid_y,
+                                  p.threads, p.rows_per_thread,
+                                  p.slots_per_cta, p.smem_bytes,
+                                  p.plan_smem)
+
+
+@pytest.mark.parametrize("num_out", [1, 2, 33, 126, 255, H.SEG_MAX_SLOTS])
+def test_seg_plan_grid_does_not_follow_the_slots(num_out):
+    """The histogram's grid and shared memory are the same at any slot
+    count (the frontier's width is known on the device only): only the
+    plan's shared memory and its meta buffer grow with num_out."""
+    n_cap = 1_000_448 + 256 * H.SEG_BLOCK
+    p = H.seg_hist_plan(n_cap, 28, 63, num_out)
+    q = H.seg_hist_plan(n_cap, 28, 63, 1)
+    assert p[:7] == q[:7]
+    assert p.plan_smem - q.plan_smem == _round16(4 * (num_out + 1)) - 16
+    assert p.meta_words - q.meta_words == num_out - 1
+
+
+def _round16(x):
+    return -(-x // 16) * 16
+
+
+def test_seg_hist_on_the_cpu_takes_any_slot_count():
+    """Kernel J's slot limit (SEG_MAX_SLOTS, its plan's shared memory)
+    binds only the card: on CPU tensors seg_hist is the plain version at
+    any num_out, as the JAX entry point takes any."""
+    rng = np.random.RandomState(2)
+    num_out = H.SEG_MAX_SLOTS + 2
+    binsT = torch.from_numpy(rng.randint(0, 5, (2, 2 * H.SEG_BLOCK)).astype(
+        np.uint8))
+    wT = torch.from_numpy(rng.randint(-9, 9, (3, 2 * H.SEG_BLOCK)).astype(
+        np.int32))
+    blk_slot = torch.tensor([num_out - 1, 0], dtype=torch.int32)
+    got = H.seg_hist(binsT, wT, blk_slot, num_out, 4)
+    assert got.shape == (num_out, 2, 4, 3)
+    assert torch.equal(got, H.seg_hist_plain(binsT, wT, blk_slot, num_out,
+                                             4))
+    assert int(got[num_out - 1, ..., 2].sum()) == int(
+        (wT[2, :H.SEG_BLOCK] * (binsT[:, :H.SEG_BLOCK] < 4)).sum())
