@@ -16,8 +16,12 @@ Phases, in order; any failure exits nonzero:
      the float-weight histograms (D, E, F, K) within one f32 ulp of the
      bin's absolute sum (both sides add the same bf16 values in f64 and
      round once), with the count of bins that differ between two
-     launches on one input; the ensemble predict kernel within
-     |d| <= 1e-5 * (1 + |score|).  The int8 kernels G (tiled_hist), H
+     launches on one input; the ensemble predict kernel C in both its
+     tiers (records in shared memory; a warp a row from device memory)
+     within |d| <= 1e-5 * (1 + |score|) and the two tiers bit for bit,
+     on 10 random depth-8 trees at 1,000,000 rows and 500 at 200,000
+     (many chunks), each with its byte bound and its bound from the
+     node visits the plain walk counts.  The int8 kernels G (tiled_hist), H
      (route_only), I (bins_hist_q, bins_hist_q_packed) and J (seg_hist,
      on the leaf partition of the leaf ids, whose build is timed too)
      are checked at W=126 and on the first round too, I's pallas_q
@@ -57,8 +61,12 @@ Phases, in order; any failure exits nonzero:
      key on 50,000 rows (the xla plan); last 10 trees with quantized
      int8 gradients on the main path (kernels A, B);
   4. predict held-out rows through Booster.predict on the card (kernel
-     C, counted with the quantized run), compare with the plain-version
-     predict, and check the AUC;
+     C's shared tier, then 16 rows through its global tier, counted
+     with the quantized run), print a warm call's wall split into host
+     preparation, host-to-device copy, kernel, readback and output
+     transform, hold both tiers against the plain version at 200,000
+     and 16 rows, time the global tier at 1 and 1,000 rows, compare
+     with the host walk, and check the AUC;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -375,50 +383,168 @@ def check_kernels(dev, n, rehearse, card):
     b_bound = ((12 * n + split_rows(leaf, table)
                 + (table.numel() + L) * 4)
                / MEM_BYTES_PER_S * 1e3)
-    def fmt(x):
-        return "not measured" if x is None else f"{x:.4f} ms"
-    print(f"[phase 2] route_apply: {b_ms:.4f} ms the call, {fmt(b_launch)} "
-          f"its launch (CUDA events around each), {fmt(b_device)} of "
-          f"device time a call (profiler) (bound {b_bound:.4f} ms, bytes; "
+    print(f"[phase 2] route_apply: {b_ms:.4f} ms the call, "
+          f"{fmt_ms(b_launch)} its launch (CUDA events around each), "
+          f"{fmt_ms(b_device)} of device time a call (profiler) (bound "
+          f"{b_bound:.4f} ms, bytes; "
           f"plain {b_plain:.3f} ms; {card})")
     out["route_apply"] = dict(max_abs_err=0.0, ms=b_ms, plain_ms=b_plain,
                               bound_ms=b_bound, launch_ms=b_launch,
                               device_ms=b_device)
 
-    # ---- kernel C on random ensembles with NaN / zero / categorical
+    # ---- kernel C in both tiers, on random ensembles with NaN / zero /
+    # categorical nodes: (b) 10 depth-8 trees at the phase's rows, (c)
+    # 500 at 200,000 rows (many chunks of shared memory)
     F = 28
     cats = {3, 7}
-    trees = random_trees(rng, 10, 8, F, cats)
-    flat = flatten_ensemble(trees, 1)
-    depth = int(flat.pop("depth"))
-    stack = P.level_ensemble_from_numpy(flat, dev)
-    X = rng.randn(n, F)
-    X[rng.rand(n, F) < 0.05] = np.nan
-    X[rng.rand(n, F) < 0.05] = 0.0
-    for c in cats:
-        X[:, c] = rng.randint(-1, 45, n)
-    x2 = torch.from_numpy(P.interleave_hi_lo(X)).to(dev)
-    c_err = compare_predict(stack, x2, depth)
-    c_ms = time_ms(lambda: P.predict_level_ensemble(stack, x2, depth=depth),
-                   dev, reps)
-    c_plain = time_ms(lambda: P.predict_level_ensemble_plain(
-        stack, x2, depth=depth), dev, 3)
-    print(f"[phase 2] predict_level (synthetic, 10 trees, depth {depth}): "
-          f"{c_ms:.4f} ms (plain {c_plain:.3f} ms, max |d| {c_err:.3g}; "
-          f"{card})")
+    for key, T, rows in (("b", 10, n), ("c", 500, min(n, 200_000))):
+        trees = random_trees(rng, T, 8, F, cats)
+        flat = flatten_ensemble(trees, 1)
+        depth = int(flat.pop("depth"))
+        stack = P.level_ensemble_from_numpy(flat, dev)
+        X = rng.randn(rows, F)
+        X[rng.rand(rows, F) < 0.05] = np.nan
+        X[rng.rand(rows, F) < 0.05] = 0.0
+        for c in cats:
+            X[:, c] = rng.randint(-1, 45, rows)
+        x2 = torch.from_numpy(P.interleave_hi_lo(X)).to(dev)
+        res = check_level(P, stack, x2, depth, dev, reps, card,
+                          f"({key}) {T} depth-8 trees, {rows} rows")
+        for name, nums in res.items():
+            out.setdefault(name, {}).update(
+                {f"{k}_{key}": v for k, v in nums.items()})
     return out
 
 
-def compare_predict(stack, x2, depth) -> float:
-    """Kernel C against its plain version; returns max |d|."""
-    from lightgbm_tpu_torch.ops import predict as P
-    got = P.predict_level_ensemble(stack, x2, depth=depth)
+def smem_bytes_per_s():
+    """The card's shared-memory rate: SMs x 128 bytes a clock x the
+    highest SM clock nvidia-smi reports (None without a card)."""
+    import torch
+    if not torch.cuda.is_available():
+        return None
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6
+
+
+def level_bounds(P, rec, x2, depth):
+    """Kernel C's two bounds (ms): the bytes it must move (the rows read
+    once, the scores written once, the records, meta, leaf values and,
+    with categorical nodes, category words read once) over the memory
+    rate, and its node visits (the plain walk's sum of path lengths) x
+    the 16-byte walk record over the shared-memory rate (None without a
+    card); and the visits."""
+    n = x2.shape[0]
+    tables = [rec.walk, rec.meta, rec.leaves] + ([rec.cats]
+                                                 if rec.has_cat else [])
+    nbytes = (x2.numel() * 4 + n * rec.num_class * 4
+              + sum(t.numel() * t.element_size() for t in tables))
+    visits = P.level_visits(rec, x2, depth)
+    rate = smem_bytes_per_s()
+    return (nbytes / MEM_BYTES_PER_S * 1e3,
+            None if rate is None else visits * 16 / rate * 1e3, visits)
+
+
+def check_level(P, stack, x2, depth, dev, reps, card, label,
+                phase=2):
+    """Kernel C's two tiers on one input: each held against the plain
+    version (the JAX form's, a matrix product) within TOL_PREDICT, the
+    two bit-identical; timed by CUDA events and by the profiler's device
+    time beside the plain version and both bounds.  Returns
+    {"predict_level": numbers, "predict_level_global": numbers}."""
+    import torch
+    rec = P.pack_level_records(stack)
     want = P.predict_level_ensemble_plain(stack, x2, depth=depth)
+    got = {}
+    for tier in ("shared", "global"):
+        got[tier] = P.predict_level_ensemble(rec, x2, depth=depth, tier=tier)
+        compare_level(got[tier], want, f"predict_level {tier} {label}")
+    if not torch.equal(got["shared"].view(torch.int32),
+                       got["global"].view(torch.int32)):
+        raise AssertionError(f"predict_level {label}: the tiers differ")
+    plain = time_ms(lambda: P.predict_level_ensemble_plain(
+        stack, x2, depth=depth), dev, 3)
+    bound, visit_bound, visits = level_bounds(P, rec, x2, depth)
+    res = {}
+    for tier, name in (("shared", "predict_level"),
+                       ("global", "predict_level_global")):
+        def call(tier=tier):
+            return P.predict_level_ensemble(rec, x2, depth=depth, tier=tier)
+        ms = time_ms(call, dev, reps)
+        device = device_ms(call, reps) if dev.type == "cuda" else None
+        err = float((got[tier] - want).abs().max())
+        plan = P.level_plan(rec, x2.shape[0], x2.shape[1], tier=tier)
+        print(f"[phase {phase}] {name} {label}: {ms:.4f} ms the call "
+              f"(events), {fmt_ms(device)} device (profiler) (bound "
+              f"{bound:.4f} ms, "
+              f"bytes; {fmt_ms(visit_bound)} counting {visits} node visits "
+              f"x 16 B of shared memory; plain {plain:.3f} ms; max |d| "
+              f"{err:.3g}; {plan.chunks} chunk(s) of "
+              f"{plan.trees_per_chunk} trees, rows staged: "
+              f"{plan.stage_x}; {card})")
+        res[name] = dict(ms=ms, device_ms=device, plain_ms=plain,
+                         bound_ms=bound, bound_ms_visits=visit_bound,
+                         visits=visits, max_abs_err=err)
+    return res
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def compare_level(got, want, label) -> float:
+    """Kernel C's scores against the plain version's; returns max |d|."""
     d = (got - want).abs()
     if not bool((d <= TOL_PREDICT * (1 + want.abs())).all()):
-        raise AssertionError(f"predict_level: kernel != plain (max |d| "
+        raise AssertionError(f"{label}: kernel != plain (max |d| "
                              f"{d.max().item()})")
     return float(d.max())
+
+
+def predict_breakdown(bst, X, dev, reps=3):
+    """Booster.predict's wall on ``X`` (a warm call: the predictor and
+    its records are built) and the same steps timed one by one: host
+    preparation (_to_matrix and the f64 -> hi/lo interleave), the
+    host-to-device copy, kernel C, the readback, the output transform.
+    Medians of ``reps`` calls, ms."""
+    import torch
+    from lightgbm_tpu_torch.basic import _to_matrix
+    from lightgbm_tpu_torch.ops import predict as P
+    pred = bst._predictor[1]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    parts = {k: [] for k in ("wall", "host preparation",
+                             "host-to-device copy", "kernel", "readback",
+                             "output transform")}
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        bst.predict(X)
+        sync()
+        t1 = time.perf_counter()
+        x2h = P.interleave_hi_lo(np.asarray(_to_matrix(X), np.float64))
+        t2 = time.perf_counter()
+        x2 = torch.from_numpy(x2h).to(dev)
+        sync()
+        t3 = time.perf_counter()
+        raw = P.predict_level_ensemble(pred.records, x2, depth=pred.depth)
+        sync()
+        t4 = time.perf_counter()
+        r = raw.cpu().numpy().astype(np.float64)
+        t5 = time.perf_counter()
+        bst._convert_output(r)
+        t6 = time.perf_counter()
+        for k, a, b in (("wall", t0, t1), ("host preparation", t1, t2),
+                        ("host-to-device copy", t2, t3), ("kernel", t3, t4),
+                        ("readback", t4, t5), ("output transform", t5, t6)):
+            parts[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -939,12 +1065,10 @@ def check_quant_kernels(dev, n, rehearse, card):
         bound_sec = ((8 * n + 32 * sectors + table.numel() * 4)
                      / MEM_BYTES_PER_S * 1e3)
         moved = int((l_k != leaf).sum())
-        def fmt(x):
-            return "not measured" if x is None else f"{x:.4f} ms"
         print(f"[phase 2] route_only: {ms:.4f} ms the call, "
-              f"{fmt(h_launch)} its launch (CUDA events around each), "
-              f"{fmt(h_device)} of device time a call and "
-              f"{fmt(h_launch_device)} a launch (profiler) (bound "
+              f"{fmt_ms(h_launch)} its launch (CUDA events around each), "
+              f"{fmt_ms(h_device)} of device time a call and "
+              f"{fmt_ms(h_launch_device)} a launch (profiler) (bound "
               f"{bound:.4f} ms, bytes; {bound_sec:.4f} ms counting the "
               f"{sectors} 32-byte bin sectors the routed rows touch; "
               f"plain {plain_ms:.3f} ms; {moved} of {n} rows moved; "
@@ -1242,31 +1366,53 @@ def main(argv) -> int:
         if count:
             plan_runs.setdefault(name, {})["int8 fused_tiled"] = count
 
-    # ---- phase 4: predict through Booster.predict on the card
+    # ---- phase 4: predict through Booster.predict on the card: the
+    # held-out rows (kernel C's shared tier; the first call also
+    # flattens the ensemble and packs its records), then 16 of them (the
+    # global tier), both in the main path's counted window
     t0 = time.perf_counter()
     prob = bst.predict(Xv)
     predict_s = time.perf_counter() - t0
+    prob16 = bst.predict(Xv[:16])
     launches = dict(kernels.LAUNCHES)
     auc = auc_score(yv, prob)
-    print(f"[phase 4] predicted {n_valid} rows in {predict_s * 1e3:.1f} ms;"
-          f" AUC {auc:.4f}; launches {launches}; {card}")
+    print(f"[phase 4] predicted {n_valid} rows in {predict_s * 1e3:.1f} ms "
+          f"(the first call, which builds the predictor), then 16 rows; AUC "
+          f"{auc:.4f}; launches {launches}; {card}")
+    parts = predict_breakdown(bst, Xv, dev)
+    print(f"[phase 4] Booster.predict of {n_valid} rows, a warm call "
+          f"(median of 3): {parts['wall']:.2f} ms wall; the same steps one by "
+          "one: " + "; ".join(f"{k} {v:.2f} ms" for k, v in parts.items()
+                             if k != "wall") + f" ({card})")
     pred = bst._predictor[1]
     x2 = torch.from_numpy(P.interleave_hi_lo(Xv)).to(dev)
-    c_err = compare_predict(pred.stack, x2, pred.depth)
     reps = 3 if rehearse else 20
-    c_ms = time_ms(lambda: P.predict_level_ensemble(
-        pred.stack, x2, depth=pred.depth), dev, reps)
-    c_plain = time_ms(lambda: P.predict_level_ensemble_plain(
-        pred.stack, x2, depth=pred.depth), dev, 3)
-    K = 1
-    c_bound = (x2.numel() * 4 + n_valid * K * 4
-               + sum(t.numel() * t.element_size() for t in pred.stack)
-               ) / MEM_BYTES_PER_S * 1e3
-    print(f"[phase 4] predict_level ({bst.num_trees()} trees, depth "
-          f"{pred.depth}): {c_ms:.4f} ms (bound {c_bound:.4f} ms, bytes; "
-          f"plain {c_plain:.3f} ms; max |d| {c_err:.3g}; {card})")
-    numbers["predict_level"] = dict(max_abs_err=c_err, ms=c_ms,
-                                    plain_ms=c_plain, bound_ms=c_bound)
+    at = f"{bst.num_trees()} trees, depth {pred.depth}"
+    stack = P.unpack_level_records(pred.records)     # the plain version's
+    main_rows = check_level(P, stack, x2, pred.depth, dev, reps, card,
+                            f"(a) {at}, {n_valid} rows", phase=4)
+    few_rows = check_level(P, stack, x2[:16].contiguous(), pred.depth,
+                           dev, reps, card, f"{at}, 16 rows", phase=4)
+    # each tier's own numbers at the batch the main path gives it, the
+    # other batch's beside them
+    numbers.setdefault("predict_level", {}).update(
+        main_rows["predict_level"], predict_first_call_ms=predict_s * 1e3,
+        predict_ms_by_step=parts,
+        **{f"{k}_16_rows": v for k, v in few_rows["predict_level"].items()})
+    numbers.setdefault("predict_level_global", {}).update(
+        few_rows["predict_level_global"],
+        **{f"{k}_a": v for k, v in main_rows["predict_level_global"].items()})
+    for rows in (1, 1000):
+        xs = x2[:rows].contiguous()
+        ms = time_ms(lambda: P.predict_level_ensemble(
+            pred.records, xs, depth=pred.depth), dev, reps)
+        tier = P.level_plan(pred.records, rows, x2.shape[1]).tier
+        print(f"[phase 4] predict_level at {rows} rows ({tier} tier): "
+              f"{ms:.4f} ms the call (events; {card})")
+        numbers["predict_level_global"][f"ms_{rows}_rows"] = ms
+    if not np.array_equal(prob16, prob[:16]):
+        raise AssertionError("16 rows predict otherwise alone than in the "
+                             "batch")
     host = np.zeros(n_valid)
     for t in bst.models:
         host += t.predict(Xv)
@@ -1278,9 +1424,10 @@ def main(argv) -> int:
         for name in ("fused_route_hist", "route_apply"):
             if launches[name] <= 0:
                 raise AssertionError(f"training did not launch {name}")
-        if launches["predict_level"] <= 0:
-            raise AssertionError("Booster.predict did not launch "
-                                 "predict_level")
+        for name in ("predict_level", "predict_level_global"):
+            if launches[name] <= 0:
+                raise AssertionError(f"Booster.predict did not launch "
+                                     f"{name}")
     if not (np.isfinite(prob).all() and prob.shape == (n_valid,)):
         raise AssertionError("predictions are not finite or wrong shape")
     if auc <= 0.8 or valid_auc <= 0.8:
@@ -1297,6 +1444,8 @@ def main(argv) -> int:
                         "lightgbm_tpu/ops/histogram.py:1632"),
         "predict_level": ("lightgbm_tpu_torch/csrc/predict_level.cu",
                           "lightgbm_tpu/ops/predict.py:326"),
+        "predict_level_global": ("lightgbm_tpu_torch/csrc/predict_level.cu",
+                                 "lightgbm_tpu/ops/predict.py:326"),
     }
     onehot = "lightgbm_tpu_torch/csrc/onehot_hist.cu"
     replaces.update({
@@ -1320,7 +1469,8 @@ def main(argv) -> int:
     })
     rows = []
     for name, (src, rep) in replaces.items():
-        # launches: the quantized main path's window (A, B, C), else
+        # launches: the quantized main path's window (A, B, both tiers
+        # of C), else
         # the sum over the phase-3 runs that drove the kernel, which
         # launches_by_run lists one by one.  Numbers beyond the
         # contract's keys (first-round and other timings, unstable

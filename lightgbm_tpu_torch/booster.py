@@ -18,7 +18,7 @@ import torch
 from .config import Config, canonical_objective
 from .dataset import Dataset
 from .ops.predict import (interleave_hi_lo, level_ensemble_from_numpy,
-                          predict_level_ensemble)
+                          pack_level_records, predict_level_ensemble)
 from .tree import Tree, flatten_ensemble
 from .utils.device import resolve_device
 from .utils.log import Log
@@ -30,14 +30,15 @@ _PREDICT_CHUNK_ROWS = 1 << 20
 
 
 class _DevicePredictor:
-    """One ensemble slice resident on a device as LevelEnsemble
-    tensors; scores (n, F) raw features in row chunks."""
+    """One ensemble slice resident on a device as kernel C's node
+    records, packed once; scores (n, F) raw features in row chunks."""
 
     def __init__(self, models: List[Tree], num_class: int,
                  device: torch.device):
         flat = flatten_ensemble(models, num_class)
         self.depth = int(flat.pop("depth"))
-        self.stack = level_ensemble_from_numpy(flat, device)
+        self.records = pack_level_records(
+            level_ensemble_from_numpy(flat, device))
         self.device = device
         self.num_class = max(num_class, 1)
 
@@ -48,7 +49,7 @@ class _DevicePredictor:
             x2 = torch.from_numpy(interleave_hi_lo(
                 data[s:s + _PREDICT_CHUNK_ROWS])).to(self.device)
             out[s:s + x2.shape[0]] = predict_level_ensemble(
-                self.stack, x2, depth=self.depth).cpu().numpy()
+                self.records, x2, depth=self.depth).cpu().numpy()
         return out
 
 

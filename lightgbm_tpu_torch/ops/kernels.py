@@ -64,10 +64,15 @@ KERNELS: Dict[str, tuple] = {
     # kernel H: kernel B's template without the row values
     "route_only": ("route_apply.cu", "ltt_route_only",
                    [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P]),
+    # kernel C's two tiers: the records in shared memory, chunk by chunk
+    # (the main path's batches), and read from device memory (small
+    # batches)
     "predict_level": (
         "predict_level.cu", "ltt_predict_level",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-         _I64, _I, _I, _I, _I, _I, _I, _P]),
+        [_P] * 6 + [_I64] + [_I] * 14 + [_P]),
+    "predict_level_global": (
+        "predict_level.cu", "ltt_predict_level_global",
+        [_P] * 7 + [_I64] + [_I] * 10 + [_P]),
     # kernel D (routing on) and kernel E's two entry points (routing
     # off) share one source and one C entry point
     "fused_onehot_hist": ("onehot_hist.cu", "ltt_onehot_hist",

@@ -2,9 +2,13 @@
 binned single-tree walk (validation scores during training).
 
 Port of lightgbm_tpu/ops/predict.py.  ``predict_level_ensemble`` runs
-the hand-written CUDA kernel (csrc/predict_level.cu) on CUDA tensors and
-its plain PyTorch version, ``predict_level_ensemble_plain``, on CPU
-tensors.
+the hand-written CUDA kernel C (csrc/predict_level.cu) on CUDA tensors
+and its plain PyTorch version on CPU tensors.  The kernel reads the
+ensemble as node records (:class:`LevelRecords`, packed once per
+ensemble from the JAX package's LevelEnsemble layout by
+:func:`pack_level_records`); ``predict_level_ensemble_plain`` keeps the
+JAX function's form on the LevelEnsemble, which the kernel is held
+against.
 """
 from __future__ import annotations
 
@@ -69,28 +73,24 @@ def interleave_hi_lo(X: np.ndarray) -> np.ndarray:
     return x2
 
 
-def _level_step(stack: LevelEnsemble, X2: torch.Tensor, node: torch.Tensor,
-                T: int, W: int) -> torch.Tensor:
-    """Advance every (row, tree) pair one level.  ``node`` is (N, T)
-    flat node ids; negative = settled leaf (kept as-is)."""
-    nid = node.clamp(min=0).long()
-    f2 = stack.feat2[nid].long()                         # (N, T)
-    vhi = torch.gather(X2, 1, f2)
-    vlo = torch.gather(X2, 1, f2 + 1)
-    dt = stack.dtype_[nid]
+def _goes_left(vhi, vlo, dt, thr_hi, thr_lo, node_words, W: int):
+    """_level_step's rule (lightgbm_tpu/ops/predict.py:195-229) for
+    every (row, tree) pair: the two-float threshold compare with its inf
+    guard, the NaN / zero missing-value defaults (NaN read as 0 where
+    the missing type is not NaN), and the categorical bitset test after
+    a saturating float -> int32 truncation.  ``node_words(w)`` returns
+    word ``w`` (in [0, W)) of each pair's node's category bitset."""
     is_cat = (dt & K_CATEGORICAL_MASK) > 0
     dleft = (dt & K_DEFAULT_LEFT_MASK) > 0
     mtype = (dt >> 2) & 3
     nan_mask = torch.isnan(vhi)
     conv = nan_mask & (mtype != MISSING_NAN)
-    zero = torch.zeros((), device=X2.device)
+    zero = torch.zeros((), device=vhi.device)
     fhi = torch.where(conv, zero, vhi)
     flo = torch.where(conv, zero, vlo)
     is_zero = (fhi > -K_ZERO_THRESHOLD) & (fhi <= K_ZERO_THRESHOLD)
     use_default = ((mtype == MISSING_ZERO) & is_zero) | \
                   ((mtype == MISSING_NAN) & torch.isnan(fhi))
-    thr_hi = stack.thr_hi[nid]
-    thr_lo = stack.thr_lo[nid]
     d = torch.where(fhi == thr_hi, flo - thr_lo,
                     (fhi - thr_hi) + (flo - thr_lo))
     num_left = torch.where(use_default, dleft, d <= 0.0)
@@ -99,22 +99,34 @@ def _level_step(stack: LevelEnsemble, X2: torch.Tensor, node: torch.Tensor,
         nan_mask, torch.full_like(fhi, -1.0),
         fhi.clamp(-2147483648.0, 2147483520.0)).to(torch.int32)
     in_range = (v_int >= 0) & (v_int < W * 32)
-    widx = nid * W + torch.div(v_int, 32, rounding_mode="floor").clamp(
-        0, W - 1).long()
-    word = stack.cat_words[widx]
+    word = node_words(torch.div(v_int, 32, rounding_mode="floor").clamp(
+        0, W - 1).long())
     bit = torch.bitwise_right_shift(
         word.to(torch.int64) & 0xFFFFFFFF, torch.remainder(v_int, 32)) & 1
     cat_left = in_range & (bit > 0)
-    go_left = torch.where(is_cat, cat_left, num_left)
+    return torch.where(is_cat, cat_left, num_left)
+
+
+def _level_step(stack: LevelEnsemble, X2: torch.Tensor, node: torch.Tensor,
+                T: int, W: int) -> torch.Tensor:
+    """Advance every (row, tree) pair one level.  ``node`` is (N, T)
+    flat node ids; negative = settled leaf (kept as-is)."""
+    nid = node.clamp(min=0).long()
+    f2 = stack.feat2[nid].long()                         # (N, T)
+    go_left = _goes_left(
+        torch.gather(X2, 1, f2), torch.gather(X2, 1, f2 + 1),
+        stack.dtype_[nid], stack.thr_hi[nid], stack.thr_lo[nid],
+        lambda w: stack.cat_words[nid * W + w], W)
     nxt = torch.where(go_left, stack.left[nid], stack.right[nid])
     return torch.where(node >= 0, nxt, node)
 
 
 def predict_level_ensemble_plain(stack: LevelEnsemble, X2: torch.Tensor, *,
                                  depth: int) -> torch.Tensor:
-    """Plain version of kernel C: all-trees level descent over an
-    interleaved (N, 2F) hi/lo matrix -> (N, K) f32 class-accumulated raw
-    scores."""
+    """Plain version of kernel C on the JAX package's input: all-trees
+    level descent over an interleaved (N, 2F) hi/lo matrix -> (N, K) f32
+    class-accumulated raw scores, summed by a matrix product as the JAX
+    function sums them."""
     T = stack.root.shape[0]
     W = stack.cat_words.shape[0] // max(stack.feat2.shape[0], 1)
     n = X2.shape[0]
@@ -126,51 +138,405 @@ def predict_level_ensemble_plain(stack: LevelEnsemble, X2: torch.Tensor, *,
     return vals @ stack.cls_onehot                       # (N, K)
 
 
-def predict_level_ensemble(stack: LevelEnsemble, X2: torch.Tensor, *,
-                           depth: int) -> torch.Tensor:
-    """Ensemble level descent: kernel C on CUDA tensors, the plain
-    version on CPU tensors.  Kernel C (csrc/predict_level.cu) replaces
-    the Pallas kernel in predict_level_ensemble_pallas
-    (lightgbm_tpu/ops/predict.py:326): one thread per row walks every
-    tree; it reads the (N, 2F) matrix once and is bound by dependent
-    gathers at small tree counts (see the source note).  Returns (N, K)
-    f32 raw scores.  Trees are summed in tree order by the kernel and by
-    a matrix product in the plain version; the two agree to
-    |d| <= 1e-5 * (1 + |score|)."""
+# ---------------------------------------------------------------------------
+# kernel C's input: the ensemble as node records
+# ---------------------------------------------------------------------------
+class LevelRecords(NamedTuple):
+    """A LevelEnsemble packed once for kernel C (:func:`pack_level_records`).
+
+    Trees are stored in class-major order: position p holds tree
+    ``meta[p, 0]``, all trees of class 0 first, each class's trees in
+    tree order, so a row adds each class's trees in tree order and
+    walks every tree once.  Node i of the tree at position p is record
+    ``p * M + i``; leaf l is ``leaves[p * L + l]``.  A node's 16-byte
+    walk record is::
+
+        walk[., 0] = feat2 << 5 | nan_left << 4 | decision_type
+        walk[., 1] = thr_hi bits,  walk[., 2] = thr_lo bits
+        walk[., 3] = left & 0xFFFF | right << 16
+
+    with feat2 = 2 * feature, nan_left where a NaN value goes at the
+    node read as numerical (which the kernel would otherwise work out
+    from the missing type on every visit), and the children as
+    tree-local codes (i >= 0: node i of the same tree; -(l) - 1: leaf l
+    of it), valid while a tree has at most 32,767 nodes and 32,768
+    leaves.  ``links`` keeps the flat child ids as the
+    LevelEnsemble has them (the walk reads them past that size), and a
+    node's category words are ``cats[(p * M + i) * W:][:W]``."""
+    walk: torch.Tensor     # (T*M, 4) int32
+    links: torch.Tensor    # (T*M, 2) int32 flat {left, right}
+    meta: torch.Tensor     # (T, 4) int32 {tree, class, local root, starts
+                           # its class (1: the first tree of its class)}
+    leaves: torch.Tensor   # (T*L,) f32
+    cats: torch.Tensor     # (T*M*W,) int32
+    num_class: int
+    leaf0: int             # leaves index of flat leaf 0 (what a row
+                           # unsettled after ``depth`` levels adds)
+    max_feat2: int         # largest feat2 of a reachable node (-1: none)
+    has_cat: bool          # some node is categorical
+    empty_classes: bool    # some class has no tree (its score is 0)
+
+
+def record_dims(rec: LevelRecords):
+    """(T, M, L, W): trees, nodes a tree, leaves a tree, category words a
+    node."""
+    T = rec.meta.shape[0]
+    M = rec.walk.shape[0] // T
+    return T, M, rec.leaves.shape[0] // T, rec.cats.shape[0] // (T * M)
+
+
+def _uses_links(M: int, L: int) -> bool:
+    """Children past the walk record's 16-bit tree-local codes."""
+    return M > 32767 or L > 32768
+
+
+def _local(g: torch.Tensor, t: torch.Tensor, M: int, L: int):
+    """Flat child ids -> tree-local codes of tree ``t``."""
+    return torch.where(g >= 0, g - t * M, g + t * L)
+
+
+def _reachable(root, left, right, T: int, M: int, L: int) -> torch.Tensor:
+    """(T*M,) bool: the nodes a walk can reach.  Raises where a root or a
+    reachable node's child lies outside its own tree (the walk reads one
+    tree's records at a time)."""
+    def in_tree(g, t):
+        lf = -g - 1
+        return torch.where(g >= 0, (g >= t * M) & (g < (t + 1) * M),
+                           (lf >= t * L) & (lf < (t + 1) * L))
+
+    if not bool(in_tree(root, torch.arange(T)).all()):
+        raise ValueError("LevelEnsemble: a root lies outside its tree")
+    reach = torch.zeros(T * M, dtype=torch.bool)
+    front = root[root >= 0]
+    while front.numel():
+        reach[front] = True
+        ch = torch.cat([left[front], right[front]])
+        if not bool(in_tree(ch, torch.cat([front // M] * 2)).all()):
+            raise ValueError("LevelEnsemble: a reachable node's child lies "
+                             "outside its tree")
+        nxt = ch[ch >= 0].unique()
+        front = nxt[~reach[nxt]]
+    return reach
+
+
+def _nan_left(s: LevelEnsemble) -> torch.Tensor:
+    """(T*M,) bool: where _goes_left sends a NaN value (its lo part 0, as
+    split_hi_lo makes it) at each node, read as numerical: the default
+    direction under the zero and NaN missing types, else the compare of
+    (0, 0), to which the NaN is converted."""
+    nan = torch.full_like(s.thr_hi, float("nan"))
+    zero = torch.zeros_like(nan)
+    return _goes_left(nan, zero, s.dtype_ & ~K_CATEGORICAL_MASK, s.thr_hi,
+                      s.thr_lo, lambda w: zero.to(torch.int32), 1)
+
+
+def pack_level_records(stack: LevelEnsemble) -> LevelRecords:
+    """Pack a LevelEnsemble into kernel C's node records, once per
+    ensemble (plain torch on the host; the result lies on the stack's
+    device).  Raises on what the records cannot hold: a cls_onehot row
+    that is not one-hot, a decision type past 4 bits, an odd or negative
+    feat2 or one from 2**26, a root or reachable child outside its
+    tree.  :func:`unpack_level_records` gives every field back bit for
+    bit."""
+    dev = stack.feat2.device
+    s = LevelEnsemble(*(t.detach().to("cpu") for t in stack))
+    if s.cls_onehot.dim() != 2 or s.root.dim() != 1:
+        raise ValueError("LevelEnsemble: cls_onehot must be (T, K), root "
+                         "(T,)")
+    T, K = s.cls_onehot.shape
+    TM = s.feat2.shape[0]
+    if T < 1 or K < 1 or s.root.shape[0] != T or TM < T or TM % T \
+            or s.leaf_value.shape[0] % T or s.cat_words.shape[0] % TM \
+            or s.cat_words.shape[0] < TM \
+            or any(getattr(s, f).shape != (TM,) for f in (
+                "thr_hi", "thr_lo", "dtype_", "left", "right")):
+        raise ValueError("LevelEnsemble: field lengths do not stack T "
+                         "trees of M nodes, L leaves and W >= 1 category "
+                         "words a node")
+    M, L, W = TM // T, s.leaf_value.shape[0] // T, s.cat_words.shape[0] // TM
+    cls = s.cls_onehot
+    if not bool((((cls == 0) | (cls == 1)).all()) & (cls.sum(1) == 1).all()):
+        raise ValueError("LevelEnsemble: every cls_onehot row must be "
+                         "one-hot")
+    f2, dt = s.feat2.long(), s.dtype_.long()
+    if bool(((dt < 0) | (dt > 15)).any()):
+        raise ValueError("LevelEnsemble: decision types must fit 4 bits")
+    if bool(((f2 < 0) | (f2 >= 1 << 26) | (f2 % 2 != 0)).any()):
+        raise ValueError("LevelEnsemble: feat2 must be 2 * feature with "
+                         "feature < 2**25")
+    left, right, root = s.left.long(), s.right.long(), s.root.long()
+    reach = _reachable(root, left, right, T, M, L)
+    t_node = torch.arange(TM) // M
+    lr = (_local(left, t_node, M, L) & 0xFFFF) \
+        | ((_local(right, t_node, M, L) & 0xFFFF) << 16)
+    lr = torch.where(lr >= 1 << 31, lr - (1 << 32), lr)
+    walk = torch.stack([(f2 << 5) | (_nan_left(s).long() << 4) | dt,
+                        s.thr_hi.view(torch.int32).long(),
+                        s.thr_lo.view(torch.int32).long(), lr], 1)
+    tree_class = cls.argmax(1)
+    order = torch.sort(tree_class, stable=True).indices
+    cls_p = tree_class[order]
+    starts = torch.ones(T, dtype=torch.long)
+    starts[1:] = (cls_p[1:] != cls_p[:-1]).long()
+    meta = torch.stack([order, cls_p, _local(root[order], order, M, L),
+                        starts], 1)
+
+    def by_position(a, width):
+        return a.reshape(T, width)[order].reshape(a.shape).contiguous()
+
+    return LevelRecords(
+        walk=by_position(walk.to(torch.int32), M * 4).to(dev),
+        links=by_position(torch.stack([s.left, s.right], 1), M * 2).to(dev),
+        meta=meta.to(torch.int32).contiguous().to(dev),
+        leaves=by_position(s.leaf_value, L).to(dev),
+        cats=by_position(s.cat_words, M * W).to(dev),
+        num_class=int(K),
+        leaf0=int((order == 0).nonzero()[0, 0]) * L,
+        max_feat2=int(f2[reach].max()) if bool(reach.any()) else -1,
+        has_cat=bool((dt & K_CATEGORICAL_MASK).any()),
+        empty_classes=int(tree_class.unique().numel()) < K)
+
+
+def unpack_level_records(rec: LevelRecords) -> LevelEnsemble:
+    """The LevelEnsemble that :func:`pack_level_records` packed."""
+    T, M, L, W = record_dims(rec)
+    inv = torch.argsort(rec.meta[:, 0].long())
+
+    def by_tree(a, width):
+        return a.reshape(T, width)[inv].reshape(a.shape).contiguous()
+
+    walk = by_tree(rec.walk, M * 4)
+    links = by_tree(rec.links, M * 2)
+    meta = rec.meta[inv]
+    t = torch.arange(T, device=meta.device, dtype=torch.int32)
+    rl = meta[:, 2]
+    return LevelEnsemble(
+        feat2=walk[:, 0] >> 5, thr_hi=walk[:, 1].contiguous().view(
+            torch.float32),
+        thr_lo=walk[:, 2].contiguous().view(torch.float32),
+        dtype_=walk[:, 0] & 15, left=links[:, 0].contiguous(),
+        right=links[:, 1].contiguous(), leaf_value=by_tree(rec.leaves, L),
+        cat_words=by_tree(rec.cats, M * W),
+        root=torch.where(rl >= 0, rl + t * M, rl - t * L),
+        cls_onehot=torch.nn.functional.one_hot(
+            meta[:, 1].long(), rec.num_class).to(torch.float32))
+
+
+def _walk_records(rec: LevelRecords, X2: torch.Tensor, depth: int):
+    """Kernel C's walk over the records in torch ops: (N, T) final
+    tree-local codes (position order) and the node visits it made (the
+    (row, tree) pairs still walking at each level, summed)."""
+    T, M, L, W = record_dims(rec)
+    n, dev = X2.shape[0], X2.device
+    base = (torch.arange(T, device=dev) * M)[None, :]
+    t_pos = rec.meta[:, 0].long()[None, :]
+    node = rec.meta[:, 2][None, :].expand(n, T).contiguous()
+    visits = 0
+    for _ in range(depth):
+        live = node >= 0
+        n_live = int(live.sum())
+        if n_live == 0:
+            break
+        visits += n_live
+        idx = base + node.clamp(min=0).long()
+        w = rec.walk[idx]                                # (N, T, 4)
+        f2 = (w[..., 0] >> 5).long()
+        go_left = _goes_left(
+            torch.gather(X2, 1, f2), torch.gather(X2, 1, f2 + 1),
+            w[..., 0] & 15, w[..., 1].view(torch.float32),
+            w[..., 2].view(torch.float32),
+            lambda wi: rec.cats[idx * W + wi], W)
+        if _uses_links(M, L):
+            g = rec.links[idx]
+            nxt = _local(torch.where(go_left, g[..., 0], g[..., 1]).long(),
+                         t_pos, M, L)
+        else:
+            lr = w[..., 3]
+            nxt = torch.where(go_left, ((lr & 0xFFFF) ^ 0x8000) - 0x8000,
+                              torch.div(lr, 65536, rounding_mode="floor"))
+        node = torch.where(live, nxt.to(torch.int32), node)
+    return node, visits
+
+
+def predict_level_records_plain(rec: LevelRecords, X2: torch.Tensor, *,
+                                depth: int) -> torch.Tensor:
+    """Plain version of kernel C on its own input (the records): (N, K)
+    f32 raw scores, each row's class sum adding its trees in tree order
+    from 0.0, as the kernel adds them (so the two agree bit for bit)."""
+    T, M, L, W = record_dims(rec)
+    node, _ = _walk_records(rec, X2, depth)
+    leaf = (-node - 1).clamp(min=0).long() \
+        + (torch.arange(T, device=X2.device) * L)[None, :]
+    vals = torch.where(node < 0, rec.leaves[leaf], rec.leaves[rec.leaf0])
+    out = torch.zeros((X2.shape[0], rec.num_class), dtype=torch.float32,
+                      device=X2.device)
+    for j, c in enumerate(rec.meta[:, 1].tolist()):
+        out[:, c] += vals[:, j]
+    return out
+
+
+def level_visits(rec: LevelRecords, X2: torch.Tensor, depth: int) -> int:
+    """Node visits of the walk on this input: the sum over rows and
+    trees of the path length (what the kernel's visit bound counts)."""
+    return _walk_records(rec, X2, depth)[1]
+
+
+# ---------------------------------------------------------------------------
+# kernel C's launch plan
+# ---------------------------------------------------------------------------
+#: threads (rows) a CTA of the shared tier: 256 where two CTAs share an
+#: SM, else 512
+PREDICT_BLOCKS = (256, 512)
+#: the shared memory an H100 CTA may opt in to (227 KB)
+PREDICT_SMEM_LIMIT = 232448
+#: the shared memory each of two CTAs on one SM may take (the SM's 228
+#: KB, less 1 KB a CTA, halved)
+PREDICT_SMEM_PAIR = 115712
+#: batches from this many rows take the shared tier, smaller ones the
+#: global tier: for an ensemble in one chunk, and for one in several
+#: (where every tile copies every chunk, so a wave of tiles must fill the
+#: card first); the crossings measured on the card (PERF.md §6, PR 9)
+SHARED_TIER_MIN_ROWS = 16384
+SHARED_TIER_MIN_ROWS_CHUNKED = 32768
+
+
+class LevelPlan(NamedTuple):
+    """How kernel C walks one batch.  ``tier`` "shared": CTAs of
+    ``threads`` threads, a row each, copy ``trees_per_chunk`` trees'
+    records, meta and leaf values (and their category words where
+    ``cat_shared``) into shared memory, chunk after chunk, with the
+    tile's (hi, lo) pairs staged there too where ``stage_x``;
+    ``smem_bytes`` a CTA.  "global": a warp a row, its lanes on 32 trees
+    at a time, reading the records from device memory (children from
+    ``links`` where ``links``)."""
+    tier: str
+    links: bool
+    stage_x: bool
+    cat_shared: bool
+    threads: int
+    trees_per_chunk: int
+    chunks: int
+    smem_bytes: int
+
+
+def level_plan(rec: LevelRecords, n: int, f2: int, *, tier=None,
+               chunk_bytes=None) -> LevelPlan:
+    """Kernel C's plan for ``n`` rows of an (n, ``f2``) matrix.  Without
+    ``tier``, a batch takes the shared tier where its trees fit shared
+    memory and it has SHARED_TIER_MIN_ROWS rows (SHARED_TIER_MIN_ROWS_
+    CHUNKED where the ensemble takes several chunks), else the global
+    tier.  In the shared tier, an ensemble that fits one chunk beside a
+    256-row tile within PREDICT_SMEM_PAIR takes CTAs of 256 threads (two
+    an SM); any other, 512 (one an SM, as many warps, and each chunk's
+    copy amortised over twice the rows).  ``chunk_bytes`` caps a chunk's
+    shared bytes (records, meta, leaf values, category words; by default
+    what the limit leaves beside the staged rows) and takes 512-thread
+    CTAs; the kernel refuses a CTA past PREDICT_SMEM_LIMIT."""
+    T, M, L, W = record_dims(rec)
+    links = _uses_links(M, L)
+    per_tree = M * 16 + 16 + L * 4
+    cat_tree = M * W * 4
+    fits = not links and per_tree <= PREDICT_SMEM_LIMIT
+    if tier not in (None, "shared", "global"):
+        raise ValueError(f"unknown tier {tier!r}")
+    global_plan = LevelPlan("global", links, False, False, 0, T, 1, 0)
+    if tier == "global" or (tier is None and not fits):
+        return global_plan
+    if not fits:
+        raise ValueError("a tree's records do not fit shared memory (or "
+                         "need flat child ids): use the global tier")
+    row_bytes = ((f2 // 2) | 1) * 8          # a staged row: F | 1 pairs
+    whole = T * (per_tree + (cat_tree if rec.has_cat else 0))
+    threads = PREDICT_BLOCKS[0] if chunk_bytes is None and \
+        whole + PREDICT_BLOCKS[0] * row_bytes <= PREDICT_SMEM_PAIR \
+        else PREDICT_BLOCKS[1]
+    x_bytes = threads * row_bytes
+    stage_x = x_bytes + per_tree <= PREDICT_SMEM_LIMIT
+    budget = chunk_bytes if chunk_bytes is not None else \
+        PREDICT_SMEM_LIMIT - (x_bytes if stage_x else 0)
+    cat_shared = rec.has_cat and per_tree + cat_tree <= budget
+    per = per_tree + (cat_tree if cat_shared else 0)
+    if budget < per:
+        raise ValueError(f"chunk_bytes {budget} holds no tree ({per} "
+                         "bytes)")
+    tpc = min(T, budget // per)
+    chunks = -(-T // tpc)
+    if tier is None and n < (SHARED_TIER_MIN_ROWS if chunks == 1
+                             else SHARED_TIER_MIN_ROWS_CHUNKED):
+        return global_plan
+    return LevelPlan("shared", False, stage_x, cat_shared, threads, tpc,
+                     chunks,
+                     tpc * per + (x_bytes if stage_x else 0))
+
+
+def predict_level_ensemble(ens, X2: torch.Tensor, *, depth: int,
+                           tier=None, chunk_bytes=None) -> torch.Tensor:
+    """Ensemble level descent: (N, K) f32 raw scores of the interleaved
+    (N, 2F) hi/lo matrix ``X2``.  ``ens`` is a LevelRecords, or a
+    LevelEnsemble packed here (pack once and pass the records where an
+    ensemble serves many calls).  Kernel C (csrc/predict_level.cu) on
+    CUDA tensors, in the tier :func:`level_plan` picks (``tier`` and
+    ``chunk_bytes`` as there); its plain version
+    :func:`predict_level_records_plain` on CPU tensors.  Kernel C
+    replaces the Pallas kernel in predict_level_ensemble_pallas
+    (lightgbm_tpu/ops/predict.py:326).  Each row's class sum adds its
+    trees in tree order from 0.0 whatever the tier, chunk or grid; the
+    JAX function sums them by a matrix product
+    (:func:`predict_level_ensemble_plain`), and the two agree to |d| <=
+    1e-5 * (1 + |score|)."""
     if X2.dtype != torch.float32 or X2.dim() != 2 \
             or not X2.is_contiguous():
         raise ValueError("X2 must be a contiguous (N, 2F) float32 matrix")
-    for name, t, dt in (("feat2", stack.feat2, torch.int32),
-                        ("thr_hi", stack.thr_hi, torch.float32),
-                        ("thr_lo", stack.thr_lo, torch.float32),
-                        ("dtype_", stack.dtype_, torch.int32),
-                        ("left", stack.left, torch.int32),
-                        ("right", stack.right, torch.int32),
-                        ("leaf_value", stack.leaf_value, torch.float32),
-                        ("cat_words", stack.cat_words, torch.int32),
-                        ("root", stack.root, torch.int32),
-                        ("cls_onehot", stack.cls_onehot, torch.float32)):
+    rec = ens if isinstance(ens, LevelRecords) else pack_level_records(ens)
+    for name, dt in (("walk", torch.int32), ("links", torch.int32),
+                     ("meta", torch.int32), ("leaves", torch.float32),
+                     ("cats", torch.int32)):
+        t = getattr(rec, name)
         if t.dtype != dt or not t.is_contiguous() or t.device != X2.device:
-            raise ValueError(f"LevelEnsemble.{name}: expected contiguous "
+            raise ValueError(f"LevelRecords.{name}: expected contiguous "
                              f"{dt} on {X2.device}")
+    n, f2 = X2.shape
+    if rec.max_feat2 + 1 >= f2 and rec.max_feat2 >= 0:
+        raise ValueError(f"X2 has {f2 // 2} features; the ensemble splits "
+                         f"on feature {rec.max_feat2 // 2}")
     if X2.device.type == "cpu":
-        return predict_level_ensemble_plain(stack, X2, depth=depth)
+        return predict_level_records_plain(rec, X2, depth=depth)
     if X2.device.type != "cuda":
         raise ValueError(f"unsupported device {X2.device}")
-    n, f2 = X2.shape
-    T, K = stack.cls_onehot.shape
-    M = stack.feat2.shape[0]
-    W = stack.cat_words.shape[0] // max(M, 1)
-    tree_class = stack.cls_onehot.argmax(dim=1).to(torch.int32).contiguous()
-    out = torch.empty((n, K), dtype=torch.float32, device=X2.device)
-    kernels.launch("predict_level", stack.feat2.data_ptr(),
-                   stack.thr_hi.data_ptr(), stack.thr_lo.data_ptr(),
-                   stack.dtype_.data_ptr(), stack.left.data_ptr(),
-                   stack.right.data_ptr(), stack.leaf_value.data_ptr(),
-                   stack.cat_words.data_ptr(), stack.root.data_ptr(),
-                   tree_class.data_ptr(), X2.data_ptr(), out.data_ptr(),
-                   n, f2, T, W, stack.leaf_value.shape[0], K, int(depth))
+    if X2.data_ptr() % 8:
+        raise ValueError("X2 must be 8-byte aligned (its (hi, lo) pairs "
+                         "are read as float2)")
+    out = (torch.zeros if rec.empty_classes else torch.empty)(
+        (n, rec.num_class), dtype=torch.float32, device=X2.device)
+    if n == 0:
+        return out
+    plan = level_plan(rec, n, f2, tier=tier, chunk_bytes=chunk_bytes)
+    sms = 0
+    if plan.tier == "shared":
+        from .histogram import _num_sms
+        sms = _num_sms(X2.device.index or 0)
+    kernels.launch(*level_launch_args(rec, plan, X2, out, depth, sms))
     return out
+
+
+def level_launch_args(rec: LevelRecords, plan: LevelPlan, X2: torch.Tensor,
+                      out: torch.Tensor, depth: int, sms: int) -> tuple:
+    """(kernel name, its C entry point's arguments but the stream) of one
+    launch of kernel C's tier ``plan.tier``; ``sms``: the card's SMs."""
+    T, M, L, W = record_dims(rec)
+    n, f2 = X2.shape
+    if plan.tier == "shared":
+        cat_mode = (1 if plan.cat_shared else 2) if rec.has_cat else 0
+        return ("predict_level", rec.walk.data_ptr(), rec.meta.data_ptr(),
+                rec.leaves.data_ptr(), rec.cats.data_ptr(), X2.data_ptr(),
+                out.data_ptr(), n, f2 // 2, plan.threads,
+                int(plan.stage_x), T, M, L, W, rec.num_class,
+                plan.trees_per_chunk, int(depth), rec.leaf0, cat_mode,
+                plan.smem_bytes, sms)
+    return ("predict_level_global", rec.walk.data_ptr(), rec.links.data_ptr(),
+            rec.meta.data_ptr(), rec.leaves.data_ptr(), rec.cats.data_ptr(),
+            X2.data_ptr(), out.data_ptr(), n, f2, T, M, L, W, rec.num_class,
+            int(depth), rec.leaf0, int(plan.links), int(rec.has_cat))
 
 
 def predict_binned(tree: dict, bins: torch.Tensor, f_group: torch.Tensor,

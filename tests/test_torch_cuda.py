@@ -21,6 +21,8 @@ from lightgbm_tpu_torch.ops.partition import (apply_partition, block_slots,
                                               build_route_table)
 from lightgbm_tpu_torch.tree import Tree, flatten_ensemble
 
+import torch_predict_cases as C
+
 pytestmark = pytest.mark.cuda
 
 F32_ULP = 2.0 ** -23
@@ -211,6 +213,80 @@ def test_predict_level_kernel_matches_plain(dev):
     got = P.predict_level_ensemble(stack, x2, depth=depth)
     want = P.predict_level_ensemble_plain(stack, x2, depth=depth)
     assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+
+
+def _records_case(dev, name, n):
+    flat, depth, _, F, cats = C.ensemble(name)
+    stack = P.level_ensemble_from_numpy(flat, dev)
+    x2 = torch.from_numpy(P.interleave_hi_lo(C.rows(n, F, cats=cats))).to(dev)
+    return stack, P.pack_level_records(stack), x2, depth
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 5001])
+@pytest.mark.parametrize("name", sorted(C.ENSEMBLES))
+def test_predict_level_tiers_match_plain(dev, name, n):
+    """Both tiers of kernel C on each test ensemble (the bench's leaf-wise
+    trees, 500 trees in many chunks, K = 3, categorical bitsets of two
+    words, stumps only, a tree past 16-bit child codes) at one row and at
+    a row count no multiple of the tile: equal bit for bit to each other
+    and to the records' plain walk (both add a row's trees in tree order
+    from 0.0), within 1e-5 * (1 + |score|) of the JAX form's plain
+    version (a matrix product)."""
+    stack, rec, x2, depth = _records_case(dev, name, n)
+    want = P.predict_level_ensemble_plain(stack, x2, depth=depth)
+    plain = P.predict_level_records_plain(rec, x2, depth=depth)
+    tiers = ["global"] if name == "wide tree" else ["global", "shared"]
+    for tier in tiers:
+        key = "predict_level" if tier == "shared" else "predict_level_global"
+        n0 = kernels.LAUNCHES[key]
+        got = P.predict_level_ensemble(rec, x2, depth=depth, tier=tier)
+        assert kernels.LAUNCHES[key] == n0 + 1
+        assert torch.equal(_bits(got), _bits(plain)), tier
+        assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("name", ["bench-like", "500 trees", "K=3",
+                                  "categorical"])
+def test_predict_level_chunk_sizes_bit_identical(dev, name):
+    """The shared tier at its own chunk plan and at chunks of two trees
+    (category words in or out of shared memory), and the global tier,
+    give the same bits."""
+    _, rec, x2, depth = _records_case(dev, name, 3000)
+    T, M, L, W = P.record_dims(rec)
+    want = P.predict_level_ensemble(rec, x2, depth=depth, tier="global")
+    for chunk in (None, 2 * (M * 16 + 16 + L * 4),
+                  2 * (M * 16 + 16 + L * 4 + M * W * 4)):
+        plan = P.level_plan(rec, 3000, x2.shape[1], tier="shared",
+                            chunk_bytes=chunk)
+        got = P.predict_level_ensemble(rec, x2, depth=depth, tier="shared",
+                                       chunk_bytes=chunk)
+        assert torch.equal(_bits(got), _bits(want)), plan
+
+
+def test_predict_level_repeats_bit_identical(dev):
+    """A 200,000-row launch of the shared tier, twenty times: the same
+    bits every time."""
+    _, rec, x2, depth = _records_case(dev, "bench-like", 200_000)
+    assert P.level_plan(rec, 200_000, x2.shape[1]).tier == "shared"
+    first = P.predict_level_ensemble(rec, x2, depth=depth)
+    for _ in range(20):
+        again = P.predict_level_ensemble(rec, x2, depth=depth)
+        assert torch.equal(_bits(again), _bits(first))
+
+
+def test_predict_level_refused_shared_memory_raises(dev):
+    """A chunk past the card's 227 KB a CTA is refused by the launch, and
+    the wrapper raises (no other tier runs instead)."""
+    _, rec, x2, depth = _records_case(dev, "500 trees", 4096)
+    n0 = kernels.LAUNCHES["predict_level_global"]
+    with pytest.raises(RuntimeError, match="predict_level"):
+        P.predict_level_ensemble(rec, x2, depth=depth, tier="shared",
+                                 chunk_bytes=300_000)
+    assert kernels.LAUNCHES["predict_level_global"] == n0
 
 
 def _float_inputs(dev, pack, quant, N=6000, G=7, B=36, L=48, seed=9):
