@@ -19,13 +19,15 @@ Phases, in order; any failure exits nonzero:
      launches on one input; the ensemble predict kernel C in both its
      tiers (records in shared memory; a warp a row from device memory)
      within |d| <= 1e-5 * (1 + |score|) and the two tiers bit for bit,
-     on 10 random depth-8 trees at 1,000,000 rows and 500 at 200,000
-     (many chunks), each with its byte bound and its bound from the
-     node visits the plain walk counts.  The int8 kernels G (tiled_hist), H
-     (route_only), I (bins_hist_q, bins_hist_q_packed) and J (seg_hist,
-     on the leaf partition of the leaf ids, whose build is timed too)
-     are checked at W=126 and on the first round too, I's pallas_q
-     entry and J also over all 255 leaves, I at 255 bins.  Each kernel
+     on 10 random depth-8 trees at 1,000,000 rows, 500 at 200,000
+     (many chunks) and 500 with K = 5 classes at 200,000 (100 trees a
+     class, chunks that end inside a class), each with its byte bound
+     and its bound from the node visits the plain walk counts.  The
+     int8 kernels G (tiled_hist), H (route_only), I (bins_hist_q,
+     bins_hist_q_packed) and J (seg_hist, on the leaf partition of the
+     leaf ids, whose build is timed too) are checked at W=126 and on
+     the first round too, I's pallas_q entry and J also over all 255
+     leaves, I at 255 bins.  Each kernel
      is timed (median of CUDA-event timed launches) beside its bound,
      its plain version's time and one torch call that computes the same
      histogram (torch.mm of bf16 operands for the f32 weights,
@@ -67,6 +69,17 @@ Phases, in order; any failure exits nonzero:
      transform, hold both tiers against the plain version at 200,000
      and 16 rows, time the global tier at 1 and 1,000 rows, compare
      with the host walk, and check the AUC;
+  5. train other objectives at the bench shape on the fused_tiled plan
+     (kernels A and B, counters zeroed before each run), the label
+     X @ w + 0.5 sin(3 X0) X1 + N(0, 1): (a) regression, 3 trees, whose
+     held-out l2 must fall each tree and end below the held-out label
+     variance; (b) regression_l1, 3 trees (leaves re-fit to residual
+     medians after kernel B routes), whose held-out l1 must fall; (c)
+     multiclass on the label's quintiles, 2 iterations of 5 trees,
+     whose held-out multi_logloss must fall and end below ln 5; predict
+     (c)'s held-out rows through Booster.predict (kernel C with K = 5;
+     rows must sum to 1 within 1e-5) and hold C's two tiers on its
+     ensemble at 200,000 and 16 rows against the plain version;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -394,14 +407,25 @@ def check_kernels(dev, n, rehearse, card):
 
     # ---- kernel C in both tiers, on random ensembles with NaN / zero /
     # categorical nodes: (b) 10 depth-8 trees at the phase's rows, (c)
-    # 500 at 200,000 rows (many chunks of shared memory)
+    # 500 at 200,000 rows (many chunks of shared memory), (k5) 500 with
+    # K = 5 classes, 100 a class, at 200,000 rows: a class's sum crosses
+    # the chunks that end inside it
     F = 28
     cats = {3, 7}
-    for key, T, rows in (("b", 10, n), ("c", 500, min(n, 200_000))):
+    for key, T, K, rows in (("b", 10, 1, n), ("c", 500, 1, min(n, 200_000)),
+                            ("k5", 500, 5, min(n, 200_000))):
         trees = random_trees(rng, T, 8, F, cats)
-        flat = flatten_ensemble(trees, 1)
+        flat = flatten_ensemble(trees, K)
         depth = int(flat.pop("depth"))
         stack = P.level_ensemble_from_numpy(flat, dev)
+        if K > 1:
+            per_class = T // K
+            plan = P.level_plan(P.pack_level_records(stack), rows, 2 * F,
+                                tier="shared")
+            if plan.chunks < 2 or per_class % plan.trees_per_chunk == 0:
+                raise AssertionError(
+                    f"({key}): chunks of {plan.trees_per_chunk} trees do "
+                    f"not end inside a class of {per_class}")
         X = rng.randn(rows, F)
         X[rng.rand(rows, F) < 0.05] = np.nan
         X[rng.rand(rows, F) < 0.05] = 0.0
@@ -409,7 +433,7 @@ def check_kernels(dev, n, rehearse, card):
             X[:, c] = rng.randint(-1, 45, rows)
         x2 = torch.from_numpy(P.interleave_hi_lo(X)).to(dev)
         res = check_level(P, stack, x2, depth, dev, reps, card,
-                          f"({key}) {T} depth-8 trees, {rows} rows")
+                          f"({key}) {T} depth-8 trees, K = {K}, {rows} rows")
         for name, nums in res.items():
             out.setdefault(name, {}).update(
                 {f"{k}_{key}": v for k, v in nums.items()})
@@ -1179,6 +1203,122 @@ def train_plan(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
     return bst, auc, dict(kernels.LAUNCHES)
 
 
+def train_objective(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
+                    card, label, metric):
+    """Phase 5: one lgb.train run of another objective, the launch
+    counters zeroed just before it; it must resolve fused_tiled and
+    launch kernels A and B (their plain versions in the rehearsal).
+    Returns (booster, the held-out metric after each iteration)."""
+    import torch
+    evals = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bst = lgb.train(params, train_ds, rounds, valid_sets=[valid_ds],
+                    valid_names=["valid"], evals_result=evals,
+                    verbose_eval=False, keep_training_booster=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    plan = bst.gbdt.grower.plan.name
+    if plan != "fused_tiled":
+        raise AssertionError(f"{label}: resolved the {plan} plan, not "
+                             "fused_tiled")
+    if dev.type == "cuda":
+        for name in ("fused_route_hist", "route_apply"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{label} did not launch {name}")
+    curve = evals["valid"][metric]
+    print(f"[phase 5] {label}: {bst.num_trees()} trees in {train_s:.2f} s: "
+          f"{1e3 * train_s / bst.num_trees():.1f} ms/tree (wall of lgb.train "
+          f"over trees; card {card}); held-out {metric} by iteration "
+          f"{[round(v, 6) for v in curve]}; launches {launches}")
+    return bst, curve
+
+
+def check_objectives(lgb, kernels, P, params, X, w, Xv, dev, card, reps):
+    """Phase 5: regression, regression_l1 and multiclass (5 classes)
+    through lgb.train at the bench shape, each on the fused_tiled plan
+    through kernels A and B, held-out metrics checked; the multiclass
+    booster's Booster.predict through kernel C with K = 5, and C's two
+    tiers on its ensemble held against the plain version."""
+    import torch
+    rng = np.random.RandomState(21)
+
+    def concept(Z):
+        return (Z @ w + 0.5 * np.sin(3 * Z[:, 0]) * Z[:, 1]
+                + rng.randn(Z.shape[0]))
+
+    y, yv = concept(X), concept(Xv)
+    cuts = np.quantile(y, [0.2, 0.4, 0.6, 0.8])
+    base = {k: v for k, v in params.items()
+            if k not in ("objective", "metric")}
+    ref = lgb.Dataset(X, label=y)
+    runs = {}
+    for label, obj, rounds, metric, ys in (
+            ("(a) regression", {"objective": "regression"}, 3, "l2", (y, yv)),
+            ("(b) regression_l1", {"objective": "regression_l1"}, 3, "l1",
+             (y, yv)),
+            ("(c) multiclass", {"objective": "multiclass", "num_class": 5},
+             2, "multi_logloss",
+             (np.digitize(y, cuts), np.digitize(yv, cuts)))):
+        # binned before the timed run, as phase 3's rows are
+        run_params = dict(base, **obj)
+        cfg = lgb.Config.from_params(run_params)
+        train_ds = ref if ys[0] is y else lgb.Dataset(X, label=ys[0],
+                                                      reference=ref)
+        valid_ds = lgb.Dataset(Xv, label=ys[1], reference=ref)
+        valid_ds.construct_aligned(train_ds.construct(cfg), cfg)
+        bst, curve = train_objective(lgb, kernels, run_params, train_ds,
+                                     valid_ds, rounds, dev, card, label,
+                                     metric)
+        if not all(b < a for a, b in zip(curve, curve[1:])):
+            raise AssertionError(f"{label}: held-out {metric} does not fall "
+                                 f"iteration over iteration: {curve}")
+        runs[label] = (bst, curve)
+    l2_end, var = runs["(a) regression"][1][-1], float(np.var(yv))
+    if l2_end >= var:
+        raise AssertionError(f"(a): held-out l2 {l2_end} is not below the "
+                             f"held-out label variance {var}")
+    bst, curve = runs["(c) multiclass"]
+    if bst.num_trees() != 10 or curve[-1] >= np.log(5):
+        raise AssertionError(f"(c): {bst.num_trees()} trees, held-out "
+                             f"multi_logloss {curve[-1]} (ln 5 = "
+                             f"{np.log(5):.6f})")
+    print(f"[phase 5] (a) held-out l2 {l2_end:.6f} against the held-out "
+          f"label variance {var:.6f}; (c) multi_logloss {curve[-1]:.6f} "
+          f"against ln 5 = {np.log(5):.6f}")
+
+    # Booster.predict of the 5-class model: kernel C with K = 5
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    prob = bst.predict(Xv)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    launched = kernels.LAUNCHES["predict_level"]
+    if prob.shape != (Xv.shape[0], 5) or not np.isfinite(prob).all():
+        raise AssertionError(f"(c): predictions of shape {prob.shape}")
+    if np.abs(prob.sum(axis=1) - 1.0).max() > 1e-5:
+        raise AssertionError("(c): the class probabilities do not sum to 1")
+    if dev.type == "cuda" and launched <= 0:
+        raise AssertionError("(c): Booster.predict did not launch "
+                             "predict_level")
+    print(f"[phase 5] (c) Booster.predict of {Xv.shape[0]} rows x 5 "
+          f"classes in {predict_ms:.1f} ms (the first call; predict_level "
+          f"launches {launched}; {card})")
+    pred = bst._predictor[1]
+    stack = P.unpack_level_records(pred.records)
+    x2 = torch.from_numpy(P.interleave_hi_lo(Xv)).to(dev)
+    at = f"(c) 10 trees, K = 5, depth {pred.depth}"
+    main = check_level(P, stack, x2, pred.depth, dev, reps, card,
+                       f"{at}, {Xv.shape[0]} rows", phase=5)
+    few = check_level(P, stack, x2[:16].contiguous(), pred.depth, dev,
+                      reps, card, f"{at}, 16 rows", phase=5)
+    return {"predict_level": {f"{k}_multiclass": v for k, v in
+                              main["predict_level"].items()},
+            "predict_level_global": {f"{k}_multiclass_16_rows": v for k, v
+                                     in few["predict_level_global"].items()}}
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     rehearse = "--rehearse" in argv
@@ -1433,6 +1573,12 @@ def main(argv) -> int:
     if auc <= 0.8 or valid_auc <= 0.8:
         raise AssertionError(f"held-out AUC {auc:.4f} / {valid_auc:.4f} "
                              "is not above 0.8")
+
+    # ---- phase 5: the regression, L1 and 5-class objectives through
+    # lgb.train and Booster.predict on the card
+    for name, extra in check_objectives(lgb, kernels, P, params, X, w, Xv,
+                                        dev, card, reps).items():
+        numbers[name].update(extra)
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")
         return 3

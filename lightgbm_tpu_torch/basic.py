@@ -16,13 +16,15 @@ class Dataset:
     """Lazy dataset handle (the lgb.Dataset analog)."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, feature_name: Union[str, Sequence[str]] = "auto",
+                 weight=None, init_score=None,
+                 feature_name: Union[str, Sequence[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
                  params: Optional[Dict[str, Any]] = None):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
@@ -47,6 +49,8 @@ class Dataset:
             data, label=self.label, weight=self.weight, config=config,
             categorical_features=cats, feature_names=names,
             reference=ref_core)
+        # (K, N) class-major, flattened (or (N,) with one class)
+        self._core.metadata.set_init_score(self.init_score)
         return self._core
 
     def construct_aligned(self, ref_core, config) -> CoreDataset:

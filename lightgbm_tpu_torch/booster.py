@@ -53,6 +53,22 @@ class _DevicePredictor:
         return out
 
 
+def _objective_to_string(config: Config) -> str:
+    """The model text's ``objective=`` value (lightgbm_tpu/booster.py
+    _objective_to_string)."""
+    o = config.objective
+    if o == "binary":
+        return f"binary sigmoid:{config.sigmoid:g}"
+    if o in ("multiclass", "multiclassova"):
+        s = f"{o} num_class:{config.num_class}"
+        if o == "multiclassova":
+            s += f" sigmoid:{config.sigmoid:g}"
+        return s
+    if o == "regression" and config.reg_sqrt:
+        return "regression sqrt"
+    return o
+
+
 class Booster:
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
@@ -90,7 +106,7 @@ class Booster:
         self.feature_names = train_set.feature_names
         self.feature_infos = train_set.feature_infos()
         self.max_feature_idx = train_set.num_total_features - 1
-        self.objective_str = f"binary sigmoid:{self.config.sigmoid:g}"
+        self.objective_str = _objective_to_string(self.config)
 
     # ------------------------------------------------------------------
     def update(self) -> bool:

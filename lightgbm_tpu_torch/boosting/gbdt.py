@@ -1,10 +1,12 @@
-"""Gradient boosting: one tree per iteration, scores kept on the device.
+"""Gradient boosting: K trees an iteration, (K, N) scores kept on the
+device.
 
 Port of the plain-GBDT path of lightgbm_tpu/boosting/gbdt.py
-(train_one_iter: gradients, tree growth, score update from the exit
-route's per-row leaf values or, on the plans without one, from each
-row's leaf, validation scores through the binned tree walk).  Bagging, DART, GOSS, RF, custom objectives and chunked dispatch
-are not ported yet.
+(train_one_iter: gradients per class, tree growth, the leaf refit of
+the renewing objectives, score update from the exit route's per-row
+leaf values or from each row's leaf, validation scores through the
+binned tree walk; init scores and boost_from_average).  Bagging, DART,
+GOSS, RF, custom objectives and chunked dispatch are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,26 +21,41 @@ from ..learner.grower import TreeGrower
 from ..metrics import Metric, create_metrics
 from ..objectives import create_objective
 from ..ops.histogram import leaf_value_broadcast
+from ..ops.percentile import leaf_percentiles
 from ..ops.predict import predict_binned
 from ..tree import Tree
 from ..utils.device import resolve_device
 from ..utils.log import Log
 
 
+def _score_rows(metadata, num_class: int, num_data: int,
+                init_score: float) -> np.ndarray:
+    """(K, N) f32 starting scores: the dataset's init score laid out
+    class-major, plus the boost-from-average score."""
+    base = np.zeros((num_class, num_data), dtype=np.float32)
+    if metadata.init_score is not None:
+        base += metadata.init_score.reshape(
+            num_class, num_data).astype(np.float32)
+    base += init_score
+    return base
+
+
 class _ValidSet:
     """Per-validation-set device state (the ScoreUpdater analog)."""
 
-    def __init__(self, dataset: Dataset, init_score: float,
+    def __init__(self, dataset: Dataset, num_class: int, init_score: float,
                  metrics: List[Metric], device: torch.device):
         self.bins = torch.from_numpy(np.ascontiguousarray(
             dataset.logical_group_bins())).to(device)
-        self.scores = torch.full((dataset.num_data,), init_score,
-                                 dtype=torch.float32, device=device)
+        self.scores = torch.from_numpy(_score_rows(
+            dataset.metadata, num_class, dataset.num_data,
+            init_score)).to(device)
         self.metrics = metrics
 
 
 class GBDT:
-    """Gradient Boosting Decision Tree trainer (binary objective)."""
+    """Gradient Boosting Decision Tree trainer: K trees an iteration
+    (K = 1 but for the multiclass objectives)."""
 
     def __init__(self, config: Config, train_set: Dataset):
         if config.boosting_type != "gbdt":
@@ -46,14 +63,13 @@ class GBDT:
                 f"boosting_type={config.boosting_type} is not ported yet")
         if config.bagging_freq > 0 and config.bagging_fraction < 1.0:
             raise NotImplementedError("bagging is not ported yet")
-        if train_set.metadata.init_score is not None:
-            raise NotImplementedError("init_score is not ported yet")
         self.config = config
         self.device = resolve_device(config)
         self.train_set = train_set
         self.num_data = train_set.num_data
         self.objective = create_objective(config)
         self.objective.init(train_set.metadata, self.num_data, self.device)
+        self.num_class = config.num_tree_per_iteration
         self.shrinkage_rate = config.learning_rate
         self.grower = TreeGrower(train_set, config, self.device)
         self.models: List[Tree] = []
@@ -62,12 +78,16 @@ class GBDT:
         self.valid_sets: List[_ValidSet] = []
         self.valid_names: List[str] = []
 
+        # boost_from_average (reference gbdt.cpp:362-384): one class and
+        # no init score only
         self.init_score = 0.0
-        if config.boost_from_average:
+        if (config.boost_from_average and self.num_class == 1
+                and train_set.metadata.init_score is None):
             self.init_score = float(self.objective.boost_from_score())
-        base = np.full(self.num_data, self.init_score, dtype=np.float32)
-        self.scores = torch.from_numpy(self.grower.pad_rows(base)).to(
-            self.device)
+        base = _score_rows(train_set.metadata, self.num_class,
+                           self.num_data, self.init_score)
+        self.scores = torch.from_numpy(np.stack(
+            [self.grower.pad_rows(b) for b in base])).to(self.device)
         self._full_counts = torch.from_numpy(self.grower.pad_rows(
             np.ones(self.num_data, dtype=np.float32))).to(self.device)
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
@@ -96,8 +116,9 @@ class GBDT:
         metrics = create_metrics(self.config)
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data, self.device)
-        self.valid_sets.append(_ValidSet(valid_set, self.init_score,
-                                         metrics, self.device))
+        self.valid_sets.append(_ValidSet(valid_set, self.num_class,
+                                         self.init_score, metrics,
+                                         self.device))
         self.valid_names.append(name)
 
     def add_train_metrics(self) -> None:
@@ -118,48 +139,93 @@ class GBDT:
             mask[self._feat_rng.choice(F, size=used, replace=False)] = True
         return torch.from_numpy(mask).to(self.device)
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration (reference gbdt.cpp:386-481).  Returns
-        True when training must stop (the tree found no split)."""
-        g, h = self.objective.get_gradients(self.scores[:self.num_data])
+    def _gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(K, n_padded) gradients and hessians of the current scores,
+        zero on padded rows (lightgbm_tpu/boosting/gbdt.py:304-325)."""
+        s = self.scores[:, :self.num_data]
+        if self.num_class == 1:
+            g, h = self.objective.get_gradients(s[0])
+            g, h = g[None, :], h[None, :]
+        else:
+            g, h = self.objective.get_gradients(s.t())
+            g, h = g.t(), h.t()
         pad = self.grower.n_padded - self.num_data
         if pad:
             g = torch.nn.functional.pad(g, (0, pad))
             h = torch.nn.functional.pad(h, (0, pad))
+        keep = self._full_counts > 0
+        return g * keep, h * keep
+
+    def _renew_leaf_values(self, tree, leaf_id: torch.Tensor,
+                           k: int) -> None:
+        """Re-fit the leaf values to the objective's percentile of the
+        residuals in each leaf (RenewTreeOutput; lightgbm_tpu/boosting/
+        gbdt.py:1255-1294), in place."""
+        n = self.num_data
+        obj = self.objective
+        residual = obj._label_dev - self.scores[k, :n]
+        if hasattr(obj, "_label_weight_dev"):
+            w = obj._label_weight_dev          # MAPE's label weights
+        else:
+            w = obj._weight_dev
+        # in-bag rows only: the rest take leaf -1 and are ignored
+        lid = torch.where(self._full_counts[:n] > 0, leaf_id[:n],
+                          torch.full_like(leaf_id[:n], -1))
+        new_values = leaf_percentiles(residual, lid, self.config.num_leaves,
+                                      obj.renew_alpha, w)
+        tree["leaf_value"] = torch.where(tree["leaf_count"] > 0, new_values,
+                                         tree["leaf_value"])
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration (reference gbdt.cpp:386-481): K trees
+        on the gradients of the scores before the iteration.  Returns
+        True when training must stop: no class's tree found a split."""
+        g, h = self._gradients()
         counts = self._full_counts
-        keep = counts > 0
-        g, h = g * keep, h * keep
-        tree, leaf_id, row_val = self.grower.train_tree(
-            g, h, counts, self._feature_mask())
-        if tree["num_leaves"] <= 1:
-            # a no-split tree contributes nothing; the reference stops
-            # here (gbdt.cpp:427-460) and so does the JAX package's
-            # deferred check, which drops the tree
+        shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
+                              device=self.device)
+        renew = self.objective.is_renew_tree_output
+        g_ = self.grower
+        trees = []
+        for k in range(self.num_class):
+            tree, leaf_id, row_val = g_.train_tree(
+                g[k], h[k], counts, self._feature_mask())
+            if renew:
+                self._renew_leaf_values(tree, leaf_id, k)
+            # a tree that could not split contributes nothing (the
+            # reference skips its score update, gbdt.cpp:427-460)
+            ok = float(tree["num_leaves"] > 1)
+            tree["leaf_value"] = tree["leaf_value"] * ok
+            if row_val is not None and not renew:
+                # the exit route carried each row's leaf value
+                delta = row_val * ok * shrink
+            else:
+                delta = leaf_value_broadcast(leaf_id,
+                                             tree["leaf_value"]) * shrink
+            self.scores[k] += delta
+            for vs in self.valid_sets:
+                pv = predict_binned(tree, vs.bins, g_.f_group, g_.g2f_lut,
+                                    g_.f_missing, g_.f_default_bin,
+                                    g_.f_num_bin)
+                vs.scores[k] += pv * shrink
+            trees.append(tree)
+        if max(t["num_leaves"] for t in trees) <= 1:
+            # no class split: the iteration is dropped and training stops,
+            # as the JAX package's deferred check rolls it back
             Log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
             return True
-        shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
-                              device=self.device)
-        if row_val is None:
-            # plans without a fused exit route: look each row's leaf
-            # value up (lightgbm_tpu/boosting/gbdt.py:517-523)
-            row_val = leaf_value_broadcast(leaf_id, tree["leaf_value"])
-        self.scores = self.scores + row_val * shrink
-        g_ = self.grower
-        for vs in self.valid_sets:
-            pv = predict_binned(tree, vs.bins, g_.f_group, g_.g2f_lut,
-                                g_.f_missing, g_.f_default_bin,
-                                g_.f_num_bin)
-            vs.scores = vs.scores + pv * shrink
-        arrs = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-                for k, v in tree.items()}
-        t = Tree.from_grower_arrays(arrs, self.train_set)
-        t.apply_shrinkage(self.shrinkage_rate)
-        if self.iter_ == 0 and self.init_score != 0.0:
-            # fold the init score into the first tree (gbdt.cpp:452-454)
-            t.leaf_value += self.init_score
-            t.internal_value += self.init_score
-        self.models.append(t)
+        for tree in trees:
+            arrs = {key: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                          else v) for key, v in tree.items()}
+            t = Tree.from_grower_arrays(arrs, self.train_set)
+            t.apply_shrinkage(self.shrinkage_rate)
+            if self.iter_ == 0 and self.init_score != 0.0:
+                # fold the init score into the first iteration's tree
+                # (gbdt.cpp:452-454)
+                t.leaf_value += self.init_score
+                t.internal_value += self.init_score
+            self.models.append(t)
         self.iter_ += 1
         return False
 
@@ -169,17 +235,21 @@ class GBDT:
         """(dataset_name, metric_name, value, bigger_is_better) rows."""
         out = []
         if self.train_metrics and which in ("all", "train"):
-            s = self.scores[:self.num_data]
+            s = self._scores_for_eval(self.scores[:, :self.num_data])
             for m in self.train_metrics:
                 for name, v in zip(m.names(), m.eval(s, self.objective)):
                     out.append(("training", name, v, m.bigger_is_better))
         if which in ("all", "valid"):
             for vs, vname in zip(self.valid_sets, self.valid_names):
+                s = self._scores_for_eval(vs.scores)
                 for m in vs.metrics:
-                    for name, v in zip(m.names(),
-                                       m.eval(vs.scores, self.objective)):
+                    for name, v in zip(m.names(), m.eval(s, self.objective)):
                         out.append((vname, name, v, m.bigger_is_better))
         return out
+
+    def _scores_for_eval(self, scores: torch.Tensor) -> torch.Tensor:
+        """(K, N) scores as the metrics take them: (N,), or (N, K)."""
+        return scores[0] if self.num_class == 1 else scores.t()
 
     @property
     def num_trees(self) -> int:

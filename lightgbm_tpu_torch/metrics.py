@@ -1,6 +1,12 @@
-"""Evaluation metrics: ``binary_logloss`` and ``auc``.
+"""Evaluation metrics, computed on the training device.
 
-Port of the binary metrics of lightgbm_tpu/metrics.py.
+Port of lightgbm_tpu/metrics.py: the regression metrics (l2, rmse, l1,
+quantile, huber, fair, poisson, mape, gamma, gamma-deviance, tweedie),
+the binary ones (binary_logloss, binary_error, auc), the multiclass
+ones (multi_logloss, multi_error) and the cross-entropies
+(cross_entropy, cross_entropy_lambda, kldiv), with the registry's
+aliases and each objective's default metric.  ndcg and map wait for
+lambdarank.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ import torch
 
 from .config import Config
 from .dataset import Metadata
+from .objectives import rdiv
 from .utils.log import Log
 
 
@@ -38,17 +45,140 @@ class Metric:
     def eval(self, score: torch.Tensor, objective=None) -> List[float]:
         raise NotImplementedError
 
+    def _avg(self, loss: torch.Tensor) -> torch.Tensor:
+        if self.weight is None:
+            return loss.sum() / self.sum_weight
+        return (loss * self.weight).sum() / self.sum_weight
 
-class BinaryLoglossMetric(Metric):
-    name = "binary_logloss"
+
+class _PointwiseMetric(Metric):
+    """Analog of RegressionMetric<T> (regression_metric.hpp:16-106):
+    the objective's output transform is applied when there is one."""
+
+    def loss(self, label, pred):
+        raise NotImplementedError
+
+    def finalize(self, avg_loss):
+        return avg_loss
 
     def eval(self, score, objective=None):
-        prob = score if objective is None else objective.convert_output(score)
+        pred = score if objective is None else objective.convert_output(score)
+        return [float(self.finalize(self._avg(self.loss(self.label, pred))))]
+
+
+class L2Metric(_PointwiseMetric):
+    name = "l2"
+
+    def loss(self, label, pred):
+        return (pred - label) ** 2
+
+
+class RMSEMetric(L2Metric):
+    name = "rmse"
+
+    def finalize(self, avg_loss):
+        return torch.sqrt(avg_loss)
+
+
+class L1Metric(_PointwiseMetric):
+    name = "l1"
+
+    def loss(self, label, pred):
+        return (pred - label).abs()
+
+
+class QuantileMetric(_PointwiseMetric):
+    name = "quantile"
+
+    def loss(self, label, pred):
+        delta = label - pred
+        return torch.where(delta < 0, (self.config.alpha - 1.0) * delta,
+                           self.config.alpha * delta)
+
+
+class HuberMetric(_PointwiseMetric):
+    name = "huber"
+
+    def loss(self, label, pred):
+        a = self.config.alpha
+        diff = pred - label
+        return torch.where(diff.abs() <= a, 0.5 * diff * diff,
+                           a * (diff.abs() - 0.5 * a))
+
+
+class FairMetric(_PointwiseMetric):
+    name = "fair"
+
+    def loss(self, label, pred):
+        c = self.config.fair_c
+        x = (pred - label).abs()
+        return c * x - c * c * torch.log1p(x / c)
+
+
+class PoissonMetric(_PointwiseMetric):
+    name = "poisson"
+
+    def loss(self, label, pred):
+        pred = torch.clamp(pred, min=1e-10)
+        return pred - label * torch.log(pred)
+
+
+class MAPEMetric(_PointwiseMetric):
+    name = "mape"
+
+    def loss(self, label, pred):
+        return (label - pred).abs() / torch.clamp(label.abs(), min=1.0)
+
+
+class GammaMetric(_PointwiseMetric):
+    """reference regression_metric.hpp:245-261: negative gamma
+    log-likelihood with unit shape (lgamma(1/psi) = 0)."""
+    name = "gamma"
+
+    def loss(self, label, pred):
+        psi = 1.0
+        theta = rdiv(-1.0, torch.clamp(pred, min=1e-10))
+        b = -torch.log(-theta)
+        c = 1.0 / psi * torch.log(label / psi) - torch.log(label)
+        return -((label * theta - b) / psi + c)
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    name = "gamma-deviance"
+
+    def loss(self, label, pred):
+        tmp = label / torch.clamp(pred, min=1e-10)
+        return tmp - torch.log(tmp) - 1.0
+
+    def finalize(self, avg_loss):
+        # the reference returns sum * 2 (no weight normalization)
+        return avg_loss * self.sum_weight * 2.0
+
+
+class TweedieMetric(_PointwiseMetric):
+    name = "tweedie"
+
+    def loss(self, label, pred):
+        rho = self.config.tweedie_variance_power
+        pred = torch.clamp(pred, min=1e-10)
+        a = label * torch.exp((1 - rho) * torch.log(pred)) / (1 - rho)
+        b = torch.exp((2 - rho) * torch.log(pred)) / (2 - rho)
+        return -a + b
+
+
+class BinaryLoglossMetric(_PointwiseMetric):
+    name = "binary_logloss"
+
+    def loss(self, label, prob):
         p = prob.clamp(1e-15, 1 - 1e-15)
-        loss = torch.where(self.label > 0, -torch.log(p), -torch.log(1 - p))
-        if self.weight is not None:
-            loss = loss * self.weight
-        return [float(loss.sum() / self.sum_weight)]
+        return torch.where(label > 0, -torch.log(p), -torch.log(1 - p))
+
+
+class BinaryErrorMetric(_PointwiseMetric):
+    name = "binary_error"
+
+    def loss(self, label, prob):
+        return ((label > 0) != (prob > 0.5)).to(torch.float32)
 
 
 class AUCMetric(Metric):
@@ -80,25 +210,124 @@ class AUCMetric(Metric):
         return [float(accum / denom) if float(denom) > 0 else 1.0]
 
 
-_METRICS = {"binary_logloss": BinaryLoglossMetric,
-            "binary": BinaryLoglossMetric, "auc": AUCMetric}
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, score, objective=None):
+        # score: (N, K) raw, through the objective's transform (softmax
+        # without one)
+        p = (torch.softmax(score, dim=1) if objective is None
+             else objective.convert_output(score))
+        pt = p.gather(1, self.label.to(torch.int64)[:, None])[:, 0]
+        loss = -torch.log(torch.clamp(pt, min=1e-15))
+        return [float(self._avg(loss))]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, score, objective=None):
+        pred = torch.argmax(score, dim=1)
+        wrong = (pred != self.label.to(torch.int64)).to(torch.float32)
+        return [float(self._avg(wrong))]
+
+
+class CrossEntropyMetric(_PointwiseMetric):
+    name = "cross_entropy"
+
+    def loss(self, label, prob):
+        p = prob.clamp(1e-15, 1 - 1e-15)
+        return -(label * torch.log(p) + (1 - label) * torch.log(1 - p))
+
+
+class CrossEntropyLambdaMetric(Metric):
+    """reference xentropy_metric.hpp xentlambda: loss on the hhat scale."""
+    name = "cross_entropy_lambda"
+
+    def eval(self, score, objective=None):
+        hhat = torch.log1p(torch.exp(score))
+        w = torch.ones_like(score) if self.weight is None else self.weight
+        z = (1.0 - torch.exp(-w * hhat)).clamp(1e-15, 1 - 1e-15)
+        loss = -(self.label * torch.log(z)
+                 + (1 - self.label) * torch.log(1 - z))
+        return [float(loss.sum() / self.sum_weight)]
+
+
+class KLDivMetric(Metric):
+    """reference xentropy_metric.hpp kldiv: cross-entropy minus the
+    label entropy."""
+    name = "kldiv"
+
+    def eval(self, score, objective=None):
+        p = torch.sigmoid(score).clamp(1e-15, 1 - 1e-15)
+        y = self.label.clamp(0.0, 1.0)
+        ye = torch.where((y > 0) & (y < 1),
+                         y * torch.log(y) + (1 - y) * torch.log(1 - y),
+                         torch.zeros((), device=y.device))
+        ce = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
+        return [float(self._avg(ce + ye))]
+
+
+_METRIC_REGISTRY = {
+    "l2": L2Metric, "mse": L2Metric, "mean_squared_error": L2Metric,
+    "regression": L2Metric,
+    "rmse": RMSEMetric, "root_mean_squared_error": RMSEMetric,
+    "l2_root": RMSEMetric,
+    "l1": L1Metric, "mae": L1Metric, "mean_absolute_error": L1Metric,
+    "regression_l1": L1Metric,
+    "quantile": QuantileMetric,
+    "huber": HuberMetric,
+    "fair": FairMetric,
+    "poisson": PoissonMetric,
+    "mape": MAPEMetric, "mean_absolute_percentage_error": MAPEMetric,
+    "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric,
+    "gamma-deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
+    "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric,
+    "multi_logloss": MultiLoglossMetric, "multiclass": MultiLoglossMetric,
+    "softmax": MultiLoglossMetric, "multiclassova": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
+    "cross_entropy": CrossEntropyMetric, "xentropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "xentlambda": CrossEntropyLambdaMetric,
+    "kldiv": KLDivMetric, "kullback_leibler": KLDivMetric,
+}
+
+#: names of metrics the JAX package has and the port does not yet
+_NOT_PORTED = ("ndcg", "lambdarank", "map", "mean_average_precision")
+
+DEFAULT_METRIC_FOR_OBJECTIVE = {
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss", "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss", "lambdarank": "ndcg",
+    "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+}
 
 
 def create_metrics(config: Config,
                    names: Optional[Sequence[str]] = None) -> List[Metric]:
-    """Metrics named in the config (the objective's default,
-    binary_logloss, when none is)."""
+    """Factory (reference metric.cpp:11-53): the metrics named in the
+    config, or the objective's default metric when none is."""
     names = list(names if names is not None else config.metric)
     if not names:
-        names = ["binary_logloss"]
+        default = DEFAULT_METRIC_FOR_OBJECTIVE.get(config.objective)
+        names = [default] if default else []
     out = []
     for nm in names:
         nm = nm.strip().lower()
         if nm in ("", "none", "null", "na"):
             continue
-        cls = _METRICS.get(nm)
+        cls = _METRIC_REGISTRY.get(nm)
         if cls is None:
-            Log.warning(f"metric {nm} is not ported yet, ignored")
+            Log.warning(f"metric {nm} is not ported yet, ignored"
+                        if nm in _NOT_PORTED else
+                        f"Unknown metric {nm}, ignored")
             continue
         out.append(cls(config))
     return out

@@ -1588,6 +1588,32 @@ def expand_feature_histograms(group_hist: torch.Tensor,
     return feat + onehot_fix[None, :, :, None] * missing[:, :, None, :]
 
 
+#: below this many rows XLA's CPU backend emits the root totals'
+#: contraction as an 8-lane loop with 4 accumulators; from it on, as a
+#: row-by-row loop (held against the JAX package in
+#: tests/test_torch_objectives_train.py)
+XLA_CPU_VECTOR_DOT_ROWS = 4096
+
+
+def _xla_cpu_column_sums(w: np.ndarray) -> np.ndarray:
+    """(N, C) f32 -> (C,) column sums in the order of XLA's CPU dot:
+    below XLA_CPU_VECTOR_DOT_ROWS rows, 4 accumulators of 8 lanes each
+    take 32 rows a step, then are added one after another and the 8
+    lanes halved pairwise; at or above it, the rows one after
+    another."""
+    n = w.shape[0]
+    if n >= XLA_CPU_VECTOR_DOT_ROWS or n % 32:
+        return np.cumsum(w, axis=0, dtype=np.float32)[-1].copy()
+    acc = np.zeros((4, 8) + w.shape[1:], np.float32)
+    for blk in w.reshape((-1, 4, 8) + w.shape[1:]):
+        acc = acc + blk
+    lanes = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+    while lanes.shape[0] > 1:
+        half = lanes.shape[0] // 2
+        lanes = lanes[:half] + lanes[half:]
+    return lanes[0]
+
+
 def compute_root_totals(grad: torch.Tensor, hess: torch.Tensor,
                         counts: torch.Tensor,
                         row_valid: torch.Tensor) -> torch.Tensor:
@@ -1595,14 +1621,12 @@ def compute_root_totals(grad: torch.Tensor, hess: torch.Tensor,
     ``row_valid`` — the one-leaf case of the JAX package's
     compute_leaf_totals.
 
-    f32 sums depend on order.  On the CPU the rows are added one after
-    another in f32 — the order the JAX package's XLA CPU program uses
-    for this contraction at the test sizes — so CPU runs reproduce its
-    root sums bit for bit; on the card torch's reduction order is
-    used."""
+    f32 sums depend on order.  On the CPU the rows are added in the
+    order the JAX package's XLA CPU program uses for this contraction
+    (_xla_cpu_column_sums), so CPU runs reproduce its root sums bit for
+    bit; on the card torch's reduction order is used."""
     w = torch.stack([grad, hess, counts], dim=1)                 # (N, 3)
     w = torch.where(row_valid[:, None], w, torch.zeros((), device=w.device))
     if w.device.type == "cpu":
-        return torch.from_numpy(np.cumsum(w.numpy(), axis=0,
-                                          dtype=np.float32)[-1].copy())
+        return torch.from_numpy(_xla_cpu_column_sums(w.numpy()))
     return w.sum(dim=0)

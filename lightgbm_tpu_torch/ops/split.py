@@ -41,7 +41,8 @@ CAND_CAT_DIR = 9
 CAND_COLS = 10            # + max_feature_bin cat-mask columns after these
 
 # the f32 prefix-sum order of XLA's CPU backend: 16-wide blocks summed
-# left to right, plus the running total of the earlier blocks
+# left to right, plus the prefix sum (in the same order) of the earlier
+# blocks' totals
 _SCAN_BLOCK = 16
 
 
@@ -58,11 +59,12 @@ def _seq_cumsum(x: torch.Tensor) -> list:
 
 def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 prefix sum along the last axis in a fixed order:
-    16-wide blocks summed left to right, each plus the left-to-right
-    sum of the earlier blocks' totals.  This is the order the JAX
-    package's ``jnp.cumsum`` takes on XLA's CPU backend, so CPU runs of
-    the split finder match it bit for bit; torch.cumsum accumulates in
-    another order (double on the CPU, a parallel scan on the card)."""
+    16-wide blocks summed left to right, each plus the exclusive prefix
+    sum of the earlier blocks' totals, taken by this same rule.  This is
+    the order the JAX package's ``jnp.cumsum`` takes on XLA's CPU
+    backend at any length, so CPU runs match it bit for bit; torch.cumsum
+    accumulates in another order (double on the CPU, a parallel scan on
+    the card)."""
     B = x.shape[-1]
     nb = -(-B // _SCAN_BLOCK)
     pad = nb * _SCAN_BLOCK - B
@@ -71,8 +73,9 @@ def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     xb = x.reshape(x.shape[:-1] + (nb, _SCAN_BLOCK))
     loc = torch.stack(_seq_cumsum(xb), dim=-1)                # (..., nb, 16)
     if nb > 1:
-        tot = _seq_cumsum(loc[..., -1])                       # nb x (...)
-        exc = torch.stack([torch.zeros_like(tot[0])] + tot[:-1], dim=-1)
+        tot = cumsum_f32(loc[..., -1])                        # (..., nb)
+        exc = torch.cat([torch.zeros_like(tot[..., :1]), tot[..., :-1]],
+                        dim=-1)
         loc = loc + exc[..., None]
     return loc.reshape(x.shape)[..., :B]
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from lightgbm_tpu_torch.learner import grower
 from lightgbm_tpu_torch.ops import histogram as H
 from lightgbm_tpu_torch.ops import kernels
 from lightgbm_tpu_torch.ops import predict as P
@@ -21,6 +22,7 @@ from lightgbm_tpu_torch.ops.partition import (apply_partition, block_slots,
                                               build_route_table)
 from lightgbm_tpu_torch.tree import Tree, flatten_ensemble
 
+import lightgbm_tpu_torch as tlgb
 import torch_predict_cases as C
 
 pytestmark = pytest.mark.cuda
@@ -250,7 +252,7 @@ def test_predict_level_tiers_match_plain(dev, name, n):
 
 
 @pytest.mark.parametrize("name", ["bench-like", "500 trees", "K=3",
-                                  "categorical"])
+                                  "K=5, 500 trees", "categorical"])
 def test_predict_level_chunk_sizes_bit_identical(dev, name):
     """The shared tier at its own chunk plan and at chunks of two trees
     (category words in or out of shared memory), and the global tier,
@@ -922,3 +924,72 @@ def test_i32_first_round_repeats_bit_identical(dev, entry):
         assert torch.equal(run(), first)
     assert torch.equal(first, H.tiled_hist_plain(binsT, wT, leaf, slots, B))
     assert int(first[..., 2].sum()) == N * G
+
+
+def _objective_data(kind, n=20_000, F=10, seed=4):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F)
+    X[rng.rand(n, F) < 0.02] = np.nan
+    Z = np.nan_to_num(X)
+    z = Z[:, 0] - 0.5 * Z[:, 1] + 0.5 * np.sin(2 * Z[:, 2]) \
+        + 0.3 * rng.randn(n)
+    y = 3.0 * z if kind == "real" else np.digitize(z, [-1.0, -0.3, 0.3,
+                                                        1.0]).astype(float)
+    return X, y
+
+
+@pytest.mark.parametrize("params,kind,rounds", [
+    ({"objective": "regression"}, "real", 3),
+    ({"objective": "multiclass", "num_class": 5}, "class", 2)],
+    ids=["regression", "multiclass"])
+def test_objective_trains_on_the_card_as_on_the_cpu(dev, monkeypatch,
+                                                    params, kind, rounds):
+    """The main path (fused_tiled: kernels A and B) on another objective:
+    the card's trees have the CPU run's split structure, and leaf values
+    within 1e-6 of the tree's largest; from a multiclass model's second
+    iteration on, within 1e-5: the softmax's ``exp`` differs in the last
+    bit between the card and the CPU, and a gradient on an int8 rounding
+    boundary moves one step.  Each tree's root sums are f32
+    sums in another order on each device (torch's on the card, XLA's CPU
+    order on the CPU), and a near-tie between two splits can follow
+    that order (the 5-class model's first tree on this data, whose
+    gradients take two values): so the CPU run takes the card run's
+    root sums, and everything else is computed on each device."""
+    X, y = _objective_data(kind)
+    base = dict(params, num_leaves=31, max_bin=63, min_data_in_leaf=5,
+                quantized_grad=True, hist_compute_dtype="bfloat16",
+                verbose=-1)
+    real = grower.compute_root_totals
+    card_roots = []
+
+    def card_root(*args):
+        out = real(*args)
+        card_roots.append(out.cpu())
+        return out
+
+    def cpu_root(*args):
+        return card_roots.pop(0)
+
+    n0 = kernels.LAUNCHES["fused_route_hist"], kernels.LAUNCHES["route_apply"]
+    models = {}
+    for device, root in (("cuda", card_root), ("cpu", cpu_root)):
+        monkeypatch.setattr(grower, "compute_root_totals", root)
+        bst = tlgb.train(dict(base, device=device), tlgb.Dataset(X, label=y),
+                         rounds, verbose_eval=False,
+                         keep_training_booster=True)
+        assert bst.gbdt.grower.plan.name == "fused_tiled"
+        models[device] = bst.models
+    assert not card_roots
+    assert kernels.LAUNCHES["fused_route_hist"] > n0[0]
+    assert kernels.LAUNCHES["route_apply"] > n0[1]
+    k = params.get("num_class", 1)
+    assert len(models["cuda"]) == len(models["cpu"]) == rounds * k
+    for i, (ct, pt) in enumerate(zip(models["cuda"], models["cpu"])):
+        for f in ("split_feature", "threshold", "left_child",
+                  "right_child", "leaf_count"):
+            np.testing.assert_array_equal(getattr(ct, f), getattr(pt, f),
+                                          f"tree {i} {f}")
+        tol = 1e-6 if k == 1 or i < k else 1e-5
+        scale = float(np.abs(pt.leaf_value).max())
+        np.testing.assert_allclose(ct.leaf_value, pt.leaf_value, rtol=tol,
+                                   atol=tol * scale, err_msg=f"tree {i}")

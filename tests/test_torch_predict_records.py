@@ -63,10 +63,11 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-@pytest.mark.parametrize("kind,name", CASES + [("random", "500 trees")])
+@pytest.mark.parametrize("kind,name", CASES + [("random", "500 trees"),
+                                               ("random", "K=5, 500 trees")])
 def test_pack_unpacks_every_field_bit_for_bit(kind, name):
-    flat, _, _ = _case(kind, name) if name != "500 trees" else \
-        C.ensemble(name)[:3]
+    flat, _, _ = _case(kind, name) if name in RANDOM or kind == "corner" \
+        else C.ensemble(name)[:3]
     stack = P.level_ensemble_from_numpy(flat, "cpu")
     rec = P.pack_level_records(stack)
     back = P.unpack_level_records(rec)
@@ -76,7 +77,7 @@ def test_pack_unpacks_every_field_bit_for_bit(kind, name):
         assert torch.equal(_bits(a), _bits(b)), f
     T, M, L, W = P.record_dims(rec)
     assert rec.walk.shape == (T * M, 4) and rec.cats.shape == (T * M * W,)
-    if name == "500 trees":    # more nodes than a chunk holds
+    if name.endswith("500 trees"):    # more nodes than a chunk holds
         assert P.level_plan(rec, 200_000, 56).chunks > 1
 
 
@@ -166,7 +167,8 @@ def test_visits_count_the_live_pairs_of_each_level(name):
 
 
 @pytest.mark.parametrize("name,F", [("bench-like", 28), ("500 trees", 28),
-                                    ("K=3", 28), ("categorical", 8),
+                                    ("K=3", 28), ("K=5, 500 trees", 28),
+                                    ("categorical", 8),
                                     ("bench-like", 100), ("stumps only", 28)])
 def test_chunk_plan_covers_every_tree_once_in_order(name, F):
     """The shared tier's chunks take consecutive positions, every tree
@@ -194,8 +196,10 @@ def test_chunk_plan_covers_every_tree_once_in_order(name, F):
     assert plan.smem_bytes == tpc * per + (x if plan.stage_x else 0)
     if plan.threads == 256:
         assert plan.chunks == 1 and plan.smem_bytes <= P.PREDICT_SMEM_PAIR
-    if name == "500 trees":
+    if name.endswith("500 trees"):
         assert plan.chunks > 1
+    if name.startswith("K=5"):            # a chunk ends inside a class
+        assert (T // 5) % tpc != 0
     # the category words join the chunk
     assert plan.cat_shared == rec.has_cat
 
@@ -340,3 +344,24 @@ def test_launch_arguments_match_the_entry_points(name, tier):
     else:
         assert args[npt + 2:npt + 7] == [T, M, L, W, rec.num_class]
         assert args[-2:] == [int(plan.links), int(rec.has_cat)]
+
+
+def test_class_sums_cross_the_chunks_in_tree_order():
+    """K = 5, 100 trees a class, chunks ending inside classes: the
+    records' plain walk adds each class's trees in tree order (the
+    kernel's order in both tiers, held on the card), bit for bit a
+    sequential f32 sum of the per-tree values, and within 1e-5 *
+    (1 + |score|) of the JAX form's plain version (a matrix product)."""
+    flat, depth, X = _random("K=5, 500 trees", n=200)
+    stack = P.level_ensemble_from_numpy(flat, "cpu")
+    rec = P.pack_level_records(stack)
+    x2 = _t(P.interleave_hi_lo(X))
+    got = P.predict_level_records_plain(rec, x2, depth=depth)
+    per_tree = _port_per_tree(rec, x2, depth)
+    seq = np.zeros((x2.shape[0], 5), np.float32)
+    for t, k in enumerate(np.argmax(flat["cls_onehot"], axis=1)):
+        seq[:, k] = (seq[:, k] + per_tree[:, t]).astype(np.float32)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  seq.view(np.int32))
+    want = P.predict_level_ensemble_plain(stack, x2, depth=depth)
+    assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())

@@ -80,6 +80,10 @@ ENSEMBLES = {
                   28, CAT_FEATURES),
     "K=3": (lambda rng: ([complete_tree(rng, 6, 28) for _ in range(29)]
                          + [stump(-0.5)], 3), 28, CAT_FEATURES),
+    # 100 trees a class: the shared tier's chunks end inside a class
+    "K=5, 500 trees": (lambda rng: ([complete_tree(rng, 8, 28)
+                                     for _ in range(499)] + [stump(-0.5)],
+                                    5), 28, CAT_FEATURES),
     "categorical": (lambda rng: ([complete_tree(rng, 5, 8, cats=(0, 3, 7))
                                   for _ in range(6)], 1), 8, (0, 3, 7)),
     "stumps only": (lambda rng: ([stump(v) for v in (0.5, -1.25, 3.0)], 1),
