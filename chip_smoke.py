@@ -80,6 +80,23 @@ Phases, in order; any failure exits nonzero:
      (c)'s held-out rows through Booster.predict (kernel C with K = 5;
      rows must sum to 1 within 1e-5) and hold C's two tiers on its
      ensemble at 200,000 and 16 rows against the plain version;
+  6. drive the training front door at the bench shape on the
+     fused_tiled plan, the launch counters zeroed before each run and
+     printed after it (A and B must launch where trees grow, C where
+     Booster.predict runs): (a) early_stopping_rounds=2 against the
+     200,000 held-out rows with labels drawn from a seed independently
+     of X (it must stop early, 1 <= best_iteration < iterations
+     trained, one evaluation an iteration; predict() must equal
+     predict(num_iteration=best_iteration) bit for bit); (b) 3 trees,
+     then 2 more with init_model (C predicts the training rows' seed;
+     the base trees unchanged, the held-out log loss lower); (c) 2
+     iterations with a numpy binary fobj, whose first tree must equal
+     the built-in objective's with boost_from_average=false; (d) 4
+     iterations, then rollback_one_iter: the 3-tree model text; (e) that
+     text with an average_output line: C's prediction within 1e-5 of the
+     host walk's iteration mean; (f) the held-out rows as CSR, 100 zero
+     columns wider (the model narrowed to its used columns): equal to the
+     dense prediction; (g) cv, 3 folds x 3 rounds at 300,000 rows;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -1319,6 +1336,223 @@ def check_objectives(lgb, kernels, P, params, X, w, Xv, dev, card, reps):
                                      in few["predict_level_global"].items()}}
 
 
+def front_door_run(lgb, kernels, dev, label, fn):
+    """Phase 6: one front-door call with the launch counters zeroed
+    just before it and read just after.  Returns (its result, its wall
+    seconds, the launches)."""
+    import torch
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"[phase 6] {label}: {wall:.2f} s; launches {launches}")
+    return out, wall, launches
+
+
+def need_launches(dev, label, launches, names):
+    if dev.type != "cuda":
+        return
+    for name in names:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{label} did not launch {name}")
+
+
+def logloss(y, p):
+    p = np.clip(p, 1e-15, 1 - 1e-15)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def check_front_door(lgb, kernels, params, train_ds, X, y, Xv, yv, dev,
+                     card, plan_runs):
+    """Phase 6: the training front door at the bench shape on the
+    fused_tiled plan (kernels A and B train, kernel C predicts), each
+    run's launches counted on their own: (a) early stopping against
+    held-out labels drawn independently of X, (b) continued training
+    from init_model (C seeds the training rows), (c) a numpy fobj
+    against the built-in objective, (d) rollback_one_iter, (e) a
+    random-forest (average_output) model through C, (f) CSR input
+    through C at the used columns only, (g) cv.  Returns the numbers
+    for the kernels line."""
+    import scipy.sparse as sp
+    train = ("fused_route_hist", "route_apply")
+
+    def counted(label, launches):
+        for name, count in launches.items():
+            plan_runs.setdefault(name, {})[f"phase 6 {label}"] = count
+
+    # (a) early stopping on a validation set whose labels carry nothing
+    # of X: its log loss worsens from the second tree on
+    noise = np.random.RandomState(31).randint(0, 2, len(yv)).astype(float)
+    noise_ds = lgb.Dataset(Xv, label=noise, reference=train_ds)
+    a_params = dict(params, metric=["binary_logloss"])
+    cfg = lgb.Config.from_params(a_params)      # binned before the clock
+    noise_ds.construct_aligned(train_ds.construct(cfg), cfg)
+    evals = {}
+    rounds = 10
+    bst, wall, launches = front_door_run(
+        lgb, kernels, dev, "(a) early_stopping_rounds=2",
+        lambda: lgb.train(a_params, train_ds, rounds, valid_sets=[noise_ds],
+                          valid_names=["noise"], evals_result=evals,
+                          early_stopping_rounds=2, verbose_eval=False))
+    trained = bst.num_trees()
+    curve = evals["noise"]["binary_logloss"]
+    if not (trained < rounds and 1 <= bst.best_iteration < trained
+            and len(curve) == trained):
+        raise AssertionError(f"(a): {trained} trees of {rounds}, "
+                             f"best_iteration {bst.best_iteration}, "
+                             f"{len(curve)} evaluations")
+    need_launches(dev, "(a)", launches, train)
+    counted("(a)", launches)
+    a_ms = 1e3 * wall / trained
+    p_default = bst.predict(Xv)
+    p_best = bst.predict(Xv, num_iteration=bst.best_iteration)
+    if not np.array_equal(p_default, p_best):
+        raise AssertionError("(a): predict() differs from "
+                             "predict(num_iteration=best_iteration)")
+    print(f"[phase 6] (a) stopped after {trained} of {rounds} iterations, "
+          f"best_iteration {bst.best_iteration}, held-out log loss "
+          f"{[round(v, 6) for v in curve]}: {a_ms:.1f} ms an iteration "
+          f"(wall of lgb.train over iterations, the evaluation included; "
+          f"{card})")
+    del bst
+
+    # (b) 3 trees, then 2 more from init_model: kernel C seeds the
+    # training rows' scores with the 3-tree model's raw prediction
+    valid_ds = lgb.Dataset(Xv, label=yv, reference=train_ds)
+    base, _, launches = front_door_run(
+        lgb, kernels, dev, "(b) 3 trees",
+        lambda: lgb.train(params, train_ds, 3, verbose_eval=False))
+    counted("(b) base", launches)
+    base_text = base.model_to_string()
+    base_trees = [t.to_string() for t in base.models]
+    seed_ms = []
+    predict = base.predict
+
+    def timed_predict(*a, **k):
+        import torch
+        t0 = time.perf_counter()
+        r = predict(*a, **k)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seed_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+    base.predict = timed_predict
+    cont, _, launches = front_door_run(
+        lgb, kernels, dev, "(b) 2 more trees from init_model",
+        lambda: lgb.train(params, train_ds, 2, init_model=base,
+                          valid_sets=[valid_ds], verbose_eval=False))
+    del base.predict
+    need_launches(dev, "(b)", launches, train + ("predict_level",))
+    counted("(b)", launches)
+    if cont.num_trees() != 5 or [
+            t.to_string() for t in cont.models[:3]] != base_trees:
+        raise AssertionError("(b): the base trees changed")
+    ll_base = logloss(yv, base.predict(Xv))
+    ll_cont = logloss(yv, cont.predict(Xv))
+    if not ll_cont < ll_base:
+        raise AssertionError(f"(b): held-out log loss {ll_cont} is not "
+                             f"below the base's {ll_base}")
+    print(f"[phase 6] (b) seeding call (Booster.predict of {len(y)} "
+          f"training rows, raw): {seed_ms[0]:.1f} ms; held-out log loss "
+          f"{ll_base:.6f} -> {ll_cont:.6f} ({card})")
+    del cont
+
+    # (c) a numpy binary fobj: at score 0 its gradients are +-0.5 and
+    # its hessians 0.25 exactly, the built-in objective's
+    def fobj(scores, ds):
+        s = np.asarray(scores, np.float32)
+        p = (np.float32(1) / (np.float32(1) + np.exp(-s))).astype(np.float32)
+        lab = ds.get_label().astype(np.float32)
+        return p - lab, p * (np.float32(1) - p)
+    no_avg = dict(params, boost_from_average=False)
+    builtin, _, launches = front_door_run(
+        lgb, kernels, dev, "(c) built-in objective, 1 tree",
+        lambda: lgb.train(no_avg, train_ds, 1, verbose_eval=False))
+    counted("(c) built-in", launches)
+    custom, _, launches = front_door_run(
+        lgb, kernels, dev, "(c) numpy fobj, 2 iterations",
+        lambda: lgb.train(no_avg, train_ds, 2, fobj=fobj, verbose_eval=False))
+    need_launches(dev, "(c)", launches, train)
+    counted("(c) fobj", launches)
+    if custom.models[0].to_string() != builtin.models[0].to_string():
+        raise AssertionError("(c): the fobj run's first tree differs from "
+                             "the built-in objective's")
+    print("[phase 6] (c) the fobj run's first tree equals the built-in "
+          "objective's")
+    del builtin, custom
+
+    # (d) 4 iterations, then rollback: the 3-tree model of (b)
+    four, _, launches = front_door_run(
+        lgb, kernels, dev, "(d) 4 iterations, then rollback_one_iter",
+        lambda: lgb.train(params, train_ds, 4, verbose_eval=False,
+                          keep_training_booster=True).rollback_one_iter())
+    counted("(d)", launches)
+    if four.model_to_string() != base_text:
+        raise AssertionError("(d): the rolled-back model differs from the "
+                             "3-iteration run's")
+    print("[phase 6] (d) after rollback_one_iter the model text equals the "
+          "3-iteration run's")
+    del four
+
+    # (e) the same trees as a random forest: the iterations' mean
+    rf_text = base_text.replace("\nfeature_names=",
+                                "\naverage_output\nfeature_names=", 1)
+    rf = lgb.Booster(model_str=rf_text, params={"device": dev.type})
+    got, _, launches = front_door_run(
+        lgb, kernels, dev, "(e) average_output model, Booster.predict",
+        lambda: rf.predict(Xv))
+    need_launches(dev, "(e)", launches, ("predict_level",))
+    counted("(e)", launches)
+    host = sum(t.predict(Xv) for t in rf.models) / len(rf.models)
+    err_e = float(np.abs(got - host).max())
+    if err_e > 1e-5:
+        raise AssertionError(f"(e): max |d| {err_e} from the host walk's "
+                             "iteration mean")
+    print(f"[phase 6] (e) average_output: max |d| {err_e:.3g} from the host "
+          "walk's iteration mean")
+
+    # (f) the held-out rows as CSR, 100 zero columns wider: the model is
+    # narrowed to its used columns and C runs at that width
+    csr = sp.hstack([sp.csr_matrix(Xv), sp.csr_matrix((len(yv), 100))],
+                    format="csr")
+    dense = rf.predict(Xv, raw_score=True)
+    got, _, launches = front_door_run(
+        lgb, kernels, dev, "(f) CSR held-out rows, Booster.predict",
+        lambda: rf.predict(csr, raw_score=True))
+    need_launches(dev, "(f)", launches, ("predict_level",))
+    counted("(f)", launches)
+    used = rf._compact_for_sparse(-1, csr.shape[1])[1].size
+    if not np.array_equal(got, dense):
+        raise AssertionError(f"(f): CSR input at {used} columns predicts "
+                             f"otherwise than dense: max |d| "
+                             f"{np.abs(got - dense).max()}")
+    print(f"[phase 6] (f) CSR of {csr.shape[1]} columns narrowed to {used}: "
+          "equal to the dense prediction bit for bit")
+    del rf
+
+    # (g) cv: 3 folds x 3 rounds, each fold binned anew
+    m = min(len(y), 300_000)
+    res, cv_s, launches = front_door_run(
+        lgb, kernels, dev, f"(g) cv, 3 folds x 3 rounds at {m} rows",
+        lambda: lgb.cv(params, lgb.Dataset(X[:m], label=y[:m]), 3, nfold=3,
+                       seed=5))
+    need_launches(dev, "(g)", launches, train)
+    counted("(g)", launches)
+    aucs = res["auc-mean"]
+    if len(aucs) != 3 or not aucs[-1] > 0.75:
+        raise AssertionError(f"(g): auc-mean {aucs}")
+    print(f"[phase 6] (g) cv: {cv_s:.2f} s wall (binning included); "
+          f"auc-mean {[round(v, 6) for v in aucs]}, auc-stdv "
+          f"{[round(v, 6) for v in res['auc-stdv']]} ({card})")
+    return {"fused_route_hist": {"phase6_a_ms_per_iteration": a_ms,
+                                 "phase6_cv_s": cv_s},
+            "predict_level": {"phase6_seed_ms": seed_ms[0],
+                              "phase6_rf_max_abs_err": err_e}}
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     rehearse = "--rehearse" in argv
@@ -1362,7 +1596,7 @@ def main(argv) -> int:
     params = dict(BENCH_PARAMS, metric=["auc"], device=dev.type)
     cfg = lgb.Config.from_params(params)
     t0 = time.perf_counter()
-    train_ds = lgb.Dataset(X, label=y)
+    train_ds = lgb.Dataset(X, label=y, free_raw_data=False)
     core = train_ds.construct(cfg)
     valid_ds = lgb.Dataset(Xv, label=yv, reference=train_ds)
     print(f"[phase 2] binned {n_rows} x 28 in "
@@ -1578,6 +1812,13 @@ def main(argv) -> int:
     # lgb.train and Booster.predict on the card
     for name, extra in check_objectives(lgb, kernels, P, params, X, w, Xv,
                                         dev, card, reps).items():
+        numbers[name].update(extra)
+
+    # ---- phase 6: the training front door (early stopping,
+    # init_model, fobj, rollback, average_output, CSR input, cv)
+    for name, extra in check_front_door(lgb, kernels, params, train_ds, X,
+                                        y, Xv, yv, dev, card,
+                                        plan_runs).items():
         numbers[name].update(extra)
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")

@@ -10,24 +10,33 @@ import numpy as np
 
 from .config import Config
 from .dataset import Dataset as CoreDataset
+from .utils.log import Log
 
 
 class Dataset:
-    """Lazy dataset handle (the lgb.Dataset analog)."""
+    """Lazy dataset handle (the lgb.Dataset analog).  With
+    ``free_raw_data`` (the default, as in the JAX package and the
+    reference) the raw matrix is dropped once the bins are built;
+    continued training (``init_model``) needs it kept.  ``group`` (query
+    sizes) goes to the core's ``Metadata``; training with groups waits
+    for lambdarank and raises."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None,
+                 weight=None, group=None, init_score=None,
                  feature_name: Union[str, Sequence[str]] = "auto",
                  categorical_feature: Union[str, Sequence] = "auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = True):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params or {})
+        self.free_raw_data = free_raw_data
         self._core: Optional[CoreDataset] = None
 
     def construct(self, config: Optional[Config] = None) -> CoreDataset:
@@ -46,11 +55,14 @@ class Dataset:
                 if isinstance(self.categorical_feature, (list, tuple))
                 else [])
         self._core = CoreDataset.from_matrix(
-            data, label=self.label, weight=self.weight, config=config,
-            categorical_features=cats, feature_names=names,
+            data, label=self.label, weight=self.weight, group=self.group,
+            config=config, categorical_features=cats, feature_names=names,
             reference=ref_core)
         # (K, N) class-major, flattened (or (N,) with one class)
         self._core.metadata.set_init_score(self.init_score)
+        if self.free_raw_data:
+            self._core._raw_data = None
+            self.data = None
         return self._core
 
     def construct_aligned(self, ref_core, config) -> CoreDataset:
@@ -59,6 +71,33 @@ class Dataset:
         if self._core is None and self.reference is None:
             self.reference = ref_core
         return self.construct(config)
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """Name the columns (lightgbm_tpu/basic.py set_feature_name)."""
+        if isinstance(feature_name, (list, tuple)):
+            nf = None
+            if self._core is not None:
+                nf = self._core.num_total_features
+            elif getattr(self.data, "ndim", 0) == 2:
+                nf = self.data.shape[1]
+            if nf is not None and len(feature_name) != nf:
+                Log.fatal(f"Length of feature_name "
+                          f"({len(feature_name)}) does not match the "
+                          f"number of features ({nf})")
+            if self._core is not None:
+                self._core.feature_names = list(feature_name)
+        self.feature_name = feature_name
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Categorical columns are not ported yet: a non-empty list
+        raises."""
+        if isinstance(categorical_feature, (list, tuple)) \
+                and len(categorical_feature) > 0:
+            raise NotImplementedError(
+                "categorical features are not ported yet")
+        self.categorical_feature = categorical_feature
+        return self
 
 
 def _is_sparse(obj) -> bool:

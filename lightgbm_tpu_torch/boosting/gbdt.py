@@ -2,15 +2,17 @@
 device.
 
 Port of the plain-GBDT path of lightgbm_tpu/boosting/gbdt.py
-(train_one_iter: gradients per class, tree growth, the leaf refit of
-the renewing objectives, score update from the exit route's per-row
-leaf values or from each row's leaf, validation scores through the
-binned tree walk; init scores and boost_from_average).  Bagging, DART,
-GOSS, RF, custom objectives and chunked dispatch are not ported yet.
+(train_one_iter: gradients per class or the caller's own, tree
+growth, the leaf refit of the renewing objectives, score update from
+the exit route's per-row leaf values or from each row's leaf,
+validation scores through the binned tree walk; init scores and
+boost_from_average; early stopping on the validation metrics and
+rollback of the last iteration).  Bagging, DART, GOSS, RF and chunked
+dispatch are not ported yet.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -57,22 +59,35 @@ class GBDT:
     """Gradient Boosting Decision Tree trainer: K trees an iteration
     (K = 1 but for the multiclass objectives)."""
 
-    def __init__(self, config: Config, train_set: Dataset):
+    def __init__(self, config: Config, train_set: Dataset,
+                 custom_objective: bool = False):
         if config.boosting_type != "gbdt":
             raise NotImplementedError(
                 f"boosting_type={config.boosting_type} is not ported yet")
         if config.bagging_freq > 0 and config.bagging_fraction < 1.0:
             raise NotImplementedError("bagging is not ported yet")
+        if train_set.metadata.query_boundaries is not None:
+            raise NotImplementedError(
+                "query groups are not ported yet (lambdarank)")
         self.config = config
         self.device = resolve_device(config)
         self.train_set = train_set
         self.num_data = train_set.num_data
-        self.objective = create_objective(config)
-        self.objective.init(train_set.metadata, self.num_data, self.device)
+        # custom gradients (fobj) train without an objective
+        self.objective = None if custom_objective else \
+            create_objective(config)
+        if self.objective is not None:
+            self.objective.init(train_set.metadata, self.num_data,
+                                self.device)
         self.num_class = config.num_tree_per_iteration
         self.shrinkage_rate = config.learning_rate
         self.grower = TreeGrower(train_set, config, self.device)
         self.models: List[Tree] = []
+        # this session's trees as the grower built them (bin space, on
+        # the device) and the shrinkage each was added with: what
+        # rollback_one_iter subtracts
+        self.device_trees: List[dict] = []
+        self._tree_shrink: List[float] = []
         self.iter_ = 0
         self.train_metrics: List[Metric] = []
         self.valid_sets: List[_ValidSet] = []
@@ -81,7 +96,8 @@ class GBDT:
         # boost_from_average (reference gbdt.cpp:362-384): one class and
         # no init score only
         self.init_score = 0.0
-        if (config.boost_from_average and self.num_class == 1
+        if (self.objective is not None and config.boost_from_average
+                and self.num_class == 1
                 and train_set.metadata.init_score is None):
             self.init_score = float(self.objective.boost_from_score())
         base = _score_rows(train_set.metadata, self.num_class,
@@ -91,6 +107,10 @@ class GBDT:
         self._full_counts = torch.from_numpy(self.grower.pad_rows(
             np.ones(self.num_data, dtype=np.float32))).to(self.device)
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        # early stopping state per validation row of eval_metrics
+        self._best_score: Dict[int, float] = {}
+        self._best_iter: Dict[int, int] = {}
+        self.best_iteration = -1
 
     # ------------------------------------------------------------------
     def add_valid(self, valid_set: Dataset, name: str) -> None:
@@ -176,15 +196,40 @@ class GBDT:
         tree["leaf_value"] = torch.where(tree["leaf_count"] > 0, new_values,
                                          tree["leaf_value"])
 
-    def train_one_iter(self) -> bool:
+    def _custom_gradients(self, grad, hess
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The caller's (N,) or (N, K) host gradients as (K, n_padded)
+        f32 on the device, zero on padded rows (lightgbm_tpu/boosting/
+        gbdt.py _train_one_iter_custom: a flat buffer read class-major,
+        as the reference's UpdateOneIterCustom reads it)."""
+        pad = self.grower.n_padded - self.num_data
+
+        def dev(a):
+            a = np.asarray(a, dtype=np.float32).reshape(self.num_class,
+                                                        self.num_data)
+            return torch.from_numpy(np.pad(a, ((0, 0), (0, pad)))).to(
+                self.device)
+        keep = self._full_counts > 0
+        return dev(grad) * keep, dev(hess) * keep
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration (reference gbdt.cpp:386-481): K trees
-        on the gradients of the scores before the iteration.  Returns
-        True when training must stop: no class's tree found a split."""
-        g, h = self._gradients()
+        on the gradients of the scores before the iteration, or on the
+        caller's ``grad``/``hess`` (shape (N,) or (N, K); the custom
+        objective path, lightgbm_tpu/boosting/gbdt.py:940-1000).
+        Returns True when training must stop: no class's tree found a
+        split."""
+        if grad is not None and hess is not None:
+            g, h = self._custom_gradients(grad, hess)
+        elif self.objective is None:
+            Log.fatal("No objective and no custom gradients")
+        else:
+            g, h = self._gradients()
         counts = self._full_counts
         shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
                               device=self.device)
-        renew = self.objective.is_renew_tree_output
+        renew = (self.objective is not None
+                 and self.objective.is_renew_tree_output)
         g_ = self.grower
         trees = []
         for k in range(self.num_class):
@@ -204,14 +249,12 @@ class GBDT:
                                              tree["leaf_value"]) * shrink
             self.scores[k] += delta
             for vs in self.valid_sets:
-                pv = predict_binned(tree, vs.bins, g_.f_group, g_.g2f_lut,
-                                    g_.f_missing, g_.f_default_bin,
-                                    g_.f_num_bin)
-                vs.scores[k] += pv * shrink
+                vs.scores[k] += self._predict_tree(tree, vs.bins) * shrink
             trees.append(tree)
         if max(t["num_leaves"] for t in trees) <= 1:
-            # no class split: the iteration is dropped and training stops,
-            # as the JAX package's deferred check rolls it back
+            # no class split: the iteration is dropped and training
+            # stops at once (the JAX package finds it later and rolls
+            # back, ROADMAP queue 3)
             Log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
             return True
@@ -226,7 +269,57 @@ class GBDT:
                 t.leaf_value += self.init_score
                 t.internal_value += self.init_score
             self.models.append(t)
+            self.device_trees.append(tree)
+            self._tree_shrink.append(self.shrinkage_rate)
         self.iter_ += 1
+        return False
+
+    def _predict_tree(self, tree: dict, bins: torch.Tensor) -> torch.Tensor:
+        """One grown tree's unshrunk leaf values of binned (N, G) rows."""
+        g_ = self.grower
+        return predict_binned(tree, bins, g_.f_group, g_.g2f_lut,
+                              g_.f_missing, g_.f_default_bin, g_.f_num_bin)
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's K trees out of the model and their
+        shrunk values out of the training and validation scores
+        (lightgbm_tpu/boosting/gbdt.py:1367-1400; reference
+        gbdt.cpp:483-499).  Trees of an ``init_model`` stay.  The
+        fused plans keep only the transposed bins on the device: the
+        training rows are walked through its transposed view, no
+        second copy.  The f32 subtraction need not restore the old
+        scores bit for bit."""
+        if len(self.device_trees) < self.num_class:
+            return
+        g_ = self.grower
+        bins = g_.bins if g_.bins is not None else g_.binsT.t()
+        for k in reversed(range(self.num_class)):
+            tree = self.device_trees.pop()
+            shrink = self._tree_shrink.pop()
+            self.models.pop()
+            self.scores[k] += -shrink * self._predict_tree(tree, bins)
+            for vs in self.valid_sets:
+                vs.scores[k] += -shrink * self._predict_tree(tree, vs.bins)
+        self.iter_ -= 1
+
+    def check_early_stopping(self, results, iteration: int) -> bool:
+        """Stop as soon as any validation metric has not improved for
+        ``early_stopping_round`` iterations; ``best_iteration`` (1-based)
+        comes from the metric that stopped it (lightgbm_tpu/boosting/
+        gbdt.py:1331-1351; reference gbdt.cpp:582-639)."""
+        rounds = self.config.early_stopping_round
+        if rounds <= 0:
+            return False
+        for i, (dname, _mname, value, bigger) in enumerate(results):
+            if dname == "training":
+                continue
+            score = value if bigger else -value
+            if i not in self._best_score or score > self._best_score[i]:
+                self._best_score[i] = score
+                self._best_iter[i] = iteration
+            elif iteration - self._best_iter[i] >= rounds:
+                self.best_iteration = self._best_iter[i] + 1
+                return True
         return False
 
     # ------------------------------------------------------------------
@@ -258,9 +351,7 @@ class GBDT:
 
 def create_boosting(config: Config, train_set: Dataset,
                     custom_objective: bool = False) -> GBDT:
-    if custom_objective:
-        raise NotImplementedError("custom objectives are not ported yet")
-    return GBDT(config, train_set)
+    return GBDT(config, train_set, custom_objective=custom_objective)
 
 
 __all__ = ["GBDT", "create_boosting"]

@@ -103,3 +103,72 @@ def test_valid_set_layout_mismatch_refused():
                valid_sets=[tlgb.Dataset(X, label=y, reference=d4)],
                valid_names=["v"], evals_result=evals, verbose_eval=False)
     assert len(evals["v"]["binary_logloss"]) == 3
+
+
+def test_random_forest_model_averages_its_iterations():
+    """A ``boosting=rf`` model carries ``average_output``: its raw score
+    is the iterations' mean and its leaves are already in output space,
+    so no sigmoid follows (lightgbm_tpu/booster.py
+    _add_init_and_average)."""
+    X, y = _data("binary")
+    jb = jlgb.train({"objective": "binary", "boosting": "rf",
+                     "bagging_freq": 1, "bagging_fraction": 0.7,
+                     "feature_fraction": 0.8,
+                     "num_leaves": 7, "min_data_in_leaf": 5, "verbose": -1,
+                     "compile_cache_dir": ""},
+                    jlgb.Dataset(X, label=y), 5, verbose_eval=False)
+    text = jb.model_to_string()
+    assert "\naverage_output\n" in text
+    ref = jlgb.Booster(model_str=text)
+    port = tlgb.Booster(model_str=text, params={"device": "cpu"})
+    for raw in (False, True):
+        want = ref.predict(X, raw_score=raw, device=False)
+        got = port.predict(X, raw_score=raw)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # the mean is over the iterations used, best_iteration included
+    np.testing.assert_allclose(port.predict(X, num_iteration=2),
+                               ref.predict(X, num_iteration=2, device=False),
+                               rtol=0, atol=1e-6)
+    assert 0.0 < port.predict(X).min() and port.predict(X).max() < 1.0
+
+
+def _sparse_model(width):
+    """A 5-tree binary model on a wide, mostly-zero matrix: it splits on
+    a few of ``width`` columns."""
+    import scipy.sparse as sp
+    rng = np.random.RandomState(11)
+    n = 800
+    X = np.where(rng.rand(n, width) < 0.15, rng.randn(n, width), 0.0)
+    X[:, 2] = rng.randn(n)
+    X[:, 5] = np.where(rng.rand(n) < 0.5, rng.randn(n), 0.0)
+    X[:, 0] = rng.randn(n)
+    y = (X[:, 0] + X[:, 2] + X[:, 5] + 0.3 * rng.randn(n) > 0).astype(float)
+    jb = jlgb.train({"objective": "binary", "num_leaves": 5,
+                     "min_data_in_leaf": 20, "verbose": -1,
+                     "compile_cache_dir": ""},
+                    jlgb.Dataset(X, label=y), 5, verbose_eval=False)
+    return jb, sp.csr_matrix(X), X
+
+
+@pytest.mark.parametrize("width", [40, 6])
+def test_sparse_matrix_predicts_as_the_reference(width):
+    """CSR input is densified in row chunks, narrowed to the columns the
+    used trees split on when that is under half the width (40 columns),
+    else whole (6); both routes give the JAX package's sparse
+    predictions and the port's own dense ones, ``pred_leaf`` too."""
+    jb, csr, X = _sparse_model(width)
+    text = jb.model_to_string()
+    ref = jlgb.Booster(model_str=text)
+    port = tlgb.Booster(model_str=text, params={"device": "cpu"})
+    used = np.unique(np.concatenate([t.split_feature for t in port.models]))
+    assert (used.size * 2 < width) == (width == 40)
+    for kw in ({}, {"raw_score": True}, {"num_iteration": 3}):
+        want = ref.predict(csr, **kw)
+        np.testing.assert_allclose(port.predict(csr, **kw), want,
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(port.predict(csr, **kw),
+                                      port.predict(X, **kw))
+    np.testing.assert_array_equal(port.predict(csr, pred_leaf=True),
+                                  ref.predict(csr, pred_leaf=True))
+    np.testing.assert_array_equal(port.predict(csr.tocsc(), pred_leaf=True),
+                                  port.predict(X, pred_leaf=True))
