@@ -97,6 +97,23 @@ Phases, in order; any failure exits nonzero:
      host walk's iteration mean; (f) the held-out rows as CSR, 100 zero
      columns wider (the model narrowed to its used columns): equal to the
      dense prediction; (g) cv, 3 folds x 3 rounds at 300,000 rows;
+  7. categorical features and forced splits at the bench shape: the
+     last four columns replaced by Zipf-like categories (3, 12, 60 and
+     400 of them, each moving the logit; 3% of the held-out values
+     unseen in training, 2% NaN), counters zeroed before each run:
+     (a) fused_tiled, 10 trees with the four columns categorical
+     (kernels A and B; one-hot splits on the 3-category column and
+     sorted-mode splits of several categories must appear, held-out
+     AUC above 0.75), beside the same run with the columns numeric,
+     and the device events a grower round of each (torch.profiler,
+     one more iteration); (d) Booster.predict of (a)'s model through
+     kernel C within 1e-5 of the host walk and of the held-out set's
+     binned walk, pred_leaf landing the host walk's leaves; (b)
+     seg_tiled, 3 trees (H, J, B), whose model text must equal (a)'s
+     first 3 trees; (c) a forced-split spec (the root on a category,
+     its left child on a numeric threshold), 3 trees, each forced as
+     specified, and a spec with an impossible threshold falling back to
+     (a)'s root;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -104,6 +121,7 @@ prints no result and exits nonzero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -115,6 +133,9 @@ import numpy as np
 MEM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 TOL_PREDICT = 1e-5               # |d| <= TOL * (1 + |score|)
+#: phase 7 (a)'s held-out AUC floor: between the categorical model's
+#: 0.8182 and the same columns treated as numeric, 0.7546 (PERF.md)
+AUC_FLOOR_CATEGORICAL = 0.79
 F32_ULP = 2.0 ** -23             # f32 channels: |d| <= F32_ULP * S
 #: the bench configuration (bench.py rows 77-84) on the port's device
 BENCH_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
@@ -223,10 +244,11 @@ def kernel_name(key: str) -> str:
 # ---------------------------------------------------------------------------
 # phase 2 inputs
 # ---------------------------------------------------------------------------
-def random_route_table(rng, L, G, B, cat_frac=0.2):
+def random_route_table(rng, L, G, B, cat_frac=0.2, cat_groups=None):
     """A pending route table over L leaves: half of them split, with a
     mix of missing types (none / zero / NaN), default directions,
-    categorical left-sets and right slots numbered after the leaves."""
+    categorical left-sets and right slots numbered after the leaves.
+    With ``cat_groups``, the categorical leaves split those groups."""
     import torch
     from lightgbm_tpu_torch.ops.partition import build_route_table
 
@@ -243,6 +265,9 @@ def random_route_table(rng, L, G, B, cat_frac=0.2):
         default_left=rng.rand(L) < 0.5, missing_type=rng.randint(0, 3, L),
         default_bin=rng.randint(0, B, L), num_bin=nb,
         cat_mask=rng.rand(L, B) < 0.5, right_slot=rs)
+    if cat_groups is not None:
+        cat = cols["is_cat"]
+        cols["feat_group"][cat] = rng.choice(cat_groups, int(cat.sum()))
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in cols.items()}
     return build_route_table(**t)
 
@@ -1197,7 +1222,7 @@ def train_plan(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
     """Phase 3: one lgb.train run with the launch counters zeroed just
     before it; with ``plan``, the run must resolve that histogram plan.
     Returns (booster, held-out AUC of the last round, launches during
-    the run)."""
+    the run, ms/tree)."""
     import torch
     evals = {}
     kernels.reset_launches()
@@ -1217,7 +1242,7 @@ def train_plan(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
           f"{train_s:.2f} s: {1e3 * train_s / rounds:.1f} ms/tree (wall of "
           f"lgb.train / rounds, card {card}); held-out AUC {auc:.4f}; "
           f"launches {launches}")
-    return bst, auc, dict(kernels.LAUNCHES)
+    return bst, auc, dict(kernels.LAUNCHES), 1e3 * train_s / rounds
 
 
 def train_objective(lgb, kernels, params, train_ds, valid_ds, rounds, dev,
@@ -1553,6 +1578,535 @@ def check_front_door(lgb, kernels, params, train_ds, X, y, Xv, yv, dev,
                               "phase6_rf_max_abs_err": err_e}}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: categorical features and forced splits at the bench shape
+# ---------------------------------------------------------------------------
+#: the bench's last four columns become categories of these cardinalities:
+#: 3 takes the one-hot mode (max_cat_to_onehot 4), 12 and 60 the sorted
+#: mode, 400 more than max_bin 63 allows (the 99% cut and the "other" bin)
+CAT_COLUMNS = (24, 25, 26, 27)
+CAT_CARDS = (3, 12, 60, 400)
+
+
+def make_cat_data(n, seed, unseen=0.0, nan=0.0):
+    """make_data's rows with CAT_COLUMNS replaced by integer categories
+    drawn Zipf-like (p ~ 1 / rank^1.1, the ranks' labels shuffled) from
+    the row seed.  The concept (numeric weights, a random logit offset a
+    category, the labels' shuffle) comes from one fixed seed, so every
+    row set shares it; the numeric weights are scaled by 0.3, so the
+    categories carry most of the signal.  ``unseen`` of the rows take a
+    category never drawn in training (no offset) and ``nan`` of them
+    NaN (no offset), per column.  Returns (X, y, the concept's logit,
+    its numeric columns' part)."""
+    concept = np.random.RandomState(71)
+    w = concept.randn(28) * (concept.rand(28) > 0.3) * 0.3
+    w[list(CAT_COLUMNS)] = 0.0
+    offsets = [concept.randn(k) * 1.2 for k in CAT_CARDS]
+    labels = [concept.permutation(k) for k in CAT_CARDS]
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 28).astype(np.float32).astype(np.float64)
+    numeric = X @ w + 0.5 * np.sin(3 * X[:, 0]) * X[:, 1]
+    logit = numeric.copy()
+    for col, k, off, lab in zip(CAT_COLUMNS, CAT_CARDS, offsets, labels):
+        p = 1.0 / np.arange(1, k + 1) ** 1.1
+        rank = rng.choice(k, size=n, p=p / p.sum())
+        X[:, col] = lab[rank]
+        logit += off[rank]
+        u = rng.rand(n)
+        new = u < unseen
+        X[new, col] = k + rng.randint(0, 5, int(new.sum()))
+        logit[new] -= off[rank[new]]
+        gone = (u >= unseen) & (u < unseen + nan)
+        X[gone, col] = np.nan
+        logit[gone] -= off[rank[gone]]
+    y = (logit + rng.logistic(size=n) > 0).astype(np.float32)
+    return X, y, logit, numeric
+
+
+def cat_splits(models):
+    """(feature, categories in the node's left set) of every categorical
+    split of ``models``."""
+    out = []
+    for t in models:
+        for i in range(t.num_leaves - 1):
+            if t.decision_type[i] & 1:
+                c = int(t.threshold[i])
+                words = t.cat_threshold[t.cat_boundaries[c]:
+                                        t.cat_boundaries[c + 1]]
+                cats = {32 * j + b for j, wd in enumerate(words)
+                        for b in range(32) if (wd >> b) & 1}
+                out.append((int(t.split_feature[i]), cats))
+    return out
+
+
+def device_events_per_round(lgb, kernels, bst, dev):
+    """One more iteration of ``bst`` under torch.profiler: (device events
+    (kernels, memory sets and copies), grower rounds, their ratio, {op
+    kind: (events, device ms) a round}); the rounds are kernel A's
+    launches, one a round, and an op kind is a device event's function
+    name (kernel_name).  None on the CPU or when the profiler recorded
+    no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return None
+    for _ in range(3):      # a profile that recorded no device event
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            bst.update()
+            torch.cuda.synchronize()
+        rounds = kernels.LAUNCHES["fused_route_hist"]
+        kinds = {}
+        for e in prof.key_averages():
+            if getattr(e.device_type, "name", "") != "CUDA":
+                continue
+            n, us = kinds.get(kernel_name(e.key), (0, 0.0))
+            kinds[kernel_name(e.key)] = (n + e.count, us + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0)))
+        events = sum(n for n, _ in kinds.values())
+        if events and rounds:
+            return events, rounds, events / rounds, {
+                k: (n / rounds, us / 1e3 / rounds)
+                for k, (n, us) in kinds.items()}
+    return None
+
+
+def event_breakdown(cat, num, top=12):
+    """The op kinds whose device events a round grow most from the
+    numeric run ``num`` to the categorical run ``cat`` (each
+    device_events_per_round's last item): lines of (kind, events and
+    device ms a round in both)."""
+    def get(run, k):
+        return run.get(k, (0, 0.0))
+    kinds = sorted(set(cat) | set(num),
+                   key=lambda k: get(num, k)[0] - get(cat, k)[0])[:top]
+    return [f"{k}: {get(cat, k)[0]:.1f} events {get(cat, k)[1]:.4f} ms "
+            f"categorical, {get(num, k)[0]:.1f} events {get(num, k)[1]:.4f} "
+            "ms numeric" for k in kinds]
+
+
+class GrowerTap:
+    """Records each call that learner/grower.py makes to the named
+    kernel entry points while it is entered: (arguments, keywords,
+    result), tensor arguments of fewer than 2^22 elements cloned (a
+    table, leaf ids, weights, values; the bins are held as they are).
+    The calls launch as they would untapped; the records let them be
+    held against the plain versions after the run, outside its launch
+    counts."""
+
+    def __init__(self, *names):
+        from lightgbm_tpu_torch.learner import grower
+        self.module, self.names, self.real = grower, names, {}
+        self.calls = {n: [] for n in names}
+
+    def __enter__(self):
+        import torch
+
+        def keep(a):
+            return (a.clone() if isinstance(a, torch.Tensor)
+                    and a.numel() < 1 << 22 else a)
+
+        def tap(name, fn):
+            def tapped(*args, **kw):
+                kept = [keep(a) for a in args]
+                out = fn(*args, **kw)
+                self.calls[name].append((kept, kw, out))
+                return out
+            return tapped
+        for n in self.names:
+            self.real[n] = getattr(self.module, n)
+            setattr(self.module, n, tap(n, self.real[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.module, n, fn)
+
+
+def cat_high_rows(binsT, leaf, table, low=64):
+    """Rows whose leaf splits on a categorical left set and whose chosen
+    group's bin is ``low`` or above: rows that the route reads past the
+    first ``low`` / 8 bytes of the left set for."""
+    G = binsT.shape[0]
+    L = table.shape[0]
+    lf = leaf.clamp(0, L - 1).long()
+    ok = ((leaf >= 0) & (leaf < L) & (table[lf, 10] > 0.5)
+          & (table[lf, 7] > 0.5))
+    grp = (table[lf, 0] * 256 + table[lf, 1]).long().clamp(0, G - 1)
+    return int((ok & (binsT.gather(0, grp[None]).squeeze(0) >= low)).sum())
+
+
+def hold_tapped(tap, label):
+    """Phase 7: every kernel call a tapped run made, held bit for bit
+    against the kernel's plain version on the same inputs (A's and J's
+    dequantized histograms, A's, B's and H's leaf ids, B's row values).
+    Returns {kernel: (calls held, rows routed by a categorical bin of 64
+    or above)}."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    out = {}
+
+    def tally(name, high):
+        calls, rows = out.get(name, (0, 0))
+        out[name] = (calls + 1, rows + high)
+
+    for args, kw, got in tap.calls.get(
+            "compute_group_histograms_fused_tiled", ()):
+        binsT, wT, scales, leaf, table, slots = args
+        h, lp = H.fused_route_hist_plain(binsT, wT, leaf, table, slots,
+                                         kw["max_group_bin"])
+        if not (torch.equal(got[0], h.to(torch.float32) * scales)
+                and torch.equal(got[1], lp)):
+            raise AssertionError(f"{label}: kernel A's call "
+                                 f"{out.get('fused_route_hist', (0,))[0]} "
+                                 "differs from its plain version")
+        tally("fused_route_hist", cat_high_rows(binsT, leaf, table))
+    for args, _, got in tap.calls.get("route_apply_tiled", ()):
+        binsT, leaf, table, values = args
+        lp, vp = H.route_apply_plain(binsT, leaf, table, values)
+        if not (torch.equal(got[0], lp) and torch.equal(
+                got[1].view(torch.int32), vp.view(torch.int32))):
+            raise AssertionError(f"{label}: kernel B's exit route differs "
+                                 "from its plain version")
+        tally("route_apply", cat_high_rows(binsT, leaf, table))
+    for args, _, got in tap.calls.get("route_only_tiled", ()):
+        binsT, leaf, table = args
+        if not torch.equal(got, H.route_only_plain(binsT, leaf, table)):
+            raise AssertionError(f"{label}: kernel H's route differs from "
+                                 "its plain version")
+        tally("route_only", cat_high_rows(binsT, leaf, table))
+    for args, kw, got in tap.calls.get(
+            "compute_group_histograms_seg_tiled", ()):
+        binsT_p, wT_p, scales, blk_slot = args
+        want = H.seg_hist_plain(binsT_p, wT_p, blk_slot, kw["num_out"],
+                                kw["max_group_bin"])
+        if not torch.equal(got, want.to(torch.float32) * scales):
+            raise AssertionError(f"{label}: kernel J's histogram differs "
+                                 "from its plain version")
+        tally("seg_hist", 0)
+    return out
+
+
+def hold_wide_tables(bst, dev, card):
+    """Phase 7: kernels A, B, H and J on the grower's own (G, N) bins of
+    the categorical run ``bst`` (max_group_bin 256: the 400-category
+    column) under a random route table of 255 leaves whose categorical
+    leaves split the categorical columns' groups with random left sets
+    over all 256 bins, bit for bit against the plain versions; at least
+    one row must be routed by a bin of 64 or above.  Returns the rows
+    so routed."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.partition import block_slots
+    g = bst.gbdt.grower
+    binsT, B, L, W = g.binsT, g.max_group_bin, 255, 126
+    G, n = binsT.shape
+    rng = np.random.RandomState(27)
+    table = random_route_table(rng, L, G, B, cat_frac=0.5,
+                               cat_groups=g.f_group[g.cat_idx].cpu().numpy()
+                               ).to(dev)
+    leaf = rng.randint(0, L, n).astype(np.int32)
+    leaf[rng.rand(n) < 0.01] = -1
+    leaf = torch.from_numpy(leaf).to(dev)
+    grad = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    hess = torch.from_numpy(rng.rand(n).astype(np.float32) * 0.25).to(dev)
+    counts = (leaf >= 0).to(torch.float32)
+    wq, _ = H.quantize_gradients(grad * counts, hess * counts, counts)
+    wT = wq.t().contiguous()
+    slots = torch.from_numpy(rng.permutation(2 * L)[:W].astype(
+        np.int32)).to(dev)
+    values = torch.from_numpy(rng.randn(L).astype(np.float32)).to(dev)
+    h_k, l_k = H.fused_route_hist(binsT, wT, leaf, table, slots, B)
+    h_p, l_p = H.fused_route_hist_plain(binsT, wT, leaf, table, slots, B)
+    if not (torch.equal(h_k, h_p) and torch.equal(l_k, l_p)):
+        raise AssertionError("phase 7 wide table: kernel A != plain")
+    lk, vk = H.route_apply_tiled(binsT, leaf, table, values)
+    lp, vp = H.route_apply_plain(binsT, leaf, table, values)
+    if not (torch.equal(lk, lp) and torch.equal(
+            vk.view(torch.int32), vp.view(torch.int32))):
+        raise AssertionError("phase 7 wide table: kernel B != plain")
+    if not torch.equal(H.route_only_tiled(binsT, leaf, table),
+                       H.route_only_plain(binsT, leaf, table)):
+        raise AssertionError("phase 7 wide table: kernel H != plain")
+    # J on the partition of the routed rows (padded as the grower pads)
+    pad = -n % H.SEG_BLOCK
+    binsT_p, wT_p, blk_leaf = partition(
+        torch.nn.functional.pad(binsT, (0, pad)),
+        torch.nn.functional.pad(wT, (0, pad)),
+        torch.nn.functional.pad(l_p, (0, pad), value=-1), 2 * L)
+    args = (binsT_p, wT_p, block_slots(blk_leaf, slots, 2 * L), W, B)
+    hold_hist("phase 7 wide table: seg_hist", H.seg_hist(*args),
+              H.seg_hist_plain(*args), None)
+    high = cat_high_rows(binsT, leaf, table)
+    if high == 0:
+        raise AssertionError("phase 7 wide table: no row was routed by a "
+                             "categorical bin of 64 or above")
+    print(f"[phase 7] kernels A, B, H and J on (a)'s {G} x {n} bins "
+          f"(max_group_bin {B}) under a random 255-leaf table of "
+          f"{table.shape[1]} columns: equal to the plain versions bit for "
+          f"bit; {high} rows routed by a categorical bin of 64 or above "
+          f"({card})")
+    return high
+
+
+
+def check_categorical(lgb, kernels, params, dev, card, n_rows, n_valid,
+                      p3_ms, plan_runs):
+    """Phase 7: categorical columns and forced splits at the bench shape
+    through lgb.train (kernels A and B on fused_tiled; H and J on
+    seg_tiled) and Booster.predict (kernel C), each run's launches
+    counted on their own; every kernel call of (a) and (b) held against
+    its plain version after the run, and A, B, H and J on (a)'s bins
+    under a table whose left sets reach bin 255.  ``p3_ms`` is phase
+    3's numeric fused_tiled ms/tree.  Returns the numbers for the
+    kernels line."""
+    import os
+    import tempfile
+
+    import torch
+    cols = list(CAT_COLUMNS)
+    t0 = time.perf_counter()
+    X, y, _, _ = make_cat_data(n_rows, 17)
+    Xv, yv, concept, numeric = make_cat_data(n_valid, 18, unseen=0.03,
+                                             nan=0.02)
+    cfg = lgb.Config.from_params(params)
+    sets = {}
+    for kind, cats in (("categorical", cols), ("numeric", [])):
+        d = lgb.Dataset(X, label=y, categorical_feature=cats)
+        v = lgb.Dataset(Xv, label=yv, reference=d)
+        v.construct_aligned(d.construct(cfg), cfg)  # binned before the clock
+        sets[kind] = (d, v)
+    core = sets["categorical"][0].construct(cfg)
+    bins = [core.features[j].num_bin for j in range(len(core.features))
+            if core.features[j].feature_idx in cols]
+    print(f"[phase 7] {n_rows} training and {n_valid} held-out rows, "
+          f"columns {cols} categorical with {list(CAT_CARDS)} categories "
+          f"({bins} bins; 3% of held-out values unseen, 2% NaN), binned "
+          f"in {time.perf_counter() - t0:.1f} s; on the held-out rows the "
+          f"concept's own logit scores AUC {auc_score(yv, concept):.4f}, "
+          f"its numeric columns' part {auc_score(yv, numeric):.4f}")
+
+    def run(label, run_params, kind, rounds, want, tap=None):
+        d, v = sets[kind]
+        evals = {}
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        with tap or contextlib.nullcontext():
+            bst = lgb.train(run_params, d, rounds, valid_sets=[v],
+                            valid_names=["valid"], evals_result=evals,
+                            verbose_eval=False, keep_training_booster=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1) / rounds
+        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        need_launches(dev, label, launches, want)
+        for name, count in launches.items():
+            plan_runs.setdefault(name, {})[f"phase 7 {label}"] = count
+        auc = evals["valid"]["auc"][-1]
+        print(f"[phase 7] {label}: plan {bst.gbdt.grower.plan.name}, "
+              f"{bst.num_trees()} trees, {ms:.1f} ms/tree (wall of lgb.train "
+              f"over trees; {card}); held-out AUC {auc:.4f}; launches "
+              f"{launches}")
+        return bst, ms, auc, launches
+
+    def hold(tap, label):
+        held = hold_tapped(tap, label)
+        tap.calls.clear()
+        print(f"[phase 7] {label}: every kernel call held bit for bit "
+              "against its plain version on the same inputs (kernel: "
+              "calls, rows routed by a categorical bin of 64 or above): "
+              f"{held}")
+        for name, (calls, high) in held.items():
+            extra.setdefault(name, {})[f"phase7_{label[1]}_held_calls"] = \
+                calls
+            extra[name][f"phase7_{label[1]}_high_cat_rows"] = high
+
+    extra = {}
+    train = ("fused_route_hist", "route_apply")
+    # (a) fused_tiled, 10 trees, the four columns categorical; then the
+    # same rows with the four columns numeric
+    tap = GrowerTap("compute_group_histograms_fused_tiled",
+                    "route_apply_tiled")
+    bst_a, a_ms, a_auc, a_launch = run("(a) categorical fused_tiled",
+                                       params, "categorical", 10, train,
+                                       tap)
+    if bst_a.gbdt.grower.plan.name != "fused_tiled":
+        raise AssertionError("(a) did not resolve fused_tiled")
+    hold(tap, "(a) categorical fused_tiled")
+    wide = hold_wide_tables(bst_a, dev, card)
+    splits = cat_splits(bst_a.models)
+    onehot = [s for f, s in splits if f == cols[0]]
+    sorted_multi = [s for f, s in splits if f in cols[1:] and len(s) > 1]
+    if not onehot or not sorted_multi:
+        raise AssertionError(f"(a): {len(onehot)} one-hot splits on column "
+                             f"{cols[0]}, {len(sorted_multi)} sorted-mode "
+                             "splits of several categories")
+    # the rehearsal's 4,000 rows reach 0.76
+    floor = AUC_FLOOR_CATEGORICAL if n_rows >= 1_000_000 else 0.75
+    if a_auc <= floor:
+        raise AssertionError(f"(a): held-out AUC {a_auc:.4f} is not above "
+                             f"{floor}")
+    bst_n, n_ms, n_auc, _ = run("(a) the same columns numeric", params,
+                                "numeric", 10, train)
+    per_tree = {k: a_launch.get(k, 0) / 10 for k in train}
+    print(f"[phase 7] (a) {len(splits)} categorical splits ({len(onehot)} "
+          f"one-hot on column {cols[0]}, {len(sorted_multi)} sorted-mode "
+          f"with several categories); AUC {a_auc:.4f} categorical, "
+          f"{n_auc:.4f} numeric; {a_ms:.1f} ms/tree categorical, {n_ms:.1f} "
+          f"numeric, phase 3's numeric fused_tiled "
+          f"{fmt_ms(p3_ms)}; launches a tree {per_tree} ({card})")
+
+    # (d) Booster.predict of (a)'s model through kernel C, against the
+    # host walk, pred_leaf and the held-out set's binned walk
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    raw = bst_a.predict(Xv, raw_score=True)
+    d_ms = 1e3 * (time.perf_counter() - t1)
+    d_launch = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    if dev.type == "cuda" and d_launch.get("predict_level", 0) <= 0:
+        raise AssertionError("(d): Booster.predict did not launch "
+                             "predict_level")
+    for name, count in d_launch.items():
+        plan_runs.setdefault(name, {})["phase 7 (d)"] = count
+    host = np.zeros(n_valid)
+    for t in bst_a.models:
+        host += t.predict(Xv)
+    err_d = float(np.abs(raw - host).max())
+    if err_d > TOL_PREDICT * (1 + np.abs(host).max()):
+        raise AssertionError(f"(d): kernel C is {err_d:.3g} from the host "
+                             "walk")
+    leaves = bst_a.predict(Xv, pred_leaf=True)
+    by_leaf = np.zeros(n_valid)
+    for i, t in enumerate(bst_a.models):
+        by_leaf += t.leaf_value[leaves[:, i]]
+    if not np.array_equal(leaves, np.stack(
+            [t.predict_leaf(Xv) for t in bst_a.models], axis=1)) \
+            or np.abs(by_leaf - host).max() > 1e-9 * (1 + np.abs(host).max()):
+        raise AssertionError("(d): pred_leaf does not land the host walk's "
+                             "leaves")
+    # the held-out set's scores from training (the binned walk through
+    # the bin masks) on the rows whose categories training saw; an
+    # unseen or NaN category is binned into the last bin, which on a
+    # column with every category kept and no NaN is a category of its
+    # own, so there the binned walk may go where the category set does
+    # not (as in the JAX package)
+    odd = np.isnan(Xv[:, cols]).any(axis=1) | (
+        Xv[:, cols] >= np.array(CAT_CARDS)).any(axis=1)
+    binned = bst_a.gbdt.valid_sets[0].scores.reshape(-1).cpu().numpy(
+        ).astype(np.float64)
+    err_binned = float(np.abs(binned - raw)[~odd].max())
+    if err_binned > TOL_PREDICT * (1 + np.abs(host).max()):
+        raise AssertionError(f"(d): the held-out set's binned walk is "
+                             f"{err_binned:.3g} from kernel C")
+    odd_off = int((np.abs(binned - raw)[odd] > TOL_PREDICT * (
+        1 + np.abs(host).max())).sum())
+    pred_auc = auc_score(yv, 1.0 / (1.0 + np.exp(-raw)))
+    print(f"[phase 7] (d) Booster.predict of {n_valid} rows ({int(odd.sum())} "
+          f"with an unseen or NaN category): {d_ms:.1f} ms, launches "
+          f"{d_launch}; max |d| {err_d:.3g} from the host walk over every "
+          f"row; {err_binned:.3g} from the binned walk of training over "
+          f"the rows of seen categories ({odd_off} of the others score "
+          f"otherwise there); pred_leaf lands the host walk's leaves; AUC "
+          f"{pred_auc:.4f} ({card})")
+
+    # the device events a round: the categorical finder's cost
+    ev_cat = device_events_per_round(lgb, kernels, bst_a, dev)
+    ev_num = device_events_per_round(lgb, kernels, bst_n, dev)
+    if ev_cat and ev_num:
+        print(f"[phase 7] (a) device events a grower round (torch.profiler, "
+              f"one more iteration): categorical {ev_cat[0]} over "
+              f"{ev_cat[1]} rounds = {ev_cat[2]:.1f}, numeric {ev_num[0]} "
+              f"over {ev_num[1]} rounds = {ev_num[2]:.1f} ({card}); the op "
+              "kinds that grow most, a round:")
+        for line in event_breakdown(ev_cat[3], ev_num[3]):
+            print(f"[phase 7]   {line}")
+    else:
+        print("[phase 7] (a) device events a grower round: not measured")
+    del bst_n
+
+    # (b) seg_tiled, 3 trees: (a)'s first 3 trees
+    tap = GrowerTap("route_only_tiled", "compute_group_histograms_seg_tiled",
+                    "route_apply_tiled")
+    bst_b, b_ms, _, _ = run("(b) categorical seg_tiled",
+                            dict(params, hist_leaf_partition="on"),
+                            "categorical", 3,
+                            ("route_only", "seg_hist", "route_apply"), tap)
+    if bst_b.gbdt.grower.plan.name != "seg_tiled(leaf_partition)":
+        raise AssertionError("(b) did not resolve seg_tiled")
+    hold(tap, "(b) categorical seg_tiled")
+    if bst_b.model_to_string() != bst_a.model_to_string(3):
+        raise AssertionError("(b): the seg_tiled model text differs from "
+                             "(a)'s first 3 trees")
+    print("[phase 7] (b) the seg_tiled model text equals (a)'s first 3 "
+          "trees")
+    del bst_b
+
+    # (c) forced splits from a JSON spec: the root on column 25's most
+    # frequent category, its left child on column 0 at 0.0; then an
+    # impossible threshold, which falls back to (a)'s root
+    cat = int(np.bincount(X[:, cols[1]].astype(int)).argmax())
+    tmp = tempfile.mkdtemp()
+    spec = os.path.join(tmp, "forced.json")
+    bad = os.path.join(tmp, "impossible.json")
+    with open(spec, "w") as f:
+        json.dump({"feature": cols[1], "threshold": cat,
+                   "left": {"feature": 0, "threshold": 0.0}}, f)
+    with open(bad, "w") as f:
+        json.dump({"feature": 0, "threshold": 1e9}, f)
+    try:
+        bst_c, c_ms, _, _ = run("(c) forced splits", dict(
+            params, forcedsplits_filename=spec), "categorical", 3, train)
+        for i, t in enumerate(bst_c.models):
+            left = int(t.left_child[0])
+            if not (int(t.split_feature[0]) == cols[1]
+                    and t.decision_type[0] & 1 and left >= 0
+                    and int(t.split_feature[left]) == 0
+                    and abs(t.threshold[left]) < 0.1):
+                raise AssertionError(f"(c): tree {i} is not forced as the "
+                                     "spec says")
+        root_cats = [s for f, s in cat_splits([bst_c.models[0]])][0]
+        if root_cats != {cat}:
+            raise AssertionError(f"(c): the root's left set is {root_cats}, "
+                                 f"not {{{cat}}}")
+        del bst_c
+        bst_f, _, _, _ = run("(c) an impossible threshold", dict(
+            params, forcedsplits_filename=bad), "categorical", 1, train)
+        ta, tf = bst_a.models[0], bst_f.models[0]
+        if (int(tf.split_feature[0]), tf.threshold[0]) != (
+                int(ta.split_feature[0]), ta.threshold[0]):
+            raise AssertionError("(c): the impossible spec did not fall back "
+                                 "to the unforced root")
+        del bst_f
+    finally:
+        for path in (spec, bad):
+            if os.path.exists(path):
+                os.remove(path)
+        os.rmdir(tmp)
+    print(f"[phase 7] (c) every tree's root splits column {cols[1]} on "
+          f"category {cat} and its left child column 0 at 0.0; the "
+          "impossible threshold fell back to (a)'s root")
+    del bst_a
+    for name in ("fused_route_hist", "route_apply", "route_only",
+                 "seg_hist"):
+        extra.setdefault(name, {})["phase7_wide_table_max_abs_err"] = 0.0
+    extra["route_apply"]["phase7_wide_table_high_cat_rows"] = wide
+    extra["fused_route_hist"].update({
+                "phase7_a_ms_per_tree": a_ms,
+                "phase7_numeric_ms_per_tree": n_ms,
+                "phase7_auc_categorical": a_auc,
+                "phase7_auc_numeric": n_auc,
+                "phase7_launches_per_tree": per_tree,
+                "phase7_device_events_per_round": {
+                    "categorical": ev_cat and ev_cat[2],
+                    "numeric": ev_num and ev_num[2]},
+                "phase7_b_ms_per_tree": b_ms,
+                "phase7_c_ms_per_tree": c_ms})
+    extra["predict_level"] = {"phase7_d_ms": d_ms,
+                              "phase7_d_max_abs_err": err_d}
+    return extra
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     rehearse = "--rehearse" in argv
@@ -1683,7 +2237,7 @@ def main(argv) -> int:
              dict(no_cache, hist_leaf_partition="on"), 3,
              "seg_tiled(leaf_partition)",
              ("route_only", "seg_hist", "route_apply"))]:
-        r_bst, r_auc, r_launches = train_plan(
+        r_bst, r_auc, r_launches, _ = train_plan(
             lgb, kernels, run_params, train_ds, valid_ds, rounds, dev, card,
             label, plan)
         floor = 0.8 if rounds >= 10 else 0.75
@@ -1733,9 +2287,9 @@ def main(argv) -> int:
     del bare
     # the quantized main path last, so Booster.predict below counts
     # into the same window (kernels A, B, then C)
-    bst, valid_auc, q_launches = train_plan(lgb, kernels, params, train_ds,
-                                            valid_ds, 10, dev, card,
-                                            "int8 fused_tiled")
+    bst, valid_auc, q_launches, q_ms = train_plan(
+        lgb, kernels, params, train_ds, valid_ds, 10, dev, card,
+        "int8 fused_tiled")
     for name, count in q_launches.items():
         if count:
             plan_runs.setdefault(name, {})["int8 fused_tiled"] = count
@@ -1819,6 +2373,12 @@ def main(argv) -> int:
     for name, extra in check_front_door(lgb, kernels, params, train_ds, X,
                                         y, Xv, yv, dev, card,
                                         plan_runs).items():
+        numbers[name].update(extra)
+
+    # ---- phase 7: categorical features and forced splits
+    for name, extra in check_categorical(lgb, kernels, params, dev, card,
+                                         n_rows, n_valid, q_ms,
+                                         plan_runs).items():
         numbers[name].update(extra)
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")

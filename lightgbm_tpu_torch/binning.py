@@ -339,7 +339,8 @@ class BinMapper:
                          max_bin: int, min_data_in_bin: int,
                          total_sample_cnt: int, na_cnt: int) -> np.ndarray:
         """Most-frequent-first category->bin mapping with 99%% coverage cut
-        (reference bin.cpp:303-368)."""
+        (reference bin.cpp:303-368), at most 256 bins (the JAX package,
+        which stores a byte a bin too, wraps bins past 255 around)."""
         int_vals: List[int] = []
         int_cnts: List[int] = []
         for v, c in zip(distinct, counts):
@@ -372,11 +373,21 @@ class BinMapper:
         self.num_bin = 0
         used_cnt = 0
         max_bin = min(len(int_vals), max_bin)
+        # the 99% cut may take more than max_bin categories, but the bin
+        # matrix stores a byte a value: past 256 bins (255 with a NaN
+        # bin to come) the rarest categories share the last bin, as the
+        # cut ones do, where a wider bin would wrap around
+        byte_cap = 256 - (1 if na_cnt > 0 else 0)
         cnt_in_bin: List[int] = []
         cur = 0
         while cur < len(int_vals) and (used_cnt < cut_cnt
                                        or self.num_bin < max_bin):
             if int_cnts[cur] < min_data_in_bin and cur > 1:
+                break
+            if self.num_bin >= byte_cap:
+                Log.warning(f"categorical feature: {len(int_vals) - cur} "
+                            f"rare categories share the last of {byte_cap} "
+                            "bins (one byte a bin)")
                 break
             self.bin_2_categorical.append(int_vals[cur])
             self.categorical_2_bin[int_vals[cur]] = self.num_bin

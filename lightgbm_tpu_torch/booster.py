@@ -12,6 +12,7 @@ either package loads in the other.
 from __future__ import annotations
 
 import copy
+import json
 import re
 from typing import Any, Dict, List, Optional
 
@@ -90,6 +91,7 @@ class Booster:
         self.max_feature_idx = 0
         self.objective_str = "regression"
         self.average_output = False
+        self.pandas_categorical = None
         self._train_data_name = "training"
         self._attrs: Dict[str, str] = {}
         self._datasets_freed = False
@@ -114,6 +116,8 @@ class Booster:
         self.feature_names = train_set.feature_names
         self.feature_infos = train_set.feature_infos()
         self.max_feature_idx = train_set.num_total_features - 1
+        self.pandas_categorical = getattr(train_set, "pandas_categorical",
+                                          None)
         self.objective_str = _objective_to_string(self.config)
         if init_model is not None:
             base = (Booster(model_file=init_model,
@@ -303,12 +307,15 @@ class Booster:
         128 MB, narrowed to the columns the used trees split on where
         that halves the width (lightgbm_tpu/booster.py:562-590).  A
         model with ``average_output`` (random forest) returns the mean
-        over its iterations, with no output transform."""
+        over its iterations, with no output transform.  A pandas
+        frame's category columns encode against the training frame's
+        categories (``pandas_categorical``); an unseen category is
+        NaN."""
         from .basic import _is_sparse, _to_matrix
         if _is_sparse(data):
             return self._predict_sparse(data, num_iteration, raw_score,
                                         pred_leaf)
-        data = _to_matrix(data)
+        data = _to_matrix(data, self.pandas_categorical)
         if data.ndim == 1:
             data = data[None, :]
         models = self._used_models(num_iteration)
@@ -436,6 +443,10 @@ class Booster:
         text += "\nfeature importances:\n"
         for v, name in pairs:
             text += f"{name}={v}\n"
+        if self.pandas_categorical:
+            # the trailing mapping line of the reference python package
+            text += "\npandas_categorical:%s\n" % json.dumps(
+                self.pandas_categorical, default=str)
         return text
 
     def model_from_string(self, model_str: str) -> "Booster":
@@ -445,7 +456,18 @@ class Booster:
         return self
 
     def _load_from_string(self, text: str) -> None:
-        """reference gbdt_model_text.cpp:317+ LoadModelFromString."""
+        """reference gbdt_model_text.cpp:317+ LoadModelFromString, and
+        the python package's trailing ``pandas_categorical:`` line."""
+        self.pandas_categorical = None
+        for line in reversed(text.rstrip().splitlines()[-3:]):
+            if line.startswith("pandas_categorical:"):
+                try:
+                    self.pandas_categorical = json.loads(
+                        line[len("pandas_categorical:"):])
+                except ValueError:
+                    pass
+                text = text[:text.rfind("pandas_categorical:")]
+                break
         header, _, rest = text.partition("Tree=0")
         kv = {}
         for line in header.splitlines():

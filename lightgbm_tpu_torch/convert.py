@@ -53,8 +53,9 @@ def trees_from_jax(models: Iterable[Any]) -> List[Tree]:
 
 def booster_from_jax(jax_booster: Any,
                      params: Optional[Dict[str, Any]] = None):
-    """A port Booster holding the trees and header of a JAX-package
-    Booster (``params`` sets the port booster's device)."""
+    """A port Booster holding the trees, header and pandas category
+    lists of a JAX-package Booster (``params`` sets the port booster's
+    device)."""
     from .booster import Booster
     bst = Booster(params=params)
     for name in ("num_class", "num_tree_per_iteration", "max_feature_idx",
@@ -63,4 +64,6 @@ def booster_from_jax(jax_booster: Any,
     bst.feature_names = list(jax_booster.feature_names)
     bst.feature_infos = list(jax_booster.feature_infos)
     bst.models = trees_from_jax(jax_booster.models)
+    cats = getattr(jax_booster, "pandas_categorical", None)
+    bst.pandas_categorical = [list(c) for c in cats] if cats else None
     return bst

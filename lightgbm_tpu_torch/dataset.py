@@ -159,6 +159,8 @@ class Dataset:
         self.monotone_constraints: Optional[np.ndarray] = None
         self._raw_data: Optional[np.ndarray] = None
         self._categorical_features: List[int] = []
+        # a pandas training frame's category lists (set by basic.Dataset)
+        self.pandas_categorical: Optional[list] = None
         self._bundles: List[List[int]] = []
 
     # ------------------------------------------------------------------

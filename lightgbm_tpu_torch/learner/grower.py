@@ -66,11 +66,16 @@ each round
 Because the loop runs on the host, the round knows how many leaves are
 new (one small device-to-host read per round) and runs the finder on
 exactly those, where the JAX grower pads to its strip ladder; the
-results are the same, row by row.  Distributed learners, forced splits
-and categorical features are not ported yet and raise.
+results are the same, row by row.  Categorical features split by the
+JAX finder's one-hot and sorted modes (their bin masks go into the
+route table that kernels A, B and H read); forced splits
+(``forcedsplits_filename``) take each forced leaf first, at its spec's
+(feature, threshold).  Distributed learners are not ported yet and
+raise.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -100,7 +105,11 @@ from ..ops.partition import (ROUTE_FIXED_COLS, apply_partition, apply_splits,
                              build_route_table)
 from ..ops.split import (CAND_COLS, CAND_DEFAULT_LEFT, CAND_FEATURE,
                          CAND_GAIN, CAND_LOUT, CAND_LSC, CAND_LSG, CAND_LSH,
-                         CAND_ROUT, CAND_THRESHOLD, find_best_split_block)
+                         CAND_CAT_DIR, CAND_ROUT, CAND_THRESHOLD,
+                         FORCED_COLS, FORCED_DEFAULT_LEFT, FORCED_GAIN,
+                         FORCED_LOUT, FORCED_LSC, FORCED_LSG, FORCED_LSH,
+                         FORCED_ROUT, FORCED_THRESHOLD,
+                         find_best_split_block, forced_split_block)
 from ..utils.log import Log
 
 #: plans that route the pending splits in their own pass (kernel H)
@@ -111,7 +120,7 @@ _ROUTE_FIRST = ("q_tiled(split_route)", "seg_tiled(leaf_partition)")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: lightgbm_tpu_torch runs the serial "
-        "learner on one device, with numerical features")
+        "learner on one device")
 
 
 @dataclass(frozen=True)
@@ -254,8 +263,6 @@ class TreeGrower:
         if config.tree_learner != "serial" or config.num_machines > 1 \
                 or config.mesh_shape:
             raise _not_ported(f"tree_learner={config.tree_learner}")
-        if config.forcedsplits_filename:
-            raise _not_ported("forced splits")
         self.num_leaves = L = config.num_leaves
         self.frontier = min(L - 1, config.frontier_width or 126)
         # histogram memory governance (the JAX grower's :237-252): over
@@ -275,8 +282,7 @@ class TreeGrower:
         self.num_groups = dataset.num_groups
         self.num_features = dataset.num_features
         meta = dataset.feature_meta_arrays()
-        if meta["is_categorical"].any():
-            raise _not_ported("categorical split finding")
+        self.has_categorical = bool(meta["is_categorical"].any())
 
         n = dataset.num_data
         self.num_data = n
@@ -300,6 +306,8 @@ class TreeGrower:
         self.f_default_bin = dev(meta["default_bin"], torch.int32)
         self.f_missing = dev(meta["missing_type"], torch.int32)
         self.f_is_cat = dev(meta["is_categorical"], torch.bool)
+        # the categorical finder runs on these features only
+        self.cat_idx = dev(np.nonzero(meta["is_categorical"])[0], torch.long)
         self.f_monotone = dev(meta["monotone"], torch.int32)
         self.f_group = dev([f.group for f in dataset.features], torch.int32)
         bin_map, fix_bin = dataset.feature_bin_maps()
@@ -316,7 +324,13 @@ class TreeGrower:
             max_delta_step=config.max_delta_step,
             min_data_in_leaf=float(config.min_data_in_leaf),
             min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
-            min_gain_to_split=config.min_gain_to_split)
+            min_gain_to_split=config.min_gain_to_split,
+            cat_smooth=config.cat_smooth, cat_l2=config.cat_l2,
+            max_cat_threshold=config.max_cat_threshold,
+            max_cat_to_onehot=config.max_cat_to_onehot,
+            min_data_in_group=float(config.min_data_in_group))
+        self.forced_count = 0
+        self._load_forced_splits(dataset, config)
         self.max_depth = config.max_depth
         self.max_rounds = L - 1
         self.packed_dispatch = bool(getattr(config, "hist_packed_dispatch",
@@ -348,6 +362,54 @@ class TreeGrower:
         valid[:n] = True
         self.row_valid = torch.from_numpy(valid).to(device)
         self.route_cols = ROUTE_FIXED_COLS + (self.max_feature_bin + 7) // 8
+
+    # ------------------------------------------------------------------
+    def _load_forced_splits(self, dataset: Dataset, config: Config) -> None:
+        """Parse ``forcedsplits_filename`` into flat spec tensors
+        (lightgbm_tpu/learner/grower.py _load_forced_splits): feature
+        (inner index), threshold (bin), left/right child spec index.
+        Real-valued thresholds convert through the feature's bin mapper
+        (the reference's Dataset::BinThreshold); a spec node on a
+        feature that training does not use is dropped with its subtree,
+        with a warning."""
+        fn = getattr(config, "forcedsplits_filename", "")
+        if not fn:
+            return
+        with open(fn) as f:
+            spec = json.load(f)
+        if not spec:
+            return
+        real2inner = {f.feature_idx: j
+                      for j, f in enumerate(dataset.features)}
+        nodes: list = []
+
+        def rec(node) -> int:
+            real_f = int(node["feature"])
+            j = real2inner.get(real_f)
+            if j is None:
+                Log.warning("forced split on unused feature %d ignored"
+                            % real_f)
+                return -1
+            mapper = dataset.features[j].mapper
+            thr_bin = int(np.asarray(mapper.value_to_bin(
+                np.array([float(node["threshold"])]))).ravel()[0])
+            idx = len(nodes)
+            nodes.append([j, thr_bin, -1, -1])
+            if isinstance(node.get("left"), dict):
+                nodes[idx][2] = rec(node["left"])
+            if isinstance(node.get("right"), dict):
+                nodes[idx][3] = rec(node["right"])
+            return idx
+
+        if rec(spec) < 0:
+            return
+        arr = torch.from_numpy(np.asarray(nodes, dtype=np.int32)
+                               ).to(self.device)
+        self.forced_count = len(nodes)
+        self.forced_feature = arr[:, 0].contiguous()
+        self.forced_thr = arr[:, 1].contiguous()
+        self.forced_left = arr[:, 2].contiguous()
+        self.forced_right = arr[:, 3].contiguous()
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -430,7 +492,12 @@ class TreeGrower:
             leaf_count=torch.zeros(L, device=d),
             leaf_min_c=torch.full((L,), -np.inf, device=d),
             leaf_max_c=torch.full((L,), np.inf, device=d),
-            leaf_is_left=torch.zeros(L, dtype=torch.bool, device=d))
+            leaf_is_left=torch.zeros(L, dtype=torch.bool, device=d),
+            # each leaf's forced-split spec index (-1: none); the root
+            # starts at the spec's root
+            leaf_forced=torch.full((L,), -1, dtype=torch.int32, device=d))
+        if self.forced_count:
+            st["leaf_forced"][0] = 0
         st["leaf_sum_grad"][0] = totals[0]
         st["leaf_sum_hess"][0] = totals[1]
         st["leaf_count"][0] = totals[2]
@@ -439,6 +506,10 @@ class TreeGrower:
         tree["leaf_count"][0] = totals[2]
         cand = torch.zeros((L, CAND_COLS + self.max_feature_bin), device=d)
         cand[:, CAND_GAIN] = -np.inf
+        forced_cand = None
+        if self.forced_count:
+            forced_cand = torch.zeros((L, FORCED_COLS), device=d)
+            forced_cand[:, FORCED_GAIN] = -np.inf
         hist_cache = torch.zeros(
             (L, self.num_groups, self.max_group_bin, 3),
             device=d) if self.use_hist_cache else None
@@ -483,16 +554,28 @@ class TreeGrower:
             h_new = torch.cat([left_hist, right_hist])
             if self.use_hist_cache:
                 hist_cache[slots] = h_new
-            cand[slots] = self._find_splits(st, slots, h_new, feature_mask)
+            cand[slots], fblock = self._find_splits(st, slots, h_new,
+                                                    feature_mask)
+            if fblock is not None:
+                forced_cand[slots] = fblock
 
             # ---- select: top-W candidates by gain within the budget
-            best_gain = cand[:, CAND_GAIN]
+            sel_c, forced_valid = self._overlay_forced(cand, forced_cand,
+                                                       st["leaf_forced"])
+            best_gain = sel_c[:, CAND_GAIN]
             slot = torch.arange(L, dtype=torch.int32, device=d)
-            cand_m = (slot < num_leaves) & (best_gain > 0.0)
+            active = slot < num_leaves
+            cand_m = active & (best_gain > 0.0)
             if self.max_depth > 0:
                 cand_m &= tree["leaf_depth"] < self.max_depth
             key = torch.where(cand_m, best_gain,
                               torch.tensor(-np.inf, device=d))
+            if forced_valid is not None:
+                # a forced leaf splits first, whatever its depth or gain
+                forced_valid &= active
+                cand_m |= forced_valid
+                key = torch.where(forced_valid,
+                                  torch.tensor(np.inf, device=d), key)
             # stable descending order: ties keep the lower slot first,
             # as lax.top_k does
             top_i = torch.sort(key, descending=True, stable=True
@@ -502,8 +585,9 @@ class TreeGrower:
                                               dtype=torch.int32, device=d)
             do_split = cand_m & (rank < L - num_leaves)
             k = int(do_split.sum())
-            route_args = self._apply_selection(st, tree, cand, do_split,
-                                               rank, num_leaves)
+            route_args = self._apply_selection(st, tree, sel_c, do_split,
+                                               rank, num_leaves,
+                                               forced_valid)
             if plan.fused:
                 # routed by the next round's kernel (or at exit)
                 route_tab = build_route_table(*route_args)
@@ -617,23 +701,57 @@ class TreeGrower:
             pack=plan.ohb_pack, num_groups=G), leaf_id
 
     # ------------------------------------------------------------------
-    def _find_splits(self, st, slots, h_w, feature_mask) -> torch.Tensor:
+    def _find_splits(self, st, slots, h_w, feature_mask):
         """Best split of each leaf in ``slots`` from its group
-        histograms, as packed candidate rows."""
+        histograms, as packed candidate rows, and with forced splits
+        the forced-split rows of the same leaves (else None; JAX
+        grower.py _refresh_cand_impl)."""
         sg = st["leaf_sum_grad"][slots]
         sh = st["leaf_sum_hess"][slots]
         sc = st["leaf_count"][slots]
         totals = torch.stack([sg, sh, sc], dim=1)
         feat_hist = expand_feature_histograms(h_w, self.bin_map,
                                               self.fix_bin, totals)
-        return find_best_split_block(
+        block = find_best_split_block(
             feat_hist, sg, sh, sc, st["leaf_min_c"][slots],
             st["leaf_max_c"][slots], self.cfg_scalars, self.f_num_bin,
             self.f_missing, self.f_default_bin, self.f_monotone,
-            self.f_is_cat, feature_mask, False)
+            self.f_is_cat, feature_mask, self.has_categorical, self.cat_idx)
+        if not self.forced_count:
+            return block, None
+        return block, forced_split_block(
+            feat_hist, st["leaf_forced"][slots], self.forced_feature,
+            self.forced_thr, sg, sh, sc, self.f_num_bin, self.f_missing,
+            self.f_default_bin, self.f_is_cat, self.cfg_scalars)
+
+    def _overlay_forced(self, cand, forced_cand, leaf_forced):
+        """The candidates selection reads: with forced splits, each leaf
+        whose spec's split is valid takes it in place of its best split
+        (feature, gain, threshold, direction, sums, outputs, and the
+        spec's bin as a one-hot mask; JAX grower.py _round :1596-1616).
+        Returns (candidate rows, the forced leaves' mask or None)."""
+        if not self.forced_count:
+            return cand, None
+        fc = forced_cand
+        s_node = leaf_forced.clamp(0, self.forced_count - 1).long()
+        forced_valid = (leaf_forced >= 0) & (fc[:, FORCED_GAIN] > -np.inf)
+        fv = forced_valid[:, None]
+        fixed = torch.stack(
+            [fc[:, FORCED_GAIN],
+             self.forced_feature[s_node].to(torch.float32),
+             fc[:, FORCED_THRESHOLD], fc[:, FORCED_DEFAULT_LEFT],
+             fc[:, FORCED_LSG], fc[:, FORCED_LSH], fc[:, FORCED_LSC],
+             fc[:, FORCED_LOUT], fc[:, FORCED_ROUT]], dim=1)
+        out = cand.clone()
+        out[:, :CAND_CAT_DIR] = torch.where(fv, fixed, cand[:, :CAND_CAT_DIR])
+        fmask = (torch.arange(self.max_feature_bin, device=cand.device)[None]
+                 == fc[:, FORCED_THRESHOLD].to(torch.int64)[:, None])
+        out[:, CAND_COLS:] = torch.where(fv, fmask.to(torch.float32),
+                                         cand[:, CAND_COLS:])
+        return out, forced_valid
 
     def _apply_selection(self, st, tree, cand, do_split, rank,
-                         num_leaves: int) -> torch.Tensor:
+                         num_leaves: int, forced_valid=None) -> torch.Tensor:
         """Apply the selected splits in place: new internal nodes, child
         leaf state, monotone bounds (the reference's
         SerialTreeLearner::Split, serial_tree_learner.cpp:700-774).
@@ -712,6 +830,15 @@ class TreeGrower:
         upd(t["leaf_depth"], new_depth, new_depth)
         upd(st["leaf_is_left"], torch.ones(L, dtype=torch.bool, device=d),
             torch.zeros(L, dtype=torch.bool, device=d))
+        if forced_valid is not None:
+            # children of a forced split take the spec's left/right
+            # sub-nodes; any other split clears the spec
+            s_node = st["leaf_forced"].clamp(0, self.forced_count - 1).long()
+            fap = do_split & forced_valid
+            none = torch.full((L,), -1, dtype=torch.int32, device=d)
+            upd(st["leaf_forced"],
+                torch.where(fap, self.forced_left[s_node], none),
+                torch.where(fap, self.forced_right[s_node], none))
 
         return (do_split, self.f_group[best_f], self.f_gb_lo[best_f],
                 self.f_gb_hi[best_f], self.f_gb_shift[best_f],

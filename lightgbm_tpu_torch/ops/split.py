@@ -1,17 +1,21 @@
 """Best-split search over histograms, vectorized across (leaf, feature,
 bin).
 
-Port of the numerical half of lightgbm_tpu/ops/split.py: every (leaf,
-feature, threshold, direction) candidate is scored at once with
-cumulative sums and masks.  Missing handling:
+Port of lightgbm_tpu/ops/split.py: every (leaf, feature, threshold,
+direction) candidate is scored at once with cumulative sums and masks.
+Numerical missing handling:
   * MissingType::None  — single default-left scan over all thresholds.
   * MissingType::Zero  — two scans with the default(zero) bin excluded
     from directional accumulation (zeros ride the default direction).
   * MissingType::NaN   — two scans; the NaN bin (last) is excluded from
     the default-left accumulation and rides the default direction.
 
-Categorical finders are not ported yet (the grower refuses categorical
-features); the route kernels already honour categorical bitsets.
+Categorical features take one-hot splits at small cardinality and
+otherwise the categories sorted by grad/hess ratio, scanned from both
+ends (:func:`find_categorical_splits`); the chosen split's left set is
+rebuilt as a bin mask (:func:`build_cat_bitset`) for the route table.
+Forced splits evaluate one given (feature, threshold) per leaf
+(:func:`forced_split_block`).
 """
 from __future__ import annotations
 
@@ -39,6 +43,17 @@ CAND_LOUT = 7
 CAND_ROUT = 8
 CAND_CAT_DIR = 9
 CAND_COLS = 10            # + max_feature_bin cat-mask columns after these
+
+# packed per-leaf forced-split candidate layout
+FORCED_GAIN = 0
+FORCED_THRESHOLD = 1
+FORCED_DEFAULT_LEFT = 2
+FORCED_LSG = 3
+FORCED_LSH = 4
+FORCED_LSC = 5
+FORCED_LOUT = 6
+FORCED_ROUT = 7
+FORCED_COLS = 8
 
 # the f32 prefix-sum order of XLA's CPU backend: 16-wide blocks summed
 # left to right, plus the prefix sum (in the same order) of the earlier
@@ -78,6 +93,31 @@ def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
                         dim=-1)
         loc = loc + exc[..., None]
     return loc.reshape(x.shape)[..., :B]
+
+
+#: XLA's CPU backend rewrites a reduction longer than this into a tree
+#: of reductions over windows of this length
+_REDUCE_WINDOW = 32
+
+
+def sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 sum along the last axis in the order ``jnp.sum`` takes on
+    XLA's CPU backend: up to 32 entries left to right from zero; a
+    longer axis is padded with zeros evenly at both ends (the extra one
+    at the end) to whole windows of 32, each window summed so, and the
+    window totals summed by the same rule.  The same order on every
+    device, so card and CPU runs agree bit for bit."""
+    n = x.shape[-1]
+    if n <= _REDUCE_WINDOW:
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for i in range(n):
+            acc = acc + x[..., i]
+        return acc
+    nw = -(-n // _REDUCE_WINDOW)
+    pad = nw * _REDUCE_WINDOW - n
+    x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    return sum_f32(sum_f32(x.reshape(x.shape[:-1]
+                                     + (nw, _REDUCE_WINDOW))))
 
 
 # ---------------------------------------------------------------------------
@@ -261,17 +301,300 @@ def find_numerical_splits(hist, sum_grad, sum_hess, num_data, num_bin,
         cat_dir=torch.zeros_like(thr))
 
 
+def _take(arr, idx):
+    """``arr[..., idx]`` along the last axis for an index tensor of one
+    fewer dimension (take_along_axis of one position)."""
+    return torch.gather(arr, -1, idx[..., None].long())[..., 0]
+
+
+def _group_chain(cs: torch.Tensor, base_ok: torch.Tensor,
+                 min_data_per_group: float, steps: int) -> torch.Tensor:
+    """The ``min_data_in_group`` chain along the last axis: a candidate
+    is evaluated only when the count since the last evaluated candidate
+    reaches ``min_data_per_group``.  Sequential over positions, one
+    position at a time over the whole (..., B) batch; positions from
+    ``steps`` on are never evaluated (the caller's ``base_ok`` is False
+    there)."""
+    cnt = torch.zeros(cs.shape[:-1], dtype=cs.dtype, device=cs.device)
+    zero = torch.zeros((), dtype=cs.dtype, device=cs.device)
+    # a position that may not be evaluated needs an infinite count
+    need = torch.where(base_ok[..., :steps],
+                       torch.tensor(min_data_per_group, dtype=cs.dtype,
+                                    device=cs.device),
+                       torch.tensor(math.inf, dtype=cs.dtype,
+                                    device=cs.device))
+    evals = []
+    for i in range(steps):
+        cnt = cnt + cs[..., i]
+        e = cnt >= need[..., i]
+        cnt = torch.where(e, zero, cnt)
+        evals.append(e)
+    out = torch.zeros_like(base_ok)
+    if evals:
+        out[..., :steps] = torch.stack(evals, dim=-1)
+    return out
+
+
+def _shift_used(arr: torch.Tensor, n_used: torch.Tensor) -> torch.Tensor:
+    """Reverse the first n_used entries of each (l, f) row so a forward
+    prefix scan over the result walks the sorted order from the back
+    (the dir=-1 scan).  Entries past n_used are zero."""
+    B = arr.shape[-1]
+    pos = torch.arange(B, dtype=torch.int32, device=arr.device)
+    idx = (n_used[..., None] - 1 - pos).expand(arr.shape)
+    out = torch.gather(arr, -1, idx.clamp(0, B - 1).long())
+    return torch.where(idx >= 0, out, torch.zeros((), device=arr.device))
+
+
+def _cat_sort(h_g, h_h, h_c, in_range, cat_smooth):
+    """The sorted mode's order: categories with at least ``cat_smooth``
+    rows by ``g / (h + cat_smooth)`` ascending (stable, as jnp.argsort;
+    a NaN key, an empty bin at ``cat_smooth=0``, sorts last in both
+    libraries), the rest after them.  Returns (order, n_used)."""
+    eligible = in_range & (h_c >= cat_smooth)
+    score = h_g / (h_h + cat_smooth)
+    key = torch.where(eligible, score,
+                      torch.tensor(math.inf, device=score.device))
+    order = torch.argsort(key, dim=-1, stable=True)
+    return order, eligible.sum(dim=-1).to(torch.int32)
+
+
+def find_categorical_splits(hist, sum_grad, sum_hess, num_data, num_bin,
+                            missing_type, min_c, max_c,
+                            cfg: Dict[str, float]) -> SplitResult:
+    """Vectorized FindBestThresholdCategorical (reference
+    feature_histogram.hpp:110-271) over every (leaf, feature) of
+    ``hist`` (L, F, B, 3): one-hot splits for features of at most
+    ``max_cat_to_onehot`` bins, otherwise categories sorted by
+    grad/hess ratio and scanned from both ends.
+
+    ``threshold`` in the result is the number of sorted categories going
+    left minus one (one-hot: the single bin); ``cat_dir`` is +1/-1 for
+    the scan direction (0 = one-hot).  :func:`build_cat_bitset` rebuilds
+    the category set of the chosen feature."""
+    L, F, B, _ = hist.shape
+    dev = hist.device
+    l1 = cfg["lambda_l1"]
+    l2_base = cfg["lambda_l2"]
+    mds = cfg["max_delta_step"]
+    min_data = cfg["min_data_in_leaf"]
+    min_hess = cfg["min_sum_hessian_in_leaf"]
+    min_gain = cfg["min_gain_to_split"]
+    cat_smooth = cfg["cat_smooth"]
+    cat_l2 = cfg["cat_l2"]
+    max_cat_threshold = int(cfg["max_cat_threshold"])
+    max_cat_to_onehot = int(cfg["max_cat_to_onehot"])
+    min_data_per_group = cfg["min_data_in_group"]
+
+    total_h = sum_hess + 2 * K_EPSILON
+    gain_shift = leaf_split_gain(sum_grad, total_h, l1, l2_base, mds)
+    min_gain_shift = gain_shift + min_gain                    # (L,)
+    mgs = min_gain_shift[:, None, None]
+    neg_inf = torch.tensor(K_MIN_SCORE, device=dev)
+    no_mono = torch.zeros((), dtype=torch.int32, device=dev)
+    mc3 = min_c[:, None, None]
+    xc3 = max_c[:, None, None]
+
+    used_bin = num_bin - 1 + (missing_type == MISSING_NONE).to(torch.int32)
+    bins = torch.arange(B, dtype=torch.int32, device=dev)
+    in_range = bins[None, :] < used_bin[:, None]              # (F, B)
+    h_g, h_h, h_c = hist[..., 0], hist[..., 1], hist[..., 2]
+
+    # ---------------- one-hot mode ----------------
+    lh1 = h_h + K_EPSILON
+    rg1 = sum_grad[:, None, None] - h_g
+    rh1 = total_h[:, None, None] - lh1
+    rc1 = num_data[:, None, None] - h_c
+    ok1 = (in_range[None] & (h_c >= min_data) & (rc1 >= min_data)
+           & (h_h >= min_hess) & (rh1 >= min_hess))
+    # the reference computes gain(other, this): the operand order is
+    # kept (it matters only under monotone constraints, which
+    # categorical features do not take)
+    g1 = split_gains(rg1, rh1, h_g, lh1, l1, l2_base, mds, mc3, xc3,
+                     no_mono)
+    g1 = torch.where(ok1 & (g1 > mgs), g1, neg_inf)
+    best1_t = g1.argmax(dim=2).to(torch.int32)
+    best1_gain = _take(g1, best1_t)
+    best1_lg = _take(h_g, best1_t)
+    best1_lh = _take(lh1, best1_t)
+    best1_lc = _take(h_c, best1_t)
+
+    # ---------------- sorted mode ----------------
+    l2s = l2_base + cat_l2
+    order, n_used = _cat_sort(h_g, h_h, h_c, in_range[None], cat_smooth)
+    sorted_hist = torch.gather(hist, 2, order[..., None].expand(-1, -1, -1,
+                                                                 3))
+    max_num_cat = torch.clamp((n_used + 1) // 2, max=max_cat_threshold)
+    # both directions in one batch: (L, 2F, B), forward first
+    fb = torch.cat([sorted_hist.permute(0, 1, 3, 2),
+                    _shift_used(sorted_hist.permute(0, 1, 3, 2),
+                                n_used[:, :, None])], dim=1)
+    cum = cumsum_f32(fb)                                      # (L, 2F, 3, B)
+    cum_g, cum_c = cum[:, :, 0], cum[:, :, 2]
+    cum_h = cum[:, :, 1] + K_EPSILON
+    mnc = torch.cat([max_num_cat, max_num_cat], dim=1)
+    nu = torch.cat([n_used, n_used], dim=1)
+    within = (bins < mnc[:, :, None]) & (bins < nu[:, :, None])
+    rc = num_data[:, None, None] - cum_c
+    rh = total_h[:, None, None] - cum_h
+    base_ok = (within & (cum_c >= min_data) & (cum_h >= min_hess)
+               & (rc >= min_data) & (rc >= min_data_per_group)
+               & (rh >= min_hess))
+    # no position past min(max_cat_threshold, ceil(B/2)) is ever within
+    steps = min(B, max_cat_threshold, (B + 1) // 2)
+    ok = _group_chain(fb[:, :, 2], base_ok, min_data_per_group, steps)
+    rg = sum_grad[:, None, None] - cum_g
+    g = split_gains(cum_g, cum_h, rg, rh, l1, l2s, mds, mc3, xc3, no_mono)
+    g = torch.where(ok & (g > mgs), g, neg_inf)
+    t2 = g.argmax(dim=2).to(torch.int32)                      # (L, 2F)
+    g2 = _take(g, t2)
+    lg2, lh2, lc2 = _take(cum_g, t2), _take(cum_h, t2), _take(cum_c, t2)
+    gf, gb = g2[:, :F], g2[:, F:]
+    use_fwd = gf >= gb
+
+    def fwd_or_bwd(v):
+        return torch.where(use_fwd, v[:, :F], v[:, F:])
+
+    use_onehot = (num_bin <= max_cat_to_onehot)[None, :]      # (1, F)
+    gain = torch.where(use_onehot, best1_gain, fwd_or_bwd(g2))
+    # net gain (reference: output->gain = best_gain - min_gain_shift)
+    gain = torch.where(gain > K_MIN_SCORE, gain - min_gain_shift[:, None],
+                       neg_inf)
+    thr = torch.where(use_onehot, best1_t, fwd_or_bwd(t2))
+    lg = torch.where(use_onehot, best1_lg, fwd_or_bwd(lg2))
+    lh = torch.where(use_onehot, best1_lh, fwd_or_bwd(lh2))
+    lc = torch.where(use_onehot, best1_lc, fwd_or_bwd(lc2))
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    cat_dir = torch.where(use_onehot, 0 * one,
+                          torch.where(use_fwd, one, -one))
+
+    # leaf outputs take the mode's l2 (plain for one-hot, + cat_l2 for
+    # sorted: the reference's `l2` variable mutation)
+    l2_eff = torch.where(use_onehot, torch.tensor(l2_base, device=dev),
+                         torch.tensor(l2s, device=dev))
+    mc = min_c[:, None]
+    xc = max_c[:, None]
+    left_out = _leaf_output_constrained(lg, lh, l1, l2_eff, mds, mc, xc)
+    right_out = _leaf_output_constrained(sum_grad[:, None] - lg,
+                                         total_h[:, None] - lh,
+                                         l1, l2_eff, mds, mc, xc)
+    return SplitResult(
+        gain=gain, threshold=thr,
+        default_left=torch.zeros_like(gain, dtype=torch.bool),
+        left_sum_grad=lg, left_sum_hess=lh - K_EPSILON, left_count=lc,
+        left_output=left_out, right_output=right_out, cat_dir=cat_dir)
+
+
+def build_cat_bitset(hist_f, threshold, cat_dir, num_bin, missing_type,
+                     cfg: Dict[str, float]) -> torch.Tensor:
+    """The left-going category-bin mask of chosen categorical splits
+    (reference feature_histogram.hpp:252-262): ``hist_f`` (L, B, 3) is
+    each leaf's chosen feature's histogram, the rest (L,).  Returns (L,
+    B) bool, True where the feature bin goes left."""
+    L, B, _ = hist_f.shape
+    dev = hist_f.device
+    bins = torch.arange(B, dtype=torch.int32, device=dev)
+    used_bin = num_bin - 1 + (missing_type == MISSING_NONE).to(torch.int32)
+    in_range = bins[None, :] < used_bin[:, None]
+    order, n_used = _cat_sort(hist_f[..., 0], hist_f[..., 1],
+                              hist_f[..., 2], in_range, cfg["cat_smooth"])
+    # sorted mode forward: the first threshold + 1 of the order;
+    # backward: the last threshold + 1 of its n_used eligible entries
+    k = threshold + 1
+    fwd_sel = bins[None, :] < k[:, None]
+    bwd_sel = ((bins[None, :] >= (n_used - k)[:, None])
+               & (bins[None, :] < n_used[:, None]))
+    sel = torch.where((cat_dir == 1)[:, None], fwd_sel,
+                      (cat_dir == -1)[:, None] & bwd_sel)
+    # selected sorted positions back to bin space
+    sorted_mask = torch.zeros_like(sel).scatter_(1, order, sel)
+    onehot_mask = bins[None, :] == threshold[:, None]
+    return torch.where((cat_dir == 0)[:, None], onehot_mask, sorted_mask)
+
+
+def gather_split_at_threshold(hist_f, threshold, sum_grad, sum_hess,
+                              num_data, num_bin, missing_type, default_bin,
+                              is_cat, cfg: Dict[str, float]):
+    """Split info at a GIVEN (feature, threshold) per leaf: the forced-
+    split evaluation (reference feature_histogram.hpp:273-413
+    GatherInfoForThresholdNumerical/Categorical).
+
+    Numerical: missing always rides left (``default_left=True``); the
+    right side sums bins ``> threshold``, skipping the default bin for
+    Zero-missing and the NaN bin otherwise.  Categorical: one-hot at the
+    threshold bin.  A gain not above ``min_gain_shift`` is -inf (the
+    forced split is then dropped).  ``hist_f`` (L, B, 3) holds each
+    leaf's forced feature's histogram, the rest is (L,).  Returns (gain
+    net of min_gain_shift, left_sum_grad, left_sum_hess, left_count,
+    left_output, right_output, default_left), each (L,)."""
+    L, B, _ = hist_f.shape
+    dev = hist_f.device
+    l1 = cfg["lambda_l1"]
+    l2 = cfg["lambda_l2"]
+    mds = cfg["max_delta_step"]
+    min_gain = cfg["min_gain_to_split"]
+
+    total_h = sum_hess + 2 * K_EPSILON
+    gain_shift = leaf_split_gain(sum_grad, total_h, l1, l2, mds)
+    min_gain_shift = gain_shift + min_gain
+
+    bins = torch.arange(B, dtype=torch.int32, device=dev)
+
+    # ---- numerical: right side = bins > threshold, minus skips ----
+    m_zero = missing_type == MISSING_ZERO
+    skip = torch.where(m_zero[:, None], bins[None, :] == default_bin[:, None],
+                       bins[None, :] == (num_bin - 1)[:, None])
+    right_sel = ((bins[None, :] > threshold[:, None])
+                 & (bins[None, :] <= (num_bin - 1)[:, None]) & ~skip)
+    # ---- categorical: one-hot at the threshold bin ----
+    onehot = bins[None, :] == threshold[:, None]
+    # both sides' three channels in one reduction: (L, 6)
+    h = hist_f.permute(0, 2, 1)                               # (L, 3, B)
+    sums = sum_f32(torch.cat([h * right_sel[:, None, :],
+                              h * onehot[:, None, :]], dim=1))
+    rg, rh, rc = sums[:, 0], sums[:, 1] + K_EPSILON, sums[:, 2]
+    c_lg, c_lh, c_lc = sums[:, 3], sums[:, 4] + K_EPSILON, sums[:, 5]
+    used_bin = num_bin - 1 + (missing_type == MISSING_NONE).to(torch.int32)
+    cat_ok = threshold < used_bin
+
+    lg = torch.where(is_cat, c_lg, sum_grad - rg)
+    lh = torch.where(is_cat, c_lh, total_h - rh)
+    lc = torch.where(is_cat, c_lc, num_data - rc)
+    rg2 = sum_grad - lg
+    rh2 = total_h - lh
+    gain = (leaf_split_gain(lg, lh, l1, l2, mds)
+            + leaf_split_gain(rg2, rh2, l1, l2, mds))
+    ok = (gain > min_gain_shift) & ~torch.isnan(gain) & (~is_cat | cat_ok)
+    gain = torch.where(ok, gain - min_gain_shift,
+                       torch.tensor(K_MIN_SCORE, device=dev))
+    left_out = calculate_leaf_output(lg, lh, l1, l2, mds)
+    right_out = calculate_leaf_output(rg2, rh2, l1, l2, mds)
+    return (gain, lg, lh - K_EPSILON, lc, left_out, right_out, ~is_cat)
+
+
 def run_split_finders(hist, sum_grad, sum_hess, count, min_c, max_c,
                       cfg, f_num_bin, f_missing, f_default_bin, f_monotone,
-                      f_is_cat, feature_mask, has_categorical: bool):
-    """Per-(leaf-row, feature) finder pass: the numerical finder and the
-    feature-mask gain fill.  Returns (res, gains)."""
-    if has_categorical:
-        raise NotImplementedError(
-            "categorical split finding is not ported yet")
+                      f_is_cat, feature_mask, has_categorical: bool,
+                      cat_idx):
+    """Per-(leaf-row, feature) finder pass: the numerical finder, the
+    categorical finder's results in the categorical features' columns,
+    and the feature-mask gain fill.  Returns (res, gains).
+
+    The JAX package runs the categorical finder over all F features and
+    keeps its columns where ``f_is_cat`` (a ``where``); each column is
+    computed on its own, so running it on the categorical features
+    alone (``cat_idx``, the indices where ``f_is_cat``) and scattering
+    the results gives the same values."""
     res = find_numerical_splits(
         hist, sum_grad, sum_hess, count, f_num_bin, f_missing,
         f_default_bin, f_monotone, min_c, max_c, cfg)
+    if has_categorical:
+        cat_idx = cat_idx.long()
+        cat_res = find_categorical_splits(
+            hist.index_select(1, cat_idx), sum_grad, sum_hess, count,
+            f_num_bin[cat_idx], f_missing[cat_idx], min_c, max_c, cfg)
+        res = SplitResult(*[n.index_copy(1, cat_idx, c.to(n.dtype))
+                            for c, n in zip(cat_res, res)])
     gains = torch.where(feature_mask[None, :], res.gain,
                         torch.tensor(K_MIN_SCORE, device=hist.device))
     return res, gains
@@ -280,14 +603,17 @@ def run_split_finders(hist, sum_grad, sum_hess, count, min_c, max_c,
 def find_best_split_block(feat_hist, sum_grad, sum_hess, count, min_c,
                           max_c, cfg, f_num_bin, f_missing, f_default_bin,
                           f_monotone, f_is_cat, feature_mask,
-                          has_categorical: bool) -> torch.Tensor:
+                          has_categorical: bool,
+                          cat_idx) -> torch.Tensor:
     """Best split per frontier leaf as one packed (W, CAND_COLS + B)
-    candidate block (column layout CAND_*)."""
+    candidate block (column layout CAND_*; the last B columns hold the
+    chosen categorical split's left bin mask)."""
     W, F, B, _ = feat_hist.shape
+    dev = feat_hist.device
     res, gains = run_split_finders(
         feat_hist, sum_grad, sum_hess, count, min_c, max_c, cfg,
         f_num_bin, f_missing, f_default_bin, f_monotone, f_is_cat,
-        feature_mask, has_categorical)
+        feature_mask, has_categorical, cat_idx)
     best_gain = gains.amax(dim=1)
     best_fc = gains.argmax(dim=1).to(torch.int32)
     payload = torch.stack(
@@ -296,12 +622,44 @@ def find_best_split_block(feat_hist, sum_grad, sum_hess, count, min_c,
          res.left_sum_grad, res.left_sum_hess, res.left_count,
          res.left_output, res.right_output,
          res.cat_dir.to(torch.float32)], dim=2)               # (W, F, 8)
-    oh = (torch.arange(F, dtype=torch.int32, device=feat_hist.device)[None, :]
+    oh = (torch.arange(F, dtype=torch.int32, device=dev)[None, :]
           == best_fc[:, None])
     sel = torch.where(oh[:, :, None], payload,
-                      torch.zeros((), device=payload.device)).sum(dim=1)
-    cat_mask = torch.zeros((W, B), dtype=torch.float32,
-                           device=feat_hist.device)
+                      torch.zeros((), device=dev)).sum(dim=1)
+    if has_categorical:
+        bf = best_fc.long()
+        hist_chosen = feat_hist[torch.arange(W, device=dev), bf]
+        cat_mask = build_cat_bitset(
+            hist_chosen, sel[:, 0].to(torch.int32),
+            sel[:, 7].to(torch.int32), f_num_bin[bf], f_missing[bf],
+            cfg).to(torch.float32)
+    else:
+        cat_mask = torch.zeros((W, B), dtype=torch.float32, device=dev)
     return torch.cat([best_gain[:, None],
                       best_fc.to(torch.float32)[:, None], sel, cat_mask],
                      dim=1)
+
+
+def forced_split_block(feat_hist, spec, forced_feature, forced_thr,
+                       sum_grad, sum_hess, count, f_num_bin, f_missing,
+                       f_default_bin, f_is_cat,
+                       cfg: Dict[str, float]) -> torch.Tensor:
+    """Forced-split evaluation of the frontier as one packed (W,
+    FORCED_COLS) block: :func:`gather_split_at_threshold` per leaf at
+    its spec node's (feature, threshold); rows with no spec get -inf
+    gain.  ``spec`` is the (W,) forced-spec index (-1 = none);
+    ``forced_feature``/``forced_thr`` the flat spec arrays."""
+    n_spec = forced_feature.shape[0]
+    s_node = spec.clamp(0, n_spec - 1).long()
+    ff = forced_feature[s_node].long()
+    ft = forced_thr[s_node]
+    W = feat_hist.shape[0]
+    hist_ff = feat_hist[torch.arange(W, device=feat_hist.device), ff]
+    (fgain, flg, flh, flc, flo, fro, fdl) = gather_split_at_threshold(
+        hist_ff, ft, sum_grad, sum_hess, count, f_num_bin[ff],
+        f_missing[ff], f_default_bin[ff], f_is_cat[ff], cfg)
+    fgain = torch.where(spec >= 0, fgain,
+                        torch.tensor(K_MIN_SCORE, device=fgain.device))
+    return torch.stack(
+        [fgain, ft.to(torch.float32), fdl.to(torch.float32),
+         flg, flh, flc, flo, fro], dim=1)

@@ -157,17 +157,6 @@ def _construct_bitset(values: List[int]) -> List[int]:
     return words
 
 
-def _find_in_bitset(words: np.ndarray, pos: np.ndarray) -> np.ndarray:
-    """Vectorized FindInBitset (reference utils/common.h:827-835)."""
-    n = len(words)
-    i1 = pos // 32
-    ok = (i1 >= 0) & (i1 < n)
-    i1c = np.clip(i1, 0, max(n - 1, 0))
-    if n == 0:
-        return np.zeros(len(pos), dtype=bool)
-    return ok & (((words[i1c] >> (pos % 32)) & 1) > 0)
-
-
 class Tree:
     """One decision tree in model space (real thresholds/categories)."""
 
@@ -252,6 +241,10 @@ class Tree:
             return np.zeros(n, dtype=np.int32)
         node = np.zeros(n, dtype=np.int32)
         active = node >= 0
+        cat_bounds = np.asarray(self.cat_boundaries, dtype=np.int64)
+        cat_words = np.asarray(self.cat_threshold, dtype=np.uint32)
+        if cat_words.size == 0:
+            cat_words = np.zeros(1, dtype=np.uint32)
         # every step resolves one level; bounded by num_leaves
         for _ in range(self.num_leaves):
             if not active.any():
@@ -270,19 +263,25 @@ class Tree:
                           ((mtype == 2) & np.isnan(fv))
             go_left = np.where(use_default, default_left, fv <= thr)
             if is_cat.any():
-                cat_left = np.zeros(len(idx), dtype=bool)
-                for j in np.nonzero(is_cat)[0]:
-                    v = fvals[j]
-                    if np.isnan(v) or int(v) < 0:
-                        cat_left[j] = False
-                        continue
-                    ci = int(thr[j])
-                    lo, hi = self.cat_boundaries[ci], self.cat_boundaries[ci + 1]
-                    words = np.asarray(self.cat_threshold[lo:hi],
-                                       dtype=np.uint32)
-                    cat_left[j] = bool(_find_in_bitset(
-                        words, np.asarray([int(v)]))[0])
-                go_left = np.where(is_cat, cat_left, go_left)
+                # each categorical row's bit in its node's bitset: the
+                # category (truncated toward zero; NaN and negatives go
+                # right) indexes a word of the node's slice of the flat
+                # cat_threshold words
+                j = np.nonzero(is_cat)[0]
+                v = fvals[j]
+                ok = ~np.isnan(v)
+                iv = np.where(ok, np.trunc(np.where(ok, v, 0.0)), -1.0)
+                ci = thr[j].astype(np.int64)
+                lo, hi = cat_bounds[ci], cat_bounds[ci + 1]
+                word = np.floor_divide(iv, 32.0)
+                ok &= (iv >= 0) & (word < hi - lo)
+                at = np.where(ok, lo + np.where(ok, word, 0.0), 0
+                              ).astype(np.int64)
+                bit = np.where(ok, iv - 32.0 * word, 0.0).astype(np.int64)
+                hit = ok & (((cat_words[at] >> bit.astype(np.uint32)) & 1)
+                            > 0)
+                go_left = go_left.copy()
+                go_left[j] = hit
             nxt = np.where(go_left, self.left_child[idx],
                            self.right_child[idx])
             node[active] = nxt

@@ -993,3 +993,87 @@ def test_objective_trains_on_the_card_as_on_the_cpu(dev, monkeypatch,
         scale = float(np.abs(pt.leaf_value).max())
         np.testing.assert_allclose(ct.leaf_value, pt.leaf_value, rtol=tol,
                                    atol=tol * scale, err_msg=f"tree {i}")
+
+
+def _categorical_data(n=50_000, seed=12):
+    """Columns 1 (3 categories), 3 (about 60, Zipf-like), 4 (12, with
+    NaNs) and 5 (300, more than max_bin 63: 256 bins, so the route
+    table's left sets reach bits past 64) are categorical; each category
+    moves the target."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 6)
+    X[:, 1] = rng.randint(0, 3, n)
+    X[:, 3] = rng.zipf(1.3, n) % 60
+    X[:, 4] = rng.randint(0, 12, n)
+    X[rng.rand(n) < 0.05, 4] = np.nan
+    X[:, 5] = rng.randint(0, 300, n)
+    off = rng.randn(80)
+    off5 = rng.randn(300)
+    y = (X[:, 0] + off[X[:, 3].astype(int)]
+         + 0.7 * off[X[:, 1].astype(int) + 60]
+         + 0.5 * off[np.nan_to_num(X[:, 4]).astype(int) + 64]
+         + 0.8 * off5[X[:, 5].astype(int)]
+         + 0.3 * rng.randn(n))
+    return X, y
+
+
+def test_categorical_training_on_the_card_as_on_the_cpu(dev, monkeypatch):
+    """Categorical columns on the main path (fused_tiled: kernel A routes
+    the bitsets the split finder grew, kernel B routes them at exit):
+    the card's trees have the CPU run's structure and category sets,
+    leaves within 1e-6 of the tree's largest.  The CPU run takes the
+    card run's root sums (each device sums them in its own order)."""
+    X, y = _categorical_data()
+    params = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+              "min_data_in_leaf": 5, "quantized_grad": True,
+              "hist_compute_dtype": "bfloat16", "verbose": -1}
+    real = grower.compute_root_totals
+    card_roots = []
+
+    def card_root(*args):
+        out = real(*args)
+        card_roots.append(out.cpu())
+        return out
+
+    def cpu_root(*args):
+        return card_roots.pop(0)
+
+    n0 = kernels.LAUNCHES["fused_route_hist"], kernels.LAUNCHES["route_apply"]
+    models = {}
+    for device, root in (("cuda", card_root), ("cpu", cpu_root)):
+        monkeypatch.setattr(grower, "compute_root_totals", root)
+        ds = tlgb.Dataset(X, label=y)
+        bst = tlgb.train(dict(params, device=device), ds, 3,
+                         categorical_feature=[1, 3, 4, 5], verbose_eval=False,
+                         keep_training_booster=True)
+        assert bst.gbdt.grower.plan.name == "fused_tiled"
+        assert bst.gbdt.grower.max_group_bin == 256
+        models[device] = bst.models
+    assert not card_roots
+    assert kernels.LAUNCHES["fused_route_hist"] > n0[0]
+    assert kernels.LAUNCHES["route_apply"] > n0[1]
+    assert any(t.num_cat for t in models["cuda"])
+    # some left set of column 5 holds a category binned at 64 or above
+    high = set()
+    mapper = ds.construct().mappers[5]
+    for t in models["cuda"]:
+        for i in range(t.num_leaves - 1):
+            if t.decision_type[i] & 1 and t.split_feature[i] == 5:
+                c = int(t.threshold[i])
+                words = t.cat_threshold[t.cat_boundaries[c]:
+                                        t.cat_boundaries[c + 1]]
+                cats = [32 * j + b for j, wd in enumerate(words)
+                        for b in range(32) if (wd >> b) & 1]
+                high |= {k for k, b in zip(cats, mapper.value_to_bin(
+                    np.array(cats, np.float64))) if b >= 64}
+    assert high
+    for i, (ct, pt) in enumerate(zip(models["cuda"], models["cpu"])):
+        for f in ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "leaf_count"):
+            np.testing.assert_array_equal(getattr(ct, f), getattr(pt, f),
+                                          f"tree {i} {f}")
+        assert ct.cat_boundaries == pt.cat_boundaries, f"tree {i}"
+        assert ct.cat_threshold == pt.cat_threshold, f"tree {i}"
+        scale = float(np.abs(pt.leaf_value).max())
+        np.testing.assert_allclose(ct.leaf_value, pt.leaf_value, rtol=1e-6,
+                                   atol=1e-6 * scale, err_msg=f"tree {i}")

@@ -210,14 +210,25 @@ def test_feature_name_argument():
 @pytest.mark.parametrize("case", ["categorical_feature", "group",
                                   "init_model_without_raw_data"])
 def test_front_door_refusals(case):
-    """What waits for a later slice raises: categorical columns, query
-    groups (lambdarank); continued training needs the raw rows kept."""
+    """The front door's edge cases: categorical columns train as in the
+    JAX package (column 0, the label's strongest, cut into 13
+    categories, NaN kept); query
+    groups (lambdarank) wait for a later slice and raise; continued
+    training needs the raw rows kept."""
     X, y = C.train_rows()
     params = dict(C.PARAMS, **C.PORT)
     if case == "categorical_feature":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tlgb.train(params, tlgb.Dataset(X, label=y), 1,
-                       categorical_feature=[2], verbose_eval=False)
+        X[:, 0] = np.floor(np.clip(X[:, 0] + 3.0, 0.0, 6.4) * 2.0)
+        jb = jlgb.train(dict(C.PARAMS, **C.JAX), jlgb.Dataset(X, label=y), 2,
+                        categorical_feature=[0], verbose_eval=False)
+        tb = tlgb.train(params, tlgb.Dataset(X, label=y), 2,
+                        categorical_feature=[0], verbose_eval=False)
+        # leaves within 1e-5 of the tree's largest: the JAX package's
+        # FMAs (ROADMAP queue 3)
+        C.assert_same_trees(jb.models, tb.models, of_largest=True)
+        assert [t.cat_threshold for t in tb.models] == [
+            list(t.cat_threshold) for t in jb.models]
+        assert any(t.num_cat for t in tb.models)
     elif case == "group":
         with pytest.raises(NotImplementedError, match="not ported"):
             tlgb.train(params, tlgb.Dataset(X, label=y, group=[2000, 2000]),

@@ -211,7 +211,8 @@ def test_split_finder_matches_jax():
                                                    xc))
     tb = TS.find_best_split_block(
         _t(hist), _t(sg), _t(sh), _t(cnt), _t(mc), _t(xc), cfg, _t(nb),
-        _t(mt), _t(db), _t(mono), _t(ic), _t(fm), False).numpy()
+        _t(mt), _t(db), _t(mono), _t(ic), _t(fm), False,
+        _t(np.nonzero(ic)[0])).numpy()
     cols = [TS.CAND_FEATURE, TS.CAND_THRESHOLD, TS.CAND_DEFAULT_LEFT,
             TS.CAND_LSG, TS.CAND_LSH, TS.CAND_LSC, TS.CAND_LOUT,
             TS.CAND_ROUT]
