@@ -114,6 +114,34 @@ Phases, in order; any failure exits nonzero:
      its left child on a numeric threshold), 3 trees, each forced as
      specified, and a spec with an impossible threshold falling back to
      (a)'s root;
+  8. the random streams and lambdarank, every run on fused_tiled with
+     the counters zeroed before it, its every kernel A and B call tapped
+     and held bit for bit against the plain versions on the run's own
+     inputs after it, and its ms an iteration printed with the card:
+     (a) bagging at the bench shape (fraction 0.7 every 2 iterations,
+     feature_fraction 0.8, 6 trees): each iteration's bag equal to its
+     recomputation on the host from the same key stream
+     (utils/prng.py), each tree's root count its bag's size, the in-bag
+     share within 0.5% of 0.7; (b) GOSS (top 0.2, other 0.1, learning
+     rate 0.5, 5 iterations, sampling from the third): each sample equal
+     to its recomputation on the host from the card's own gradients and
+     key, each root count the top rows plus the Bernoulli keeps; (c)
+     DART (drop rate 0.5, no skip, 5 iterations): some iteration drops,
+     and Booster.predict (kernel C) of 200,000 training rows within
+     1e-5 x (1 + |s|) of the tracked training scores; (d) RF (bagging
+     0.632 every iteration, feature_fraction 0.8, 5 trees): kernel C's
+     mean within 1e-5 of the host walk's, its held-out AUC beside phase
+     3's; (e) lambdarank at bench.py's ranking shape (18,900 queries of
+     60-180 documents, ~2.27M rows x 136 features, 136 groups; 2,000
+     held-out queries), bench.py's parameters, int8 weights rounded
+     stochastically, 5 iterations: the held-out NDCG@10 of the port's
+     metric equal to bench.py's ndcg_at_k on the same scores within
+     1e-6, Booster.predict (kernel C) of the held-out rows within 1e-5 x
+     (1 + |s|) of the tracked held-out scores, both of C's tiers held
+     against the plain version at 136 features (rows read from device
+     memory, not staged), the NDCG@10 of Booster.predict's scores
+     clearing the untrained one by 0.03, and the lambdas of the last scores on the
+     card within 1e-6 of the largest of the same torch ops on the CPU;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -1686,18 +1714,19 @@ def event_breakdown(cat, num, top=12):
             "ms numeric" for k in kinds]
 
 
-class GrowerTap:
-    """Records each call that learner/grower.py makes to the named
-    kernel entry points while it is entered: (arguments, keywords,
-    result), tensor arguments of fewer than 2^22 elements cloned (a
-    table, leaf ids, weights, values; the bins are held as they are).
-    The calls launch as they would untapped; the records let them be
-    held against the plain versions after the run, outside its launch
-    counts."""
+class CallTap:
+    """Records each call to the named functions of ``owner`` (a module,
+    learner/grower.py's kernel entry points by default, or a class) while
+    it is entered: (arguments, keywords, result), tensor arguments of
+    fewer than 2^22 elements cloned (a table, leaf ids, weights, values;
+    the bins are held as they are).  The calls run as they would
+    untapped; the records let them be held against the plain versions
+    after the run, outside its launch counts (phases 7 and 8)."""
 
-    def __init__(self, *names):
-        from lightgbm_tpu_torch.learner import grower
-        self.module, self.names, self.real = grower, names, {}
+    def __init__(self, *names, owner=None):
+        if owner is None:
+            from lightgbm_tpu_torch.learner import grower as owner
+        self.module, self.names, self.real = owner, names, {}
         self.calls = {n: [] for n in names}
 
     def __enter__(self):
@@ -1738,7 +1767,7 @@ def cat_high_rows(binsT, leaf, table, low=64):
 
 
 def hold_tapped(tap, label):
-    """Phase 7: every kernel call a tapped run made, held bit for bit
+    """Phases 7 and 8: every kernel call a tapped run made, held bit for bit
     against the kernel's plain version on the same inputs (A's and J's
     dequantized histograms, A's, B's and H's leaf ids, B's row values).
     Returns {kernel: (calls held, rows routed by a categorical bin of 64
@@ -1926,7 +1955,7 @@ def check_categorical(lgb, kernels, params, dev, card, n_rows, n_valid,
     train = ("fused_route_hist", "route_apply")
     # (a) fused_tiled, 10 trees, the four columns categorical; then the
     # same rows with the four columns numeric
-    tap = GrowerTap("compute_group_histograms_fused_tiled",
+    tap = CallTap("compute_group_histograms_fused_tiled",
                     "route_apply_tiled")
     bst_a, a_ms, a_auc, a_launch = run("(a) categorical fused_tiled",
                                        params, "categorical", 10, train,
@@ -2026,7 +2055,7 @@ def check_categorical(lgb, kernels, params, dev, card, n_rows, n_valid,
     del bst_n
 
     # (b) seg_tiled, 3 trees: (a)'s first 3 trees
-    tap = GrowerTap("route_only_tiled", "compute_group_histograms_seg_tiled",
+    tap = CallTap("route_only_tiled", "compute_group_histograms_seg_tiled",
                     "route_apply_tiled")
     bst_b, b_ms, _, _ = run("(b) categorical seg_tiled",
                             dict(params, hist_leaf_partition="on"),
@@ -2104,6 +2133,384 @@ def check_categorical(lgb, kernels, params, dev, card, n_rows, n_valid,
                 "phase7_c_ms_per_tree": c_ms})
     extra["predict_level"] = {"phase7_d_ms": d_ms,
                               "phase7_d_max_abs_err": err_d}
+    return extra
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the random streams (bagging, GOSS, DART, RF, stochastic int8
+# rounding) and lambdarank over query groups
+# ---------------------------------------------------------------------------
+#: bench.py run_ltr_scale's shape (bench.py:538-556): training queries,
+#: held-out queries, and its gate over the untrained NDCG@10
+LTR_QUERIES, LTR_VALID_QUERIES = 18_900, 2_000
+NDCG_GATE = 0.03
+#: the lambdas on the card against the same torch ops on the CPU,
+#: |d| <= LAMBDA_TOL * max |g| (tests/test_torch_lambdarank.py's bound
+#: against the JAX package)
+LAMBDA_TOL = 1e-6
+
+
+def make_ltr_data(n_queries, f=136, seed=11, docs_lo=60, docs_hi=180,
+                  w=None):
+    """Synthetic MS-LTR-shaped ranking task (bench.py make_ltr_data):
+    variable-size queries, graded 0-4 relevance from a noisy latent
+    score with a per-query offset."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(docs_lo, docs_hi + 1, size=n_queries)
+    n = int(sizes.sum())
+    X = rng.randn(n, f).astype(np.float32)
+    if w is None:
+        w = (rng.randn(f) * (rng.rand(f) > 0.5)).astype(np.float32)
+    latent = X @ w + np.repeat(rng.randn(n_queries) * 2.0, sizes) \
+        + rng.randn(n).astype(np.float32) * 2.0
+    qs = np.quantile(latent, [0.55, 0.78, 0.90, 0.97])
+    y = np.digitize(latent, qs).astype(np.float32)
+    return X.astype(np.float64), y, sizes, w
+
+
+def ndcg_at_k(y, s, sizes, k=10):
+    """Mean NDCG@k over queries, gain 2^label - 1, log2 discounts
+    (bench.py ndcg_at_k)."""
+    out = []
+    start = 0
+    for sz in sizes:
+        yl = y[start:start + sz]
+        sl = s[start:start + sz]
+        start += sz
+        kk = min(k, sz)
+        order = np.argsort(-sl, kind="stable")[:kk]
+        gains = 2.0 ** yl[order] - 1
+        disc = 1.0 / np.log2(np.arange(2, kk + 2))
+        dcg = float(np.sum(gains * disc))
+        best = np.sort(yl)[::-1][:kk]
+        idcg = float(np.sum((2.0 ** best - 1) * disc))
+        out.append(dcg / idcg if idcg > 0 else 0.0)
+    return float(np.mean(out))
+
+
+def after_each_iteration(read):
+    """A training callback that keeps ``read(gbdt)`` after every
+    iteration; returns (callback, the list it fills)."""
+    seen = []
+
+    def callback(env):
+        seen.append(read(env.model.gbdt))
+    return callback, seen
+
+
+def bag_masks_on_host(seed, n_iter, freq, frac, n, n_padded):
+    """The objective path's bag of each iteration recomputed on the host
+    from its key stream (utils/prng.py): one randint of
+    RandomState(bagging_seed) an iteration, PRNGKey of it, the first
+    half of its split drawing n_padded uniforms every ``freq``
+    iterations; padded rows never in."""
+    import torch
+    from lightgbm_tpu_torch.utils import prng
+    rs = np.random.RandomState(seed)
+    out, mask = [], None
+    for it in range(n_iter):
+        kb, _ = prng.split(prng.PRNGKey(int(rs.randint(0, 2**31 - 1))))
+        if it % freq == 0 or mask is None:
+            mask = (prng.uniform(kb, (n_padded,)) < frac) & (
+                torch.arange(n_padded) < n)
+        out.append(mask)
+    return out
+
+
+def root_count(tree) -> int:
+    return int(tree.internal_count[0] if tree.num_leaves > 1
+               else tree.leaf_count[0])
+
+
+def check_sampling(lgb, kernels, params, train_ds, valid_ds, X, Xv, yv,
+                   dev, card, rehearse, p3_auc, plan_runs):
+    """Phase 8: bagging, GOSS, DART and RF at the bench shape and
+    lambdarank at bench.py's ranking shape, all on fused_tiled through
+    lgb.train (kernels A and B; every call tapped and held against the
+    plain versions after its run) and Booster.predict (kernel C), each
+    run's launches counted on their own.  Returns the numbers for the
+    kernels line."""
+    import torch
+    from lightgbm_tpu_torch.boosting.goss import GOSS
+    from lightgbm_tpu_torch.ops import histogram as kernels_api
+    from lightgbm_tpu_torch.ops import predict as P
+    train = ("fused_route_hist", "route_apply")
+    extra = {"fused_route_hist": {}, "route_apply": {}, "predict_level": {}}
+    n = X.shape[0]
+
+    def run(label, run_params, rounds, tset, vset, callbacks=(), taps=(),
+            time_a=False):
+        evals = {}
+        tap = CallTap("compute_group_histograms_fused_tiled",
+                      "route_apply_tiled")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for t in (tap,) + tuple(taps):
+                stack.enter_context(t)
+            bst = lgb.train(run_params, tset, rounds, valid_sets=[vset],
+                            valid_names=["valid"], evals_result=evals,
+                            verbose_eval=False, keep_training_booster=True,
+                            callbacks=list(callbacks))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / rounds
+        launches = {k: c for k, c in kernels.LAUNCHES.items() if c}
+        need_launches(dev, label, launches, train)
+        if bst.gbdt.grower.plan.name != "fused_tiled":
+            raise AssertionError(f"{label}: resolved "
+                                 f"{bst.gbdt.grower.plan.name}")
+        for name, count in launches.items():
+            plan_runs.setdefault(name, {})[f"phase 8 {label}"] = count
+        if time_a:
+            time_kernel_a(tap, label)
+        held = hold_tapped(tap, label)
+        for name, (calls, _) in held.items():
+            extra[name][f"phase8_{label[1]}_held_calls"] = calls
+        extra["fused_route_hist"][f"phase8_{label[1]}_ms_per_iter"] = ms
+        metric = next(iter(evals["valid"].values()))[-1]
+        print(f"[phase 8] {label}: {bst.num_trees()} trees, {ms:.1f} ms an "
+              f"iteration (wall of lgb.train over iterations, the "
+              f"evaluation and this phase's per-iteration readback "
+              f"included; {card}); held-out "
+              f"{next(iter(evals['valid']))} {metric:.4f}; launches "
+              f"{launches}; every A and B call held bit for bit against "
+              f"its plain version (kernel: calls) "
+              f"{ {k: c for k, (c, _) in held.items()} }")
+        return bst, ms, metric, evals
+
+    def time_kernel_a(tap, label):
+        """Kernel A on two of the run's own calls (a tree's first round,
+        every row in one slot; and its middle call), events around the
+        wrapper's call, beside the bytes bound: each landed row's bins,
+        weights and leaf id read and its leaf id written once."""
+        calls = tap.calls["compute_group_histograms_fused_tiled"]
+        for which, (args, kw, got) in (("first round", calls[0]),
+                                       ("middle call",
+                                        calls[len(calls) // 2])):
+            binsT, slots = args[0], args[5]
+            G, N = binsT.shape
+            landed = int(torch.isin(got[1], slots).sum())
+            ms = time_ms(
+                lambda: kernels_api.compute_group_histograms_fused_tiled(
+                    *args, **kw), dev, 1 if rehearse else 10)
+            bound = (landed * (G + 12) + 8 * N) / MEM_BYTES_PER_S * 1e3
+            key = "first" if which == "first round" else "middle"
+            extra["fused_route_hist"][f"phase8_{label[1]}_{key}_ms"] = ms
+            extra["fused_route_hist"][
+                f"phase8_{label[1]}_{key}_bound_ms"] = bound
+            print(f"[phase 8] {label}: kernel A at {G} groups, {which} "
+                  f"({slots.shape[0]} slots, {landed} rows landed): "
+                  f"{ms:.4f} ms the call (events), bound {bound:.4f} ms "
+                  f"(bytes; {card})")
+
+    def predicted(label, fn):
+        kernels.reset_launches()
+        out = fn()
+        launches = {k: c for k, c in kernels.LAUNCHES.items() if c}
+        need_launches(dev, label, launches, ("predict_level",))
+        for name, count in launches.items():
+            plan_runs.setdefault(name, {})[f"phase 8 {label}"] = count
+        return out
+
+    # (a) bagging: each iteration's bag recomputed on the host
+    a_params = dict(params, bagging_fraction=0.7, bagging_freq=2,
+                    feature_fraction=0.8)
+    seed = lgb.Config.from_params(a_params).bagging_seed
+    keep_mask, masks = after_each_iteration(lambda g: g._bag_state.cpu())
+    bst, _, a_auc, _ = run("(a) bagging", a_params, 6, train_ds, valid_ds,
+                           (keep_mask,))
+    want = bag_masks_on_host(seed, 6, 2, 0.7, n, bst.gbdt.grower.n_padded)
+    for it, (got, mask) in enumerate(zip(masks, want)):
+        if not torch.equal(got, mask):
+            raise AssertionError(f"(a): iteration {it}'s bag differs from "
+                                 "the host's recomputation")
+        if root_count(bst.models[it]) != int(mask.sum()):
+            raise AssertionError(f"(a): tree {it}'s root count "
+                                 f"{root_count(bst.models[it])} is not its "
+                                 f"bag's {int(mask.sum())}")
+    shares = [float(m[:n].float().mean()) for m in masks[::2]]
+    # 0.5%, or four standard deviations of the share where that is wider
+    # (the rehearsal's few rows)
+    if max(abs(s - 0.7) for s in shares) > max(
+            0.005, 4 * (0.7 * 0.3 / n) ** 0.5):
+        raise AssertionError(f"(a): in-bag shares {shares}")
+    print(f"[phase 8] (a) the 6 bags equal their host recomputation bit for "
+          f"bit; each tree's root count is its bag's size; in-bag shares of "
+          f"the 3 fresh bags {[round(s, 5) for s in shares]}")
+    extra["fused_route_hist"]["phase8_a_in_bag_shares"] = shares
+    del bst
+
+    # (b) GOSS: sampling from iteration int(1 / 0.5) = 2; every sample
+    # recomputed on the host from the card's own gradients and key
+    b_params = dict(params, boosting_type="goss", top_rate=0.2,
+                    other_rate=0.1, learning_rate=0.5)
+    gtap = CallTap("_goss_sample", owner=GOSS)
+    bst, _, b_auc, _ = run("(b) GOSS", b_params, 5, train_ds, valid_ds,
+                           taps=(gtap,))
+    samples = gtap.calls["_goss_sample"]
+    if len(samples) != 3:
+        raise AssertionError(f"(b): {len(samples)} sampled iterations, "
+                             "not 3")
+    top_k = int(n * 0.2)
+    kept = []
+    for j, (args, _, got) in enumerate(samples):
+        booster, g, h, counts, key = args
+        want = GOSS._goss_sample(booster, g.cpu(), h.cpu(), counts.cpu(),
+                                 key)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            raise AssertionError(f"(b): iteration {2 + j}'s sample differs "
+                                 "from the host's recomputation")
+        keep = want[2] > 0
+        score = (g.cpu() * h.cpu()).abs().sum(0)
+        score = torch.where(counts.cpu() > 0, score,
+                            torch.full_like(score, float("-inf")))
+        n_top = int((score >= torch.topk(score, top_k).values[-1]).sum())
+        tree = bst.models[2 + j]
+        if n_top < top_k or root_count(tree) != int(keep.sum()):
+            raise AssertionError(f"(b): tree {2 + j}: {n_top} top rows, "
+                                 f"root count {root_count(tree)}, "
+                                 f"{int(keep.sum())} kept")
+        kept.append((n_top, int(keep.sum()) - n_top))
+    print(f"[phase 8] (b) the 3 samples equal their host recomputation bit "
+          f"for bit; (top rows, Bernoulli keeps) {kept} (top_k {top_k}, "
+          f"other_k {int(n * 0.1)}), each the tree's root count")
+    extra["fused_route_hist"]["phase8_b_top_and_kept"] = kept
+    del bst
+
+    # (c) DART: the trees' rescales against the tracked training scores
+    c_params = dict(params, boosting_type="dart", drop_rate=0.5,
+                    skip_drop=0.0)
+    keep_drops, drops = after_each_iteration(lambda g: list(g.drop_index))
+    bst, _, c_auc, _ = run("(c) DART", c_params, 5, train_ds, valid_ds,
+                           (keep_drops,))
+    if not any(drops):
+        raise AssertionError("(c): no iteration dropped a tree")
+    m = min(n, 200_000)
+    tracked = bst.gbdt.scores[0, :m].cpu().numpy().astype(np.float64)
+    raw = predicted("(c) predict", lambda: bst.predict(X[:m],
+                                                       raw_score=True))
+    err_c = float((np.abs(raw - tracked) / (1 + np.abs(tracked))).max())
+    if err_c > TOL_PREDICT:
+        raise AssertionError(f"(c): Booster.predict is {err_c:.3g} from the "
+                             "tracked training scores")
+    print(f"[phase 8] (c) drops {drops}, tree scales "
+          f"{[round(v, 6) for v in bst.gbdt._tree_scale]}; Booster.predict "
+          f"of {m} training rows within {err_c:.3g} x (1 + |s|) of the "
+          "tracked training scores")
+    extra["predict_level"]["phase8_c_max_rel_err"] = err_c
+    del bst
+
+    # (d) RF: kernel C's mean against the host walk's
+    d_params = dict(params, boosting_type="rf", bagging_fraction=0.632,
+                    bagging_freq=1, feature_fraction=0.8)
+    bst, _, d_auc, _ = run("(d) RF", d_params, 5, train_ds, valid_ds)
+    prob = predicted("(d) predict", lambda: bst.predict(Xv))
+    host = np.mean([t.predict(Xv) for t in bst.models], axis=0)
+    err_d = float(np.abs(prob - host).max())
+    if err_d > TOL_PREDICT:
+        raise AssertionError(f"(d): kernel C's mean is {err_d:.3g} from the "
+                             "host walk's")
+    print(f"[phase 8] (d) Booster.predict (the mean of 5 trees) within "
+          f"{err_d:.3g} of the host walk's mean; held-out AUC "
+          f"{auc_score(yv, prob):.4f} (phase 3's 10 boosted trees "
+          f"{p3_auc:.4f})")
+    extra["predict_level"]["phase8_d_max_abs_err"] = err_d
+    del bst
+
+    # (e) lambdarank at bench.py's ranking shape
+    nq, nvq, lo, hi = ((300, 100, 20, 60) if rehearse
+                       else (LTR_QUERIES, LTR_VALID_QUERIES, 60, 180))
+    t0 = time.perf_counter()
+    XL, yL, sizes, wL = make_ltr_data(nq, docs_lo=lo, docs_hi=hi)
+    XLv, yLv, sizes_v, _ = make_ltr_data(nvq, seed=12, w=wL, docs_lo=lo,
+                                         docs_hi=hi)
+    e_params = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 63,
+                "learning_rate": 0.1, "verbose": 0, "min_data_in_leaf": 1,
+                "min_sum_hessian_in_leaf": 100.0,
+                "hist_compute_dtype": "bfloat16", "quantized_grad": True,
+                "metric": "ndcg", "ndcg_eval_at": [10], "device": dev.type}
+    cfg = lgb.Config.from_params(e_params)
+    dL = lgb.Dataset(XL, label=yL, group=sizes)
+    core = dL.construct(cfg)
+    vL = lgb.Dataset(XLv, label=yLv, group=sizes_v, reference=dL)
+    vL.construct_aligned(core, cfg)
+    nL = core.num_data
+    del XL
+    print(f"[phase 8] (e) {nq} queries of {lo}-{hi} documents ({nL} rows) x "
+          f"136 features, {nvq} held-out queries ({len(yLv)} rows): made "
+          f"and binned once in {time.perf_counter() - t0:.1f} s, "
+          f"{core.num_groups} groups")
+    bst, e_ms, ndcg, _ = run("(e) lambdarank", e_params, 5, dL, vL,
+                             time_a=True)
+    if bst.gbdt.grower.num_groups != 136:
+        raise AssertionError(f"(e): {bst.gbdt.grower.num_groups} groups")
+    if not bst.gbdt._quant_stochastic():
+        raise AssertionError("(e): lambdarank did not round stochastically")
+    tracked_v = bst.gbdt.valid_sets[0].scores[0].cpu().numpy()
+    ndcg_np = ndcg_at_k(yLv, tracked_v.astype(np.float64), sizes_v)
+    if abs(ndcg - ndcg_np) > 1e-6:
+        raise AssertionError(f"(e): the port's NDCG@10 {ndcg} is not "
+                             f"bench.py's ndcg_at_k {ndcg_np}")
+    pv = predicted("(e) predict", lambda: bst.predict(XLv, raw_score=True))
+    # kernel C against the binned walk's held-out scores, row by row
+    err_e = float((np.abs(pv - tracked_v) / (1 + np.abs(tracked_v))).max())
+    if err_e > TOL_PREDICT:
+        raise AssertionError(f"(e): Booster.predict is {err_e:.3g} x (1 + "
+                             "|s|) from the tracked held-out scores")
+    # and both tiers against the plain version at 136 features, where a
+    # 512-row tile of (hi, lo) pairs no longer fits beside a tree: the
+    # rows are read from device memory (stage_x off)
+    pred = bst._predictor[1]
+    x2 = torch.from_numpy(P.interleave_hi_lo(XLv)).to(dev)
+    stage_x = P.level_plan(pred.records, x2.shape[0], x2.shape[1],
+                           tier="shared").stage_x
+    if not rehearse and stage_x:
+        raise AssertionError("(e): the ranking model's rows are staged")
+    held_c = check_level(P, P.unpack_level_records(pred.records), x2,
+                         pred.depth, dev, 1 if rehearse else 5, card,
+                         f"(e) {bst.num_trees()} ranking trees, depth "
+                         f"{pred.depth}, {x2.shape[0]} rows x "
+                         f"{XLv.shape[1]} features", phase=8)
+    del x2
+    ndcg_pred = ndcg_at_k(yLv, pv, sizes_v)
+    ndcg0 = ndcg_at_k(yLv, np.zeros(len(yLv)), sizes_v)
+    if not ndcg_pred >= ndcg0 + NDCG_GATE:
+        raise AssertionError(f"(e): held-out NDCG@10 {ndcg_pred:.4f} does "
+                             f"not clear the untrained {ndcg0:.4f} by "
+                             f"{NDCG_GATE}")
+    obj = bst.gbdt.objective
+    s = bst.gbdt.scores[0, :nL]
+    g_dev, h_dev = obj.get_gradients(s)
+    host_obj = type(obj)(obj.config)
+    host_obj.init(core.metadata, nL, torch.device("cpu"))
+    g_cpu, h_cpu = host_obj.get_gradients(s.cpu())
+    err_g = float((g_dev.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    err_h = float((h_dev.cpu() - h_cpu).abs().max() / h_cpu.abs().max())
+    if max(err_g, err_h) > LAMBDA_TOL:
+        raise AssertionError(f"(e): the card's lambdas are {err_g:.3g} "
+                             f"(hessians {err_h:.3g}) of the largest from "
+                             "the CPU's")
+    lam_ms = time_ms(lambda: obj.get_gradients(s), dev,
+                     1 if rehearse else 3)
+    print(f"[phase 8] (e) held-out NDCG@10 {ndcg:.6f} by the port's metric, "
+          f"{ndcg_np:.6f} by bench.py's ndcg_at_k on the same scores; "
+          f"{ndcg_pred:.6f} on Booster.predict's scores (within "
+          f"{err_e:.3g} x (1 + |s|) of the tracked ones; rows staged: "
+          f"{stage_x}) against "
+          f"{ndcg0:.6f} untrained; the card's lambdas of the last scores "
+          f"within {err_g:.3g} (hessians {err_h:.3g}) of the largest from "
+          f"the CPU's; one lambda pass {lam_ms:.1f} ms ({card})")
+    extra["predict_level"]["phase8_e_max_rel_err_tracked"] = err_e
+    for name, nums in held_c.items():
+        extra.setdefault(name, {}).update(
+            {f"phase8_e_{k}": v for k, v in nums.items()})
+    extra["fused_route_hist"].update(
+        phase8_e_groups=bst.gbdt.grower.num_groups, phase8_e_ndcg10=ndcg,
+        phase8_e_ndcg10_untrained=ndcg0, phase8_e_lambda_ms=lam_ms,
+        phase8_e_lambda_max_rel_err=max(err_g, err_h),
+        phase8_auc={"a": a_auc, "b": b_auc, "c": c_auc, "d": d_auc})
+    del bst
     return extra
 
 
@@ -2379,6 +2786,13 @@ def main(argv) -> int:
     for name, extra in check_categorical(lgb, kernels, params, dev, card,
                                          n_rows, n_valid, q_ms,
                                          plan_runs).items():
+        numbers[name].update(extra)
+
+    # ---- phase 8: bagging, GOSS, DART, RF and lambdarank
+    for name, extra in check_sampling(lgb, kernels, params, train_ds,
+                                      valid_ds, X, Xv, yv, dev, card,
+                                      rehearse, valid_auc,
+                                      plan_runs).items():
         numbers[name].update(extra)
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")

@@ -25,8 +25,8 @@ class Dataset:
     ``free_raw_data`` (the default, as in the JAX package and the
     reference) the raw matrix is dropped once the bins are built;
     continued training (``init_model``) needs it kept.  ``group`` (query
-    sizes) goes to the core's ``Metadata``; training with groups waits
-    for lambdarank and raises."""
+    sizes) goes to the core's ``Metadata``, for lambdarank and the rank
+    metrics."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,

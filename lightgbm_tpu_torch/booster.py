@@ -119,6 +119,7 @@ class Booster:
         self.pandas_categorical = getattr(train_set, "pandas_categorical",
                                           None)
         self.objective_str = _objective_to_string(self.config)
+        self.average_output = getattr(self.gbdt, "average_output", False)
         if init_model is not None:
             base = (Booster(model_file=init_model,
                             params={"device": self.config.device})
@@ -138,6 +139,7 @@ class Booster:
             Log.fatal("Continued training (init_model) requires raw "
                       "data on the Dataset — construct it with "
                       "free_raw_data=False")
+        base._sync_models()
         pred = base._on_device(self.config.device).predict(
             raw, raw_score=True)
         pred = pred.reshape(1, -1) if pred.ndim == 1 else pred.T
@@ -145,7 +147,7 @@ class Booster:
         pad = g.grower.n_padded - train_set.num_data
         g.scores += torch.from_numpy(np.pad(
             pred.astype(np.float32), ((0, 0), (0, pad)))).to(g.device)
-        self.models.extend(base.models)
+        g.add_foreign_trees(base.models)
 
     def _on_device(self, device: str) -> "Booster":
         """This booster, or a shallow copy that predicts on ``device``."""
@@ -192,7 +194,16 @@ class Booster:
         return self.gbdt.iter_ if self.gbdt else \
             len(self.models) // max(self.num_tree_per_iteration, 1)
 
+    def _sync_models(self) -> None:
+        """Bring the host trees up to date with the training session's
+        DART rescales (lightgbm_tpu/booster.py _sync_models: the JAX
+        package flushes where the model is read, and so does the port,
+        so both round the same)."""
+        if self.gbdt is not None and self.gbdt.flush_models():
+            self._predictor = None
+
     def num_trees(self) -> int:
+        self._sync_models()
         return len(self.models)
 
     def num_feature(self) -> int:
@@ -261,6 +272,7 @@ class Booster:
         return self
 
     def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        self._sync_models()
         return float(self.models[int(tree_id)].leaf_value[int(leaf_id)])
 
     def attr(self, key: str) -> Optional[str]:
@@ -279,6 +291,7 @@ class Booster:
         """Release the training state (binned device matrix, scores);
         prediction keeps working, update() errors."""
         if self.gbdt is not None:
+            self._sync_models()
             self.best_iteration = max(self.best_iteration,
                                       self.gbdt.best_iteration)
             self.gbdt = None
@@ -287,6 +300,7 @@ class Booster:
 
     # ------------------------------------------------------------------
     def _used_models(self, num_iteration: int) -> List[Tree]:
+        self._sync_models()
         k = max(self.num_tree_per_iteration, 1)
         total = len(self.models)
         if num_iteration is None or num_iteration <= 0:

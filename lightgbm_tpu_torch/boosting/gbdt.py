@@ -7,8 +7,14 @@ growth, the leaf refit of the renewing objectives, score update from
 the exit route's per-row leaf values or from each row's leaf,
 validation scores through the binned tree walk; init scores and
 boost_from_average; early stopping on the validation metrics and
-rollback of the last iteration).  Bagging, DART, GOSS, RF and chunked
-dispatch are not ported yet.
+rollback of the last iteration), with bagging and the random streams of
+the JAX package drawn bit for bit (``utils/prng.py``): the per-iteration
+key of the objective path, the bag stream of the custom-gradient path,
+and the stochastic int8 rounding keys.  DART, GOSS and RF plug in
+through the same hooks as in the JAX package (``_before_boosting``,
+``_after_iteration``, ``_sample_rows``, ``_sample_rows_fused``,
+``_sample_active``).  The JAX package's multi-iteration fused chunks
+have no counterpart: each iteration is one host-driven step.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from ..ops.histogram import leaf_value_broadcast
 from ..ops.percentile import leaf_percentiles
 from ..ops.predict import predict_binned
 from ..tree import Tree
+from ..utils import prng
 from ..utils.device import resolve_device
 from ..utils.log import Log
 
@@ -61,14 +68,6 @@ class GBDT:
 
     def __init__(self, config: Config, train_set: Dataset,
                  custom_objective: bool = False):
-        if config.boosting_type != "gbdt":
-            raise NotImplementedError(
-                f"boosting_type={config.boosting_type} is not ported yet")
-        if config.bagging_freq > 0 and config.bagging_fraction < 1.0:
-            raise NotImplementedError("bagging is not ported yet")
-        if train_set.metadata.query_boundaries is not None:
-            raise NotImplementedError(
-                "query groups are not ported yet (lambdarank)")
         self.config = config
         self.device = resolve_device(config)
         self.train_set = train_set
@@ -88,6 +87,14 @@ class GBDT:
         # rollback_one_iter subtracts
         self.device_trees: List[dict] = []
         self._tree_shrink: List[float] = []
+        # DART's rescales: the cumulative scale of each model tree and
+        # the scale already multiplied into it; flush_models() applies
+        # the difference where the JAX package's flush does, so the
+        # model text rounds the same.  Trees of an init_model come
+        # first (_scale_offset of them).
+        self._tree_scale: List[float] = []
+        self._applied_scale: List[float] = []
+        self._scale_offset = 0
         self.iter_ = 0
         self.train_metrics: List[Metric] = []
         self.valid_sets: List[_ValidSet] = []
@@ -107,6 +114,14 @@ class GBDT:
         self._full_counts = torch.from_numpy(self.grower.pad_rows(
             np.ones(self.num_data, dtype=np.float32))).to(self.device)
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        # the random streams (lightgbm_tpu/boosting/gbdt.py:146-148): one
+        # iteration key a boosting iteration on the objective path (bag
+        # draw, GOSS draw, stochastic rounding); a split of _bag_rng at
+        # each fresh bag on the custom-gradient path and in RF
+        self._bag_rng = prng.PRNGKey(config.bagging_seed)
+        self._iter_key_rng = np.random.RandomState(config.bagging_seed)
+        self._bag_mask = None      # custom path / RF: the current bag
+        self._bag_state = None     # objective path: the current bag
         # early stopping state per validation row of eval_metrics
         self._best_score: Dict[int, float] = {}
         self._best_iter: Dict[int, int] = {}
@@ -159,10 +174,12 @@ class GBDT:
             mask[self._feat_rng.choice(F, size=used, replace=False)] = True
         return torch.from_numpy(mask).to(self.device)
 
-    def _gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(K, n_padded) gradients and hessians of the current scores,
-        zero on padded rows (lightgbm_tpu/boosting/gbdt.py:304-325)."""
-        s = self.scores[:, :self.num_data]
+    def _gradients(self, scores: torch.Tensor = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(K, n_padded) gradients and hessians of ``scores`` (the
+        current scores by default), zero on padded rows
+        (lightgbm_tpu/boosting/gbdt.py:304-325)."""
+        s = (self.scores if scores is None else scores)[:, :self.num_data]
         if self.num_class == 1:
             g, h = self.objective.get_gradients(s[0])
             g, h = g[None, :], h[None, :]
@@ -176,11 +193,11 @@ class GBDT:
         keep = self._full_counts > 0
         return g * keep, h * keep
 
-    def _renew_leaf_values(self, tree, leaf_id: torch.Tensor,
-                           k: int) -> None:
+    def _renew_leaf_values(self, tree, leaf_id: torch.Tensor, k: int,
+                           counts: torch.Tensor) -> None:
         """Re-fit the leaf values to the objective's percentile of the
-        residuals in each leaf (RenewTreeOutput; lightgbm_tpu/boosting/
-        gbdt.py:1255-1294), in place."""
+        residuals of the in-bag rows in each leaf (RenewTreeOutput;
+        lightgbm_tpu/boosting/gbdt.py:1255-1294), in place."""
         n = self.num_data
         obj = self.objective
         residual = obj._label_dev - self.scores[k, :n]
@@ -189,7 +206,7 @@ class GBDT:
         else:
             w = obj._weight_dev
         # in-bag rows only: the rest take leaf -1 and are ignored
-        lid = torch.where(self._full_counts[:n] > 0, leaf_id[:n],
+        lid = torch.where(counts[:n] > 0, leaf_id[:n],
                           torch.full_like(leaf_id[:n], -1))
         new_values = leaf_percentiles(residual, lid, self.config.num_leaves,
                                       obj.renew_alpha, w)
@@ -212,20 +229,144 @@ class GBDT:
         keep = self._full_counts > 0
         return dev(grad) * keep, dev(hess) * keep
 
+    # ------------------------------------------------------------------
+    # row sampling and the random streams
+    def _bagging_counts(self, iteration: int):
+        """The bag of the custom-gradient path and RF: a fresh mask from
+        a split of ``_bag_rng`` every ``bagging_freq`` iterations
+        (lightgbm_tpu/boosting/gbdt.py:327-339), as 0/1 counts."""
+        cfg = self.config
+        if cfg.bagging_freq <= 0 or cfg.bagging_fraction >= 1.0:
+            return self._full_counts
+        if iteration % cfg.bagging_freq == 0 or self._bag_mask is None:
+            self._bag_rng, sub = prng.split(self._bag_rng)
+            self._bag_mask = self._draw_bag(sub)
+        return self._bag_mask.to(torch.float32)
+
+    def _draw_bag(self, key):
+        """A bag from ``key``: the rows whose uniform falls below
+        ``bagging_fraction``, padding rows left out."""
+        u = prng.uniform(key, (self.grower.n_padded,), self.device)
+        return (u < self.config.bagging_fraction) & (self._full_counts > 0)
+
+    def _use_bagging_fused(self) -> bool:
+        """Whether the objective path draws a bag (GOSS replaces
+        bagging)."""
+        cfg = self.config
+        return cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
+
+    def _mask_gradients(self, g, h, counts):
+        """Zero the gradients of the rows out of the bag (row weights
+        are inside the objective's gradients already)."""
+        mask = counts > 0
+        return g * mask, h * mask
+
+    def _quant_stochastic(self) -> bool:
+        """Whether the int8 weights round stochastically:
+        ``quant_stochastic_rounding`` 1/0, or with -1 (auto) the
+        objective's ``need_stochastic_quant`` (lambdarank)."""
+        if not self.grower.plan.quant:
+            return False
+        mode = int(getattr(self.config, "quant_stochastic_rounding", -1))
+        if mode >= 0:
+            return bool(mode)
+        return (self.objective is not None
+                and getattr(self.objective, "need_stochastic_quant", False))
+
+    def _host_qkey(self, class_idx: int):
+        """The stochastic-rounding key of a tree on the custom-gradient
+        path and in RF: its own draw of ``_iter_key_rng``
+        (lightgbm_tpu/boosting/gbdt.py:447-455)."""
+        if not self._quant_stochastic():
+            return None
+        seed = int(self._iter_key_rng.randint(0, 2**31 - 1))
+        return prng.fold_in(prng.PRNGKey(seed), class_idx)
+
+    # hooks for DART/GOSS/RF ------------------------------------------
+    def _before_boosting(self) -> None:
+        """Before the gradients (DART drops trees here)."""
+
+    def _after_iteration(self) -> None:
+        """After the iteration's trees are in (DART renormalizes)."""
+
+    def _sample_rows(self, g, h, counts):
+        """Row sampling of the custom-gradient path (GOSS)."""
+        return g, h, counts
+
+    def _sample_rows_fused(self, g, h, counts, key):
+        """Row sampling of the objective path, from the iteration
+        key's second half (GOSS)."""
+        return g, h, counts
+
+    def _sample_active(self) -> bool:
+        """Whether _sample_rows_fused samples this iteration."""
+        return False
+
+    # ------------------------------------------------------------------
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration (reference gbdt.cpp:386-481): K trees
         on the gradients of the scores before the iteration, or on the
         caller's ``grad``/``hess`` (shape (N,) or (N, K); the custom
         objective path, lightgbm_tpu/boosting/gbdt.py:940-1000).
         Returns True when training must stop: no class's tree found a
-        split."""
+        split.
+
+        The objective path follows the JAX package's fused step
+        (lightgbm_tpu/boosting/gbdt.py:479-530, :806-835): one
+        ``randint`` of ``_iter_key_rng`` keys the iteration; the first
+        half of ``split(key)`` draws the bag (fresh on the first
+        iteration and every ``bagging_freq``), the second GOSS's
+        sample, and ``fold_in(fold_in(key, 0x51AB), k)`` rounds class
+        k's int8 weights when rounding is stochastic."""
         if grad is not None and hess is not None:
-            g, h = self._custom_gradients(grad, hess)
-        elif self.objective is None:
+            return self._train_one_iter_custom(grad, hess)
+        if self.objective is None:
             Log.fatal("No objective and no custom gradients")
+        self._before_boosting()
+        cfg = self.config
+        use_bag = self._use_bagging_fused()
+        fresh_bag = use_bag and (self._bag_state is None
+                                 or self.iter_ % cfg.bagging_freq == 0)
+        if self._bag_state is None:
+            self._bag_state = self._full_counts > 0
+        key = prng.PRNGKey(int(self._iter_key_rng.randint(0, 2**31 - 1)))
+        fmasks = [self._feature_mask() for _ in range(self.num_class)]
+        g, h = self._gradients()
+        kb, ks = prng.split(key)
+        if use_bag:
+            if fresh_bag:
+                self._bag_state = self._draw_bag(kb)
+            counts = self._bag_state.to(torch.float32)
         else:
-            g, h = self._gradients()
-        counts = self._full_counts
+            counts = self._full_counts
+        if self._sample_active():
+            g, h, counts = self._sample_rows_fused(g, h, counts, ks)
+        g, h = self._mask_gradients(g, h, counts)
+        qkeys = [None] * self.num_class
+        if self._quant_stochastic():
+            kq = prng.fold_in(key, 0x51AB)
+            qkeys = [prng.fold_in(kq, k) for k in range(self.num_class)]
+        return self._grow_iteration(g, h, counts, fmasks, qkeys)
+
+    def _train_one_iter_custom(self, grad, hess) -> bool:
+        """The caller's gradients (lightgbm_tpu/boosting/gbdt.py
+        _train_one_iter_custom): the bag from ``_bagging_counts``, the
+        GOSS sample from ``_sample_rows``, a rounding key a tree from
+        ``_host_qkey``."""
+        self._before_boosting()
+        g, h = self._custom_gradients(grad, hess)
+        counts = self._bagging_counts(self.iter_)
+        g, h, counts = self._sample_rows(g, h, counts)
+        g, h = self._mask_gradients(g, h, counts)
+        fmasks, qkeys = [], []
+        for k in range(self.num_class):
+            fmasks.append(self._feature_mask())
+            qkeys.append(self._host_qkey(k))
+        return self._grow_iteration(g, h, counts, fmasks, qkeys)
+
+    def _grow_iteration(self, g, h, counts, fmasks, qkeys) -> bool:
+        """Grow the iteration's K trees on the sampled gradients, add
+        them to the training and validation scores, and keep them."""
         shrink = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
                               device=self.device)
         renew = (self.objective is not None
@@ -234,9 +375,9 @@ class GBDT:
         trees = []
         for k in range(self.num_class):
             tree, leaf_id, row_val = g_.train_tree(
-                g[k], h[k], counts, self._feature_mask())
+                g[k], h[k], counts, fmasks[k], qkey=qkeys[k])
             if renew:
-                self._renew_leaf_values(tree, leaf_id, k)
+                self._renew_leaf_values(tree, leaf_id, k, counts)
             # a tree that could not split contributes nothing (the
             # reference skips its score update, gbdt.cpp:427-460)
             ok = float(tree["num_leaves"] > 1)
@@ -254,25 +395,66 @@ class GBDT:
         if max(t["num_leaves"] for t in trees) <= 1:
             # no class split: the iteration is dropped and training
             # stops at once (the JAX package finds it later and rolls
-            # back, ROADMAP queue 3)
+            # back, ROADMAP queue 3); DART's renormalization of the
+            # trees it dropped still runs, as in the JAX package
+            self._after_iteration()
             Log.warning("Stopped training because there are no more "
                         "leaves that meet the split requirements.")
             return True
         for tree in trees:
-            arrs = {key: (v.cpu().numpy() if isinstance(v, torch.Tensor)
-                          else v) for key, v in tree.items()}
-            t = Tree.from_grower_arrays(arrs, self.train_set)
-            t.apply_shrinkage(self.shrinkage_rate)
-            if self.iter_ == 0 and self.init_score != 0.0:
-                # fold the init score into the first iteration's tree
-                # (gbdt.cpp:452-454)
-                t.leaf_value += self.init_score
-                t.internal_value += self.init_score
-            self.models.append(t)
-            self.device_trees.append(tree)
-            self._tree_shrink.append(self.shrinkage_rate)
+            self._keep_tree(tree, self.shrinkage_rate,
+                            self.init_score if self.iter_ == 0 else 0.0)
+        self._after_iteration()
         self.iter_ += 1
         return False
+
+    def _keep_tree(self, tree: dict, shrinkage: float, bias: float) -> None:
+        """Add a grown tree to the model: host text form, shrunk, with
+        ``bias`` (the init score of the first iteration, gbdt.cpp:
+        452-454) folded in; the device form stays for DART and
+        rollback."""
+        arrs = {key: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                      else v) for key, v in tree.items()}
+        t = Tree.from_grower_arrays(arrs, self.train_set)
+        t.apply_shrinkage(shrinkage)
+        if bias != 0.0:
+            t.leaf_value += bias
+            t.internal_value += bias
+        self.models.append(t)
+        self.device_trees.append(tree)
+        self._tree_shrink.append(shrinkage)
+        self._tree_scale.append(1.0)
+        self._applied_scale.append(1.0)
+
+    def flush_models(self) -> bool:
+        """Multiply each model tree by the part of its DART scale not
+        yet in it (lightgbm_tpu/boosting/gbdt.py flush_models, which
+        the JAX package runs where the Booster reads its trees).
+        Returns whether any tree changed."""
+        changed = False
+        for i, t in enumerate(self.models):
+            if self._applied_scale[i] != self._tree_scale[i]:
+                r = self._tree_scale[i] / self._applied_scale[i]
+                t.leaf_value *= r
+                t.internal_value *= r
+                t.shrinkage *= r
+                self._applied_scale[i] = self._tree_scale[i]
+                changed = True
+        return changed
+
+    def add_foreign_trees(self, models: List[Tree]) -> None:
+        """An init_model's trees, ahead of this session's."""
+        self.models.extend(models)
+        self._tree_scale.extend([1.0] * len(models))
+        self._applied_scale.extend([1.0] * len(models))
+        self._scale_offset += len(models)
+
+    def _train_bins(self) -> torch.Tensor:
+        """The training rows' (n_padded, G) bins: the fused plans keep
+        only the transposed matrix, walked through its transposed
+        view."""
+        g_ = self.grower
+        return g_.bins if g_.bins is not None else g_.binsT.t()
 
     def _predict_tree(self, tree: dict, bins: torch.Tensor) -> torch.Tensor:
         """One grown tree's unshrunk leaf values of binned (N, G) rows."""
@@ -284,19 +466,17 @@ class GBDT:
         """Take the last iteration's K trees out of the model and their
         shrunk values out of the training and validation scores
         (lightgbm_tpu/boosting/gbdt.py:1367-1400; reference
-        gbdt.cpp:483-499).  Trees of an ``init_model`` stay.  The
-        fused plans keep only the transposed bins on the device: the
-        training rows are walked through its transposed view, no
-        second copy.  The f32 subtraction need not restore the old
-        scores bit for bit."""
+        gbdt.cpp:483-499).  Trees of an ``init_model`` stay.  The f32
+        subtraction need not restore the old scores bit for bit."""
         if len(self.device_trees) < self.num_class:
             return
-        g_ = self.grower
-        bins = g_.bins if g_.bins is not None else g_.binsT.t()
+        bins = self._train_bins()
         for k in reversed(range(self.num_class)):
             tree = self.device_trees.pop()
             shrink = self._tree_shrink.pop()
             self.models.pop()
+            self._tree_scale.pop()
+            self._applied_scale.pop()
             self.scores[k] += -shrink * self._predict_tree(tree, bins)
             for vs in self.valid_sets:
                 vs.scores[k] += -shrink * self._predict_tree(tree, vs.bins)
@@ -349,9 +529,4 @@ class GBDT:
         return len(self.models)
 
 
-def create_boosting(config: Config, train_set: Dataset,
-                    custom_objective: bool = False) -> GBDT:
-    return GBDT(config, train_set, custom_objective=custom_objective)
-
-
-__all__ = ["GBDT", "create_boosting"]
+__all__ = ["GBDT"]

@@ -147,6 +147,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
             break
     if not stopped_early:
         booster.best_iteration = -1
+    booster._sync_models()
     return booster if keep_training_booster else booster.free_dataset()
 
 

@@ -474,13 +474,16 @@ class TreeGrower:
             node_left=z(M, torch.int32), node_right=z(M, torch.int32))
 
     def train_tree(self, grad: torch.Tensor, hess: torch.Tensor,
-                   counts: torch.Tensor, feature_mask: torch.Tensor
+                   counts: torch.Tensor, feature_mask: torch.Tensor,
+                   qkey: Optional[torch.Tensor] = None
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                               Optional[torch.Tensor]]:
         """Grow one tree.  grad/hess/counts are (n_padded,) f32 with
-        zeros on padded rows.  Returns (tree arrays — bin-space, with
-        ``num_leaves`` as a python int —, final leaf ids, each row's
-        post-route leaf value on the fused plans, else None)."""
+        zeros on padded rows; ``qkey`` (a ``utils/prng.py`` key) rounds
+        the int8 weights stochastically.  Returns (tree arrays —
+        bin-space, with ``num_leaves`` as a python int —, final leaf
+        ids, each row's post-route leaf value on the fused plans, else
+        None)."""
         L = self.num_leaves
         d = self.device
         plan = self.plan
@@ -518,7 +521,8 @@ class TreeGrower:
         # the weights once, in the layout the plan's kernel reads
         scales = None
         if plan.quant:
-            w, scales = quantize_gradients(grad, hess, counts)  # (N, 3)
+            w, scales = quantize_gradients(grad, hess, counts,
+                                           key=qkey)   # (N, 3)
         else:
             w = torch.stack([grad, hess, counts], dim=1)
         if plan.fused or plan.tiled:

@@ -3,10 +3,10 @@
 Port of lightgbm_tpu/metrics.py: the regression metrics (l2, rmse, l1,
 quantile, huber, fair, poisson, mape, gamma, gamma-deviance, tweedie),
 the binary ones (binary_logloss, binary_error, auc), the multiclass
-ones (multi_logloss, multi_error) and the cross-entropies
-(cross_entropy, cross_entropy_lambda, kldiv), with the registry's
-aliases and each objective's default metric.  ndcg and map wait for
-lambdarank.
+ones (multi_logloss, multi_error), the cross-entropies
+(cross_entropy, cross_entropy_lambda, kldiv) and the ranking ones
+(ndcg and map at each ``ndcg_eval_at``, over query groups), with the
+registry's aliases and each objective's default metric.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 
 from .config import Config
 from .dataset import Metadata
-from .objectives import rdiv
+from .objectives import log2_xla, rank_layout, rdiv
+from .ops.split import sum_f32
 from .utils.log import Log
 
 
@@ -268,6 +269,99 @@ class KLDivMetric(Metric):
         return [float(self._avg(ce + ye))]
 
 
+class _RankMetric(Metric):
+    """The padded (queries, M) layout NDCG and MAP share (lightgbm_tpu/
+    metrics.py:281-306; reference rank_metric.hpp, dcg_calculator.cpp).
+    Queries weigh equally.  Sums follow XLA's CPU order (``sum_f32``)."""
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        qb = metadata.query_boundaries
+        if qb is None:
+            Log.fatal(f"The {self.name} metric requires query information")
+        idx = rank_layout(qb)
+        self.num_queries = idx.shape[0]
+        valid = idx >= 0
+        self._safe_idx = torch.from_numpy(np.maximum(idx, 0)).to(device)
+        self._qmask = torch.from_numpy(valid).to(device)
+        lab = metadata.label[np.maximum(idx, 0)] * valid
+        self._qlabel = torch.from_numpy(lab.astype(np.float32)).to(device)
+        self._qweight = torch.ones(self.num_queries, dtype=torch.float32,
+                                   device=device)
+        self.eval_at = tuple(int(k) for k in self.config.ndcg_eval_at)
+
+    def names(self):
+        return [f"{self.name}@{k}" for k in self.eval_at]
+
+    def _sorted_by_score(self, score, values):
+        """``values`` (Q, M) in each query's descending-score order
+        (stable)."""
+        ps = score[self._safe_idx]
+        s = torch.where(self._qmask, ps, torch.full_like(ps, float("-inf")))
+        order = torch.argsort(-s, dim=1, stable=True)
+        return torch.take_along_dim(values, order, dim=1)
+
+    def _mean_over_queries(self, per_query) -> float:
+        return float(sum_f32(per_query * self._qweight)
+                     / sum_f32(self._qweight))
+
+
+class NDCGMetric(_RankMetric):
+    name = "ndcg"
+    bigger_is_better = True
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        label_gain = self.config.label_gain
+        if not label_gain:
+            label_gain = tuple(float(2 ** i - 1) for i in range(31))
+        self._gain = torch.from_numpy(
+            np.asarray(label_gain, dtype=np.float32)).to(device)
+
+    def eval(self, score, objective=None):
+        qmask = self._qmask
+        lab = self._qlabel.to(torch.int32).clamp(min=0).long()
+        gains = self._gain[lab] * qmask
+        sorted_gain = self._sorted_by_score(score, gains)
+        ideal_gain = -torch.sort(-gains, dim=1).values
+        M = gains.shape[1]
+        discount = rdiv(1.0, log2_xla(2.0 + torch.arange(
+            M, dtype=torch.float32, device=gains.device)))
+        out = []
+        for k in self.eval_at:
+            kk = min(k, M)
+            dcg = sum_f32(sorted_gain[:, :kk] * discount[None, :kk])
+            maxdcg = sum_f32(ideal_gain[:, :kk] * discount[None, :kk])
+            ndcg = torch.where(maxdcg > 0, dcg / maxdcg,
+                               torch.ones_like(dcg))
+            out.append(self._mean_over_queries(ndcg))
+        return out
+
+
+class MAPMetric(_RankMetric):
+    name = "map"
+    bigger_is_better = True
+
+    def eval(self, score, objective=None):
+        rel = (self._qlabel > 0) & self._qmask
+        rel_sorted = self._sorted_by_score(score, rel)
+        M = rel.shape[1]
+        cum_rel = torch.cumsum(rel_sorted.to(torch.float32), dim=1)
+        prec = cum_rel / torch.arange(1, M + 1, dtype=torch.float32,
+                                      device=rel.device)[None, :]
+        n_rel = rel.sum(dim=1).to(torch.float32)
+        out = []
+        for k in self.eval_at:
+            kk = min(k, M)
+            ap_num = sum_f32(torch.where(rel_sorted[:, :kk], prec[:, :kk],
+                                         torch.zeros_like(prec[:, :kk])))
+            denom = torch.clamp(n_rel, max=float(kk))
+            ap = torch.where(denom > 0, ap_num / denom,
+                             torch.zeros_like(ap_num))
+            out.append(self._mean_over_queries(ap))
+        return out
+
+
 _METRIC_REGISTRY = {
     "l2": L2Metric, "mse": L2Metric, "mean_squared_error": L2Metric,
     "regression": L2Metric,
@@ -294,10 +388,9 @@ _METRIC_REGISTRY = {
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "xentlambda": CrossEntropyLambdaMetric,
     "kldiv": KLDivMetric, "kullback_leibler": KLDivMetric,
+    "ndcg": NDCGMetric, "lambdarank": NDCGMetric,
+    "map": MAPMetric, "mean_average_precision": MAPMetric,
 }
-
-#: names of metrics the JAX package has and the port does not yet
-_NOT_PORTED = ("ndcg", "lambdarank", "map", "mean_average_precision")
 
 DEFAULT_METRIC_FOR_OBJECTIVE = {
     "regression": "l2", "regression_l1": "l1", "huber": "huber",
@@ -325,9 +418,7 @@ def create_metrics(config: Config,
             continue
         cls = _METRIC_REGISTRY.get(nm)
         if cls is None:
-            Log.warning(f"metric {nm} is not ported yet, ignored"
-                        if nm in _NOT_PORTED else
-                        f"Unknown metric {nm}, ignored")
+            Log.warning(f"Unknown metric {nm}, ignored")
             continue
         out.append(cls(config))
     return out

@@ -3,14 +3,14 @@
 Port of lightgbm_tpu/objectives.py: the regression family (L2 with and
 without ``reg_sqrt``, L1, huber, fair, poisson, quantile, MAPE, gamma,
 tweedie), binary, multiclass (softmax and one-vs-all) and the two
-cross-entropies.  Each objective is elementwise torch ops on the
-training device; a multiclass objective takes and returns (N, K).
-Lambdarank is not ported yet.
+cross-entropies, and lambdarank over query groups.  Each objective is
+torch ops on the training device; a multiclass objective takes and
+returns (N, K).
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -500,6 +500,161 @@ class CrossEntropyLambda(Objective):
         return torch.log1p(torch.exp(raw))
 
 
+def rank_layout(query_boundaries: np.ndarray, q_multiple: int = 1
+                ) -> np.ndarray:
+    """The (q_pad, M) row index of each query's documents, -1 past a
+    query's end and in the padding queries (q_pad a multiple of
+    ``q_multiple``).  Queries are consecutive row ranges, so the valid
+    slots in row-major order are the rows 0..N-1 in order."""
+    qb = np.asarray(query_boundaries, dtype=np.int64)
+    sizes = np.diff(qb)
+    Q, M = len(sizes), int(sizes.max())
+    q_pad = -(-Q // q_multiple) * q_multiple
+    idx = np.full((q_pad, M), -1, dtype=np.int64)
+    pos = np.arange(M)[None, :]
+    idx[:Q] = np.where(pos < sizes[:, None], qb[:-1, None] + pos, -1)
+    return idx
+
+
+def log2_xla(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log2``: the natural log over log(2), as XLA computes it."""
+    return torch.log(x) / torch.log(torch.full_like(x, 2.0))
+
+
+def pair_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A query chunk's (qc, M, M) pair terms summed over ``dim``: torch's
+    own order, within an ulp or two of XLA's (``ops/split.py sum_f32``
+    follows XLA's CPU order, and the lambdarank tests substitute it)."""
+    return x.sum(dim)
+
+
+class LambdarankNDCG(Objective):
+    """Pairwise lambdas weighted by |delta NDCG| (lightgbm_tpu/
+    objectives.py:617-785; reference rank_objective.hpp:19-200), on a
+    padded (queries, M) layout in query chunks that bound the (qc, M, M)
+    pair tensors to 2^25 entries each.
+
+    The JAX package moves scores and lambdas between the flat rows and
+    the padded layout with banded one-hot matmuls, a TPU workaround for
+    slow gathers whose result is an exact permutation (each row has one
+    padded slot); here both directions are index gathers."""
+    name = "lambdarank"
+    need_accurate_prediction = False
+    # pairwise lambdas are long-tailed: round-to-nearest int8 zeroes
+    # most of them, so the quantized path rounds stochastically
+    need_stochastic_quant = True
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.sigmoid = config.sigmoid
+        if self.sigmoid <= 0:
+            Log.fatal("Sigmoid param should be greater than zero")
+        label_gain = config.label_gain
+        if not label_gain:
+            label_gain = tuple(float(2 ** i - 1) for i in range(31))
+        self.label_gain = np.asarray(label_gain, dtype=np.float64)
+        self.optimize_pos_at = config.max_position
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        qb = metadata.query_boundaries
+        if qb is None:
+            Log.fatal("Lambdarank tasks require query information")
+        if np.any(self.label < 0) or \
+                int(self.label.max()) >= len(self.label_gain):
+            Log.fatal("Label exceeds label_gain range in lambdarank")
+        sizes = np.diff(qb)
+        Q, M = len(sizes), int(sizes.max())
+        self.num_queries, self.max_query = Q, M
+        qc = max(1, min(Q, (1 << 25) // max(M * M, 1)))
+        self._q_chunk = qc
+        idx = rank_layout(qb, qc)
+        valid = idx >= 0
+        safe = np.maximum(idx, 0)
+        # inverse max DCG at max_position, in f64 then f32 (reference
+        # dcg_calculator.cpp)
+        inv = np.zeros(idx.shape[0], dtype=np.float64)
+        for q in range(Q):
+            lab = np.sort(self.label[qb[q]:qb[q + 1]])[::-1]
+            k = min(self.optimize_pos_at, len(lab))
+            dcg = float(np.sum(self.label_gain[lab[:k].astype(np.int32)]
+                               / np.log2(np.arange(2, k + 2))))
+            inv[q] = 1.0 / dcg if dcg > 0 else 0.0
+        self._inv_max_dcg = self._dev(inv.astype(np.float32))
+        self._label_gain_dev = self._dev(self.label_gain.astype(np.float32))
+        self._safe_idx = self._dev(safe)
+        self._qmask = self._dev(valid)
+        # the flat index of each row's padded slot
+        self._slot = self._dev(np.flatnonzero(valid.reshape(-1)))
+        self._qlabel = self._dev(self.label[safe].astype(np.float32)
+                                 * valid)
+        self._qweight = (None if self.weight is None else self._dev(
+            self.weight[safe].astype(np.float32) * valid))
+
+    def _padded_scores(self, score: torch.Tensor) -> torch.Tensor:
+        """(N,) scores -> (q_pad, M), -inf outside the queries."""
+        ps = score[self._safe_idx]
+        return torch.where(self._qmask, ps,
+                           torch.full_like(ps, float("-inf")))
+
+    def _chunk_lambdas(self, s, mask, qlabel, inv):
+        """(g, h) of one chunk of padded queries (qc, M)."""
+        sig = self.sigmoid
+        labels = qlabel.to(torch.int32)
+        gains = self._label_gain_dev[labels.clamp(min=0).long()]
+        # rank positions (descending score, stable)
+        order = torch.argsort(-s, dim=1, stable=True)
+        rank = torch.argsort(order, dim=1)
+        discount = rdiv(1.0, log2_xla(2.0 + rank.to(torch.float32)))
+        inf = torch.full_like(s, float("inf"))
+        best = torch.where(mask, s, -inf).amax(dim=1, keepdim=True)
+        worst = torch.where(mask, s, inf).amin(dim=1, keepdim=True)
+        has_spread = (best != worst)[:, :, None]
+        del inf
+        # pairs (qc, M, M): i the higher label, j the lower
+        pair_ok = (labels[:, :, None] > labels[:, None, :]) \
+            & mask[:, :, None] & mask[:, None, :]
+        ds = s[:, :, None] - s[:, None, :]
+        delta = (gains[:, :, None] - gains[:, None, :]) \
+            * (discount[:, :, None] - discount[:, None, :]).abs() \
+            * inv[:, None, None]
+        delta = torch.where(has_spread, delta / (0.01 + ds.abs()), delta)
+        ds = torch.where(pair_ok, ds, torch.zeros((), device=s.device))
+        p_lambda = rdiv(2.0, 1.0 + torch.exp(2.0 * ds * sig))
+        del ds
+        zero = torch.zeros((), device=s.device)
+        lam = torch.where(pair_ok, -p_lambda * delta, zero)
+        hes = torch.where(pair_ok,
+                          2.0 * (p_lambda * (2.0 - p_lambda)) * delta, zero)
+        del p_lambda, delta, pair_ok
+        # the higher document gets +lambda, the lower -lambda; the
+        # hessian adds on both
+        g = pair_sum(lam, 2) - pair_sum(lam, 1)
+        h = pair_sum(hes, 2) + pair_sum(hes, 1)
+        return g, h
+
+    def get_gradients(self, score):
+        qc = self._q_chunk
+        ps = self._padded_scores(score)
+        g_all = torch.empty_like(ps)
+        h_all = torch.empty_like(ps)
+        for a in range(0, ps.shape[0], qc):
+            b = a + qc
+            g, h = self._chunk_lambdas(ps[a:b], self._qmask[a:b],
+                                       self._qlabel[a:b],
+                                       self._inv_max_dcg[a:b])
+            if self._qweight is not None:
+                g = g * self._qweight[a:b]
+                h = h * self._qweight[a:b]
+            g_all[a:b] = g
+            h_all[a:b] = h
+        # padded slots -> flat rows (+0.0: the JAX package's one-hot
+        # products turn a -0.0 lambda into +0.0)
+        grad = g_all.reshape(-1)[self._slot] + 0.0
+        hess = h_all.reshape(-1)[self._slot] + 0.0
+        return grad, hess
+
+
 _OBJECTIVE_REGISTRY = {
     "regression": RegressionL2,
     "regression_l1": RegressionL1,
@@ -515,15 +670,16 @@ _OBJECTIVE_REGISTRY = {
     "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
 }
 
 
-def create_objective(config: Config) -> Objective:
-    """Factory (reference objective_function.cpp:10-80)."""
+def create_objective(config: Config) -> Optional[Objective]:
+    """Factory (reference objective_function.cpp:10-80); None for
+    ``objective=none`` (custom gradients only)."""
+    if config.objective == "none":
+        return None
     cls = _OBJECTIVE_REGISTRY.get(config.objective)
     if cls is None:
-        raise NotImplementedError(
-            f"objective={config.objective} is not ported yet "
-            "(lightgbm_tpu_torch trains "
-            f"{', '.join(sorted(_OBJECTIVE_REGISTRY))})")
+        Log.fatal(f"Unknown objective type name: {config.objective}")
     return cls(config)

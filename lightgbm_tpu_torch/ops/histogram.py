@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import prng
 from . import kernels
 from .partition import ROUTE_FIXED_COLS, apply_route_table
 
@@ -48,16 +49,35 @@ QUANT_ROW_LIMIT = (2 ** 31 - 1) // QUANT_WEIGHT_MAX
 
 
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
-                       counts: torch.Tensor):
-    """Per-channel symmetric int8 quantization (one scale per tree),
-    rounding half to even.  Returns ((N, 3) int32 quantized weights,
-    (3,) f32 scales).  Binary training needs no stochastic rounding
-    (lightgbm_tpu/boosting/gbdt.py _quant_stochastic)."""
+                       counts: torch.Tensor, key=None):
+    """Per-channel symmetric int8 quantization (one scale per tree).
+    Returns ((N, 3) int32 quantized weights, (3,) f32 scales).  Without
+    ``key`` the weights round half to even; with a ``key``
+    (``utils/prng.py``) gradients and hessians round stochastically,
+    up with the probability of the fraction, on the two halves of
+    ``split(key)``, clipped to +-127 after rounding
+    (lightgbm_tpu/ops/histogram.py quantize_gradients: the skewed
+    pairwise lambdas of lambdarank need it, and
+    ``quant_stochastic_rounding`` asks for it on any objective)."""
     tiny = torch.tensor(1e-30, dtype=torch.float32, device=grad.device)
-    s_g = torch.maximum(grad.abs().max() / 127.0, tiny)
-    s_h = torch.maximum(hess.abs().max() / 127.0, tiny)
-    qg = torch.round(grad / s_g)
-    qh = torch.round(hess / s_h)
+    # a divisor on the device: torch divides a CUDA tensor by a host
+    # scalar through its reciprocal, an ulp off XLA's division
+    q_max = torch.tensor(127.0, dtype=torch.float32, device=grad.device)
+    s_g = torch.maximum(grad.abs().max() / q_max, tiny)
+    s_h = torch.maximum(hess.abs().max() / q_max, tiny)
+    if key is None:
+        qg = torch.round(grad / s_g)
+        qh = torch.round(hess / s_h)
+    else:
+        kg, kh = prng.split(key)
+
+        def sround(x, k):
+            f = torch.floor(x)
+            u = prng.uniform(k, x.shape, x.device)
+            return torch.clamp(f + (u < x - f).to(x.dtype), -127.0, 127.0)
+
+        qg = sround(grad / s_g, kg)
+        qh = sround(hess / s_h, kh)
     wq = torch.stack([qg, qh, counts], dim=1).to(torch.int32)
     scales = torch.stack([s_g, s_h, torch.ones_like(s_g)])
     return wq, scales

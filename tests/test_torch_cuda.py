@@ -1077,3 +1077,122 @@ def test_categorical_training_on_the_card_as_on_the_cpu(dev, monkeypatch):
         scale = float(np.abs(pt.leaf_value).max())
         np.testing.assert_allclose(ct.leaf_value, pt.leaf_value, rtol=1e-6,
                                    atol=1e-6 * scale, err_msg=f"tree {i}")
+
+
+# ---------------------------------------------------------------------------
+# the random streams and lambdarank on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 7, 1 << 20, 1_001_472])
+def test_uniform_on_the_card_as_on_the_cpu(dev, n):
+    """utils/prng.py is integer arithmetic: the card's draws are the
+    host's bit for bit."""
+    from lightgbm_tpu_torch.utils import prng
+    key = prng.split(prng.PRNGKey(3))[0]
+    got = prng.uniform(key, (n,), dev)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), prng.uniform(key, (n,)))
+
+
+def test_stochastic_quantize_on_the_card_as_on_the_cpu(dev):
+    from lightgbm_tpu_torch.utils import prng
+    rng = np.random.RandomState(2)
+    n = 100_000
+    g = torch.from_numpy((rng.standard_cauchy(n) * 1e-3).astype(np.float32))
+    h = torch.from_numpy(np.abs(rng.randn(n)).astype(np.float32))
+    c = torch.from_numpy((rng.rand(n) < 0.7).astype(np.float32))
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(9), 0x51AB), 0)
+    w_cpu, s_cpu = H.quantize_gradients(g, h, c, key=key)
+    w_dev, s_dev = H.quantize_gradients(g.to(dev), h.to(dev), c.to(dev),
+                                        key=key)
+    assert torch.equal(s_dev.cpu(), s_cpu)
+    assert torch.equal(w_dev.cpu(), w_cpu)
+
+
+def _sampling_data(n=20000, seed=3):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 10)
+    y = (X[:, 0] - 0.5 * X[:, 1] + 0.5 * rng.randn(n) > 0).astype(float)
+    return X, y
+
+
+@pytest.mark.parametrize("extra", [
+    {"bagging_fraction": 0.7, "bagging_freq": 2, "feature_fraction": 0.8},
+    {"boosting_type": "goss", "learning_rate": 0.5},
+    {"boosting_type": "dart", "drop_rate": 0.5, "skip_drop": 0.0},
+    {"boosting_type": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+     "feature_fraction": 0.8}], ids=["bagging", "goss", "dart", "rf"])
+def test_sampling_trains_on_the_card_as_on_the_cpu(dev, monkeypatch, extra):
+    """Bagging, GOSS, DART and RF on the main path: the card's bags and
+    samples are the CPU run's (the CPU run takes the card run's root
+    sums and gradients, as each device rounds those its own way), so
+    the trees have the same structure and the leaves agree within 1e-6
+    of the tree's largest."""
+    from lightgbm_tpu_torch.boosting import gbdt as B
+    X, y = _sampling_data()
+    params = dict({"objective": "binary", "num_leaves": 31, "max_bin": 63,
+                   "min_data_in_leaf": 5, "quantized_grad": True,
+                   "hist_compute_dtype": "bfloat16", "verbose": -1},
+                  **extra)
+    real_root, real_grad = grower.compute_root_totals, B.GBDT._gradients
+    taken = {"root": [], "grad": []}
+
+    def card_root(*a):
+        out = real_root(*a)
+        taken["root"].append(out.cpu())
+        return out
+
+    def card_grad(self, scores=None):
+        g, h = real_grad(self, scores)
+        taken["grad"].append((g.cpu(), h.cpu()))
+        return g, h
+    models, states = {}, {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            monkeypatch.setattr(grower, "compute_root_totals", card_root)
+            monkeypatch.setattr(B.GBDT, "_gradients", card_grad)
+        else:
+            monkeypatch.setattr(grower, "compute_root_totals",
+                                lambda *a: taken["root"].pop(0))
+            monkeypatch.setattr(B.GBDT, "_gradients",
+                                lambda self, s=None: taken["grad"].pop(0))
+        bst = tlgb.train(dict(params, device=device),
+                         tlgb.Dataset(X, label=y), 5, verbose_eval=False,
+                         keep_training_booster=True)
+        assert bst.gbdt.grower.plan.name == "fused_tiled"
+        models[device] = bst.models
+        states[device] = [getattr(bst.gbdt, k, None) for k in
+                          ("_bag_state", "_bag_mask")]
+    assert not taken["root"] and not taken["grad"]
+    for a, b in zip(*states.values()):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.cpu(), b)
+    for tc, tt in zip(models["cuda"], models["cpu"]):
+        for f in ("split_feature", "threshold", "left_child",
+                  "right_child", "leaf_count", "internal_count"):
+            np.testing.assert_array_equal(getattr(tc, f), getattr(tt, f))
+        np.testing.assert_allclose(tc.leaf_value, tt.leaf_value, rtol=0,
+                                   atol=1e-6 * np.abs(tt.leaf_value).max())
+
+
+def test_lambdarank_gradients_on_the_card_as_on_the_cpu(dev):
+    """The lambdas of ragged queries (one chunk and several) on the
+    card within 1e-6 of the largest of the same torch ops on the CPU
+    (each device's ``exp``/``log`` round their own way)."""
+    from lightgbm_tpu_torch import objectives as TO
+    from lightgbm_tpu_torch.dataset import Metadata
+    rng = np.random.RandomState(5)
+    for sizes in (rng.randint(1, 40, 300), rng.randint(60, 181, 2500)):
+        n = int(sizes.sum())
+        meta = Metadata(n)
+        meta.set_label(rng.randint(0, 5, n))
+        meta.set_group(sizes)
+        score = torch.from_numpy((rng.randn(n) * 2).astype(np.float32))
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            obj = TO.create_objective(tlgb.Config.from_params(
+                {"objective": "lambdarank", "device": d.type}))
+            obj.init(meta, n, d)
+            out[d.type] = [t.cpu() for t in obj.get_gradients(score.to(d))]
+        for a, b in zip(out["cuda"], out["cpu"]):
+            assert (a - b).abs().max() <= 1e-6 * b.abs().max()

@@ -212,9 +212,9 @@ def test_feature_name_argument():
 def test_front_door_refusals(case):
     """The front door's edge cases: categorical columns train as in the
     JAX package (column 0, the label's strongest, cut into 13
-    categories, NaN kept); query
-    groups (lambdarank) wait for a later slice and raise; continued
-    training needs the raw rows kept."""
+    categories, NaN kept); query groups train as in the JAX package
+    (a binary objective carries them and grows the same trees);
+    continued training needs the raw rows kept."""
     X, y = C.train_rows()
     params = dict(C.PARAMS, **C.PORT)
     if case == "categorical_feature":
@@ -230,9 +230,13 @@ def test_front_door_refusals(case):
             list(t.cat_threshold) for t in jb.models]
         assert any(t.num_cat for t in tb.models)
     elif case == "group":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tlgb.train(params, tlgb.Dataset(X, label=y, group=[2000, 2000]),
-                       1, verbose_eval=False)
+        jb = jlgb.train(dict(C.PARAMS, **C.JAX),
+                        jlgb.Dataset(X, label=y, group=[2000, 2000]), 2,
+                        verbose_eval=False)
+        tb = tlgb.train(params, tlgb.Dataset(X, label=y, group=[2000, 2000]),
+                        2, verbose_eval=False)
+        C.assert_same_trees(jb.models, tb.models, of_largest=True)
+        assert tb.num_trees() == 2
     else:
         from lightgbm_tpu_torch.utils.log import LightGBMError
         base = tlgb.train(params, tlgb.Dataset(X, label=y), 1,

@@ -95,9 +95,9 @@ def test_default_config_trains_on_the_cpu():
 
 def test_unported_plans_raise():
     X, y = _xy()
-    # a distributed learner, an objective still to port (every histogram
-    # plan of the serial learner trains)
-    for extra in ({"tree_learner": "data"}, {"objective": "lambdarank"}):
+    # the distributed learners (every histogram plan of the serial
+    # learner, and every objective, trains)
+    for extra in ({"tree_learner": "data"}, {"tree_learner": "feature"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tlgb.train(dict(_MAIN, device="cpu", **extra),
                        tlgb.Dataset(X, label=y), 1, verbose_eval=False)

@@ -96,8 +96,7 @@ def test_default_metric_table():
     assert TM.DEFAULT_METRIC_FOR_OBJECTIVE == \
         JM._DEFAULT_METRIC_FOR_OBJECTIVE
     assert {k: v.__name__ for k, v in TM._METRIC_REGISTRY.items()} == {
-        k: v.__name__ for k, v in JM._METRIC_REGISTRY.items()
-        if k not in TM._NOT_PORTED}
+        k: v.__name__ for k, v in JM._METRIC_REGISTRY.items()}
 
 
 @pytest.mark.parametrize("objective", sorted(

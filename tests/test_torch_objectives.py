@@ -133,10 +133,35 @@ def test_boost_from_score_and_output(name, weighted):
 
 
 def test_lambdarank_is_not_ported():
-    cfg = tlgb.Config.from_params({"objective": "lambdarank",
-                                   "device": "cpu"})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TO.create_objective(cfg)
+    """Lambdarank is ported now (the test keeps its id): the factory
+    builds it as the JAX package does, with its stochastic-rounding
+    flag, and its gradients over three queries match (bit for bit
+    apart from the ``log``/``exp`` last bits, tests/test_torch_
+    lambdarank.py)."""
+    params = {"objective": "lambdarank", "sigmoid": 1.5}
+    jo = JO.create_objective(jlgb.Config.from_params(params))
+    to = TO.create_objective(tlgb.Config.from_params(dict(params,
+                                                          device="cpu")))
+    assert type(to).__name__ == type(jo).__name__ == "LambdarankNDCG"
+    assert to.need_stochastic_quant and jo.need_stochastic_quant
+    assert to.sigmoid == jo.sigmoid == 1.5
+    np.testing.assert_array_equal(to.label_gain, jo.label_gain)
+    n, sizes = 30, [12, 1, 17]
+    rng = np.random.RandomState(4)
+    label = rng.randint(0, 4, n).astype(np.float32)
+    score = rng.randn(n).astype(np.float32)
+    jm, tm = JMetadata(n), TMetadata(n)
+    for m in (jm, tm):
+        m.set_label(label)
+        m.set_group(sizes)
+    jo.init(jm, n)
+    to.init(tm, n, torch.device("cpu"))
+    jg, jh = jax.jit(jo.get_gradients)(jnp.asarray(score))
+    tg, th = to.get_gradients(torch.from_numpy(score))
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=0,
+                               atol=1e-6 * np.abs(np.asarray(jg)).max())
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=0,
+                               atol=1e-6 * np.abs(np.asarray(jh)).max())
 
 
 def _percentile_case(seed, ties):
