@@ -167,6 +167,22 @@ Phases, in order; any failure exits nonzero:
      contributions summing to its raw score within 1e-5) and
      pred_early_stop (signs kept; a 1e9 margin the host walk bit for
      bit), with their ms;
+ 10. sub-byte bin storage (bin_packing), each run's launches counted on
+     their own: (a) the bench rows at max_bin 15, fused_tiled 10 trees
+     under 4bit (28 nibble groups stored in 14 bytes a row) and 8bit:
+     the texts equal once the bin_packing echo is stripped, the resident
+     bin matrix's bytes of each, every A and B call of the 4bit run held
+     bit for bit against its plain version on the same storage, and
+     kernels A and G at W=126 and on a tree's first round timed on the
+     storage and on the logical matrix unpacked from it, each beside its
+     bound from the bytes of the matrix it reads; (b) the bench rows
+     with 8 columns rounded to 3 values and 8 to 12 under auto (8 crumb,
+     8 nibble and 12 wide groups at max_bin 63): q_tiled(split_route),
+     seg_tiled(leaf_partition), fused_streamed, pre_onehot and xla, 3
+     trees each, every text equal to its 8bit run's and every A, G, J,
+     B, H and D call held against its plain version on the storage; (c)
+     (a)'s validation scores and the in-session binned scan of the
+     held-out rows equal to the 8bit run's bit for bit;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -479,7 +495,7 @@ def check_kernels(dev, n, rehearse, card):
         from lightgbm_tpu_torch.ops import kernels
         args = (binsT.data_ptr(), leaf.data_ptr(), table.data_ptr(),
                 values.data_ptr(), lk.data_ptr(), vk.data_ptr(), n, G, L,
-                table.shape[1], H._num_sms(dev.index or 0))
+                table.shape[1], H._num_sms(dev.index or 0), 0)
         b_launch = time_ms(lambda: kernels.launch("route_apply", *args),
                            dev, reps)
         b_device = device_ms(lambda: H.route_apply_tiled(
@@ -824,13 +840,18 @@ def int8_onehot(bins, B):
     """The (N, G*B) int8 bin one-hot, its columns zero-padded to a
     multiple of 8 (1764 -> 1768) as torch._int_mm wants, laid out
     column-major: the int8 product's fast form takes its right operand
-    so (a row-major one-hot ran several times slower on the H100)."""
+    so (a row-major one-hot ran several times slower on the H100).
+    Filled in row chunks, so that no second copy of it is ever whole
+    (19.7 GB at phase 8 (e)'s 2.26M rows x 136 groups)."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
     n, G = bins.shape
     ohT = torch.zeros((-(-G * B // 8) * 8, n), dtype=torch.int8,
                       device=bins.device)
-    ohT[:G * B] = H.precompute_bin_onehot(bins, max_group_bin=B).t()
+    step = 1 << 18
+    for i in range(0, n, step):
+        ohT[:G * B, i:i + step] = H.precompute_bin_onehot(
+            bins[i:i + step], max_group_bin=B).t()
     return ohT.t()
 
 
@@ -1253,7 +1274,7 @@ def check_quant_kernels(dev, n, rehearse, card):
             from lightgbm_tpu_torch.ops import kernels
             args = (binsT.data_ptr(), leaf.data_ptr(), table.data_ptr(),
                     l_k.data_ptr(), n, G, L, table.shape[1],
-                    H._num_sms(dev.index or 0))
+                    H._num_sms(dev.index or 0), 0)
             h_launch = time_ms(lambda: kernels.launch("route_only", *args),
                                dev, reps)
             h_launch_device = device_ms(
@@ -1871,25 +1892,36 @@ class CallTap:
             setattr(self.module, n, fn)
 
 
-def cat_high_rows(binsT, leaf, table, low=64):
+def cat_high_rows(binsT, leaf, table, low=64, packed_groups=0):
     """Rows whose leaf splits on a categorical left set and whose chosen
     group's bin is ``low`` or above: rows that the route reads past the
-    first ``low`` / 8 bytes of the left set for."""
-    G = binsT.shape[0]
+    first ``low`` / 8 bytes of the left set for (``binsT`` the sub-byte
+    storage under ``packed_groups``)."""
+    from lightgbm_tpu_torch.ops.histogram import groups_of_storage
+    from lightgbm_tpu_torch.ops.partition import packed_select_params
+    G = groups_of_storage(binsT.shape[0], packed_groups)
     L = table.shape[0]
     lf = leaf.clamp(0, L - 1).long()
     ok = ((leaf >= 0) & (leaf < L) & (table[lf, 10] > 0.5)
           & (table[lf, 7] > 0.5))
     grp = (table[lf, 0] * 256 + table[lf, 1]).long().clamp(0, G - 1)
-    return int((ok & (binsT.gather(0, grp[None]).squeeze(0) >= low)).sum())
+    if not packed_groups:
+        gb = binsT.gather(0, grp[None]).squeeze(0)
+    else:
+        byte, shift, mask = packed_select_params(grp.int(), packed_groups)
+        gb = (binsT.gather(0, byte.long()[None]).squeeze(0).int()
+              >> shift) & mask
+    return int((ok & (gb >= low)).sum())
 
 
 def hold_tapped(tap, label):
-    """Phases 7 and 8: every kernel call a tapped run made, held bit for bit
-    against the kernel's plain version on the same inputs (A's and J's
-    dequantized histograms, A's, B's and H's leaf ids, B's row values).
-    Returns {kernel: (calls held, rows routed by a categorical bin of 64
-    or above)}."""
+    """Phases 7, 8 and 10: every kernel call a tapped run made, held bit
+    for bit against the kernel's plain version on the same inputs (A's,
+    G's and J's dequantized histograms, A's, B's, D's and H's leaf ids,
+    B's row values; D's f32 histogram within one f32 ulp of each bin's
+    absolute sum, hold_hist), on the byte-wide bins or the sub-byte
+    storage the call was given.  Returns {kernel: (calls held, rows
+    routed by a categorical bin of 64 or above)}."""
     import torch
     from lightgbm_tpu_torch.ops import histogram as H
     out = {}
@@ -1898,36 +1930,77 @@ def hold_tapped(tap, label):
         calls, rows = out.get(name, (0, 0))
         out[name] = (calls + 1, rows + high)
 
+    def spec_of(args, kw, at):
+        return args[at] if len(args) > at else kw.get("packed_groups", 0)
+
     for args, kw, got in tap.calls.get(
             "compute_group_histograms_fused_tiled", ()):
         binsT, wT, scales, leaf, table, slots = args
+        spec = kw.get("packed_groups", 0)
         h, lp = H.fused_route_hist_plain(binsT, wT, leaf, table, slots,
-                                         kw["max_group_bin"])
+                                         kw["max_group_bin"], spec)
         if not (torch.equal(got[0], h.to(torch.float32) * scales)
                 and torch.equal(got[1], lp)):
             raise AssertionError(f"{label}: kernel A's call "
                                  f"{out.get('fused_route_hist', (0,))[0]} "
                                  "differs from its plain version")
-        tally("fused_route_hist", cat_high_rows(binsT, leaf, table))
-    for args, _, got in tap.calls.get("route_apply_tiled", ()):
-        binsT, leaf, table, values = args
-        lp, vp = H.route_apply_plain(binsT, leaf, table, values)
+        tally("fused_route_hist", cat_high_rows(binsT, leaf, table,
+                                                packed_groups=spec))
+    for args, kw, got in tap.calls.get(
+            "compute_group_histograms_q_tiled", ()):
+        binsT, wT, scales, leaf, slots = args
+        want = H.tiled_hist_plain(binsT, wT, leaf, slots,
+                                  kw["max_group_bin"],
+                                  kw.get("packed_groups", 0))
+        if not torch.equal(got, want.to(torch.float32) * scales):
+            raise AssertionError(f"{label}: kernel G's histogram differs "
+                                 "from its plain version")
+        tally("tiled_hist", 0)
+    for args, kw, got in tap.calls.get("compute_group_histograms_fused",
+                                       ()):
+        ohb, binsT, wT, scales, leaf, table, slots = args
+        spec = kw.get("packed_groups", 0)
+        hk = dict(max_group_bin=kw["max_group_bin"], pack=kw["pack"],
+                  num_groups=kw["num_groups"])
+        hp, lp = H.fused_onehot_hist_plain(ohb, binsT, wT, leaf, table,
+                                           slots, packed_groups=spec, **hk)
+        if not torch.equal(got[1], lp):
+            raise AssertionError(f"{label}: kernel D's route differs from "
+                                 "its plain version")
+        if kw.get("quant"):
+            if not torch.equal(got[0], hp.to(torch.float32) * scales):
+                raise AssertionError(f"{label}: kernel D's int8 histogram "
+                                     "differs from its plain version")
+        else:
+            hold_hist(f"{label}: kernel D", got[0], hp, H.onehot_hist_plain(
+                ohb, wT.t().abs(), lp, slots, **hk))
+        tally("fused_onehot_hist", cat_high_rows(binsT, leaf, table,
+                                                 packed_groups=spec))
+    for args, kw, got in tap.calls.get("route_apply_tiled", ()):
+        binsT, leaf, table, values = args[:4]
+        spec = spec_of(args, kw, 4)
+        lp, vp = H.route_apply_plain(binsT, leaf, table, values, spec)
         if not (torch.equal(got[0], lp) and torch.equal(
                 got[1].view(torch.int32), vp.view(torch.int32))):
             raise AssertionError(f"{label}: kernel B's exit route differs "
                                  "from its plain version")
-        tally("route_apply", cat_high_rows(binsT, leaf, table))
-    for args, _, got in tap.calls.get("route_only_tiled", ()):
-        binsT, leaf, table = args
-        if not torch.equal(got, H.route_only_plain(binsT, leaf, table)):
+        tally("route_apply", cat_high_rows(binsT, leaf, table,
+                                           packed_groups=spec))
+    for args, kw, got in tap.calls.get("route_only_tiled", ()):
+        binsT, leaf, table = args[:3]
+        spec = spec_of(args, kw, 3)
+        if not torch.equal(got, H.route_only_plain(binsT, leaf, table,
+                                                   spec)):
             raise AssertionError(f"{label}: kernel H's route differs from "
                                  "its plain version")
-        tally("route_only", cat_high_rows(binsT, leaf, table))
+        tally("route_only", cat_high_rows(binsT, leaf, table,
+                                          packed_groups=spec))
     for args, kw, got in tap.calls.get(
             "compute_group_histograms_seg_tiled", ()):
         binsT_p, wT_p, scales, blk_slot = args
         want = H.seg_hist_plain(binsT_p, wT_p, blk_slot, kw["num_out"],
-                                kw["max_group_bin"])
+                                kw["max_group_bin"],
+                                packed_groups=kw.get("packed_groups", 0))
         if not torch.equal(got, want.to(torch.float32) * scales):
             raise AssertionError(f"{label}: kernel J's histogram differs "
                                  "from its plain version")
@@ -2408,8 +2481,12 @@ def check_sampling(lgb, kernels, params, train_ds, valid_ds, X, Xv, yv,
         """Kernel A on two of the run's own calls (a tree's first round,
         every row in one slot; and its middle call), events around the
         wrapper's call, beside the bytes bound: each landed row's bins,
-        weights and leaf id read and its leaf id written once."""
+        weights and leaf id read and its leaf id written once; and the
+        library call, one torch._int_mm of the same int32 histogram from
+        the calls' post-route leaf ids (the column-major int8 one-hot of
+        the run's bins built once for both, then freed)."""
         calls = tap.calls["compute_group_histograms_fused_tiled"]
+        oh = int8_onehot(calls[0][0][0].t(), calls[0][1]["max_group_bin"])
         for which, (args, kw, got) in (("first round", calls[0]),
                                        ("middle call",
                                         calls[len(calls) // 2])):
@@ -2420,14 +2497,22 @@ def check_sampling(lgb, kernels, params, train_ds, valid_ds, X, Xv, yv,
                 lambda: kernels_api.compute_group_histograms_fused_tiled(
                     *args, **kw), dev, 1 if rehearse else 10)
             bound = (landed * (G + 12) + 8 * N) / MEM_BYTES_PER_S * 1e3
+            lib = int8_library_ms(got[1], slots, args[1], oh, dev,
+                                  1 if rehearse else 10)
             key = "first" if which == "first round" else "middle"
             extra["fused_route_hist"][f"phase8_{label[1]}_{key}_ms"] = ms
             extra["fused_route_hist"][
                 f"phase8_{label[1]}_{key}_bound_ms"] = bound
+            extra["fused_route_hist"][
+                f"phase8_{label[1]}_{key}_library_ms"] = lib
             print(f"[phase 8] {label}: kernel A at {G} groups, {which} "
                   f"({slots.shape[0]} slots, {landed} rows landed): "
                   f"{ms:.4f} ms the call (events), bound {bound:.4f} ms "
-                  f"(bytes; {card})")
+                  f"(bytes), library (torch._int_mm) {lib:.4f} ms "
+                  f"({card})")
+        del oh
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     def predicted(label, fn):
         kernels.reset_launches()
@@ -2912,6 +2997,402 @@ def check_serving(lgb, kernels, P, bst, texts, params, train_ds, Xv, dev,
     return res, path
 
 
+# ---------------------------------------------------------------------------
+# phase 10: sub-byte bin storage on the card
+# ---------------------------------------------------------------------------
+#: phase 10 (a)'s max_bin: every bench column fits a nibble under 4bit
+PACKED_MAX_BIN = 15
+
+
+def strip_packing(text: str) -> str:
+    """A model text without its bin_packing echo, the one line the
+    storage layout may change."""
+    return re.sub(r"\[bin_packing: \w+\]", "", text)
+
+
+def mixed_width_rows(X):
+    """Phase 10 (b)'s rows: the bench rows with 8 columns rounded to 3
+    values (crumbs under auto), 8 to 12 values (nibbles), and 12 left
+    as they are (wide at max_bin 63)."""
+    Xm = X.copy()
+    Xm[:, :8] = np.clip(np.round(Xm[:, :8]), -1, 1)
+    Xm[:, 8:16] = np.clip(np.round(Xm[:, 8:16] * 2), -6, 5)
+    return Xm
+
+
+def time_packed_hist(binsT, spec, B, dev, reps, card, rng):
+    """Phase 10 (a): kernels A and G at W=126 (a random pending table
+    over 255 leaves) and on a tree's first round (every row in one
+    slot, nothing routed), on the sub-byte storage ``binsT`` and on the
+    logical matrix unpacked from it, each held bit for bit against its
+    plain version (and the two matrices' results against each other)
+    and timed (CUDA events, median) beside its bound: the bytes it must
+    move, a landed row's bins counted at the width of the matrix read
+    (storage bytes, or one a group).  Returns {kernel: numbers}."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    cols, n = binsT.shape
+    G = H.groups_of_storage(cols, spec)
+    logical = H.unpack_bins_cols(binsT.t(), num_groups=G,
+                                 packed_groups=spec).t().contiguous()
+    L = 255
+    leaf = rng.randint(0, L, n).astype(np.int32)
+    leaf[rng.rand(n) < 0.01] = -1
+    leaf = torch.from_numpy(leaf).to(dev)
+    counts = (leaf >= 0).to(torch.float32)
+    grad = torch.from_numpy(rng.randn(n).astype(np.float32)).to(dev)
+    wq, _ = H.quantize_gradients(grad * counts, 0.25 * counts, counts)
+    wT = wq.t().contiguous()
+    table = random_route_table(rng, L, G, B).to(dev)
+    cases = {
+        "W=126": (leaf, table, torch.from_numpy(rng.permutation(2 * L)[
+            :126].astype(np.int32)).to(dev)),
+        "first round": (torch.where(leaf >= 0, 0, -1).to(torch.int32),
+                        torch.zeros_like(table),
+                        torch.zeros(1, dtype=torch.int32, device=dev))}
+    out = {"fused_route_hist": {}, "tiled_hist": {}}
+    for label, (lf, tb, slots) in cases.items():
+        key = "w126" if label == "W=126" else "first"
+        for name in out:
+            res = {}
+            for what, mat, m_spec in (("storage", binsT, spec),
+                                      ("logical", logical, 0)):
+                if name == "fused_route_hist":
+                    def fn():
+                        return H.fused_route_hist(mat, wT, lf, tb, slots, B,
+                                                  m_spec)
+                    want = H.fused_route_hist_plain(mat, wT, lf, tb, slots,
+                                                    B, m_spec)
+                    got = fn()
+                    ok = torch.equal(got[0], want[0]) and torch.equal(
+                        got[1], want[1])
+                    post, hist = want[1], want[0]
+                    # leaf ids in and out, a splitting leaf's row's bin
+                    # byte, the table
+                    fixed = 8 * n + split_rows(lf, tb) + tb.numel() * 4
+                else:
+                    def fn():
+                        return H.tiled_hist(mat, wT, lf, slots, B, m_spec)
+                    hist = H.tiled_hist_plain(mat, wT, lf, slots, B, m_spec)
+                    ok = torch.equal(fn(), hist)
+                    post, fixed = lf, 4 * n
+                if not ok:
+                    raise AssertionError(f"phase 10 (a) {name} {label} on "
+                                         f"the {what} matrix: kernel != "
+                                         "plain")
+                res[what] = hist
+                n_hit = int(((post[:, None] == slots[None, :]).any(1)
+                             & (post >= 0)).sum())
+                nbytes = fixed + n_hit * (mat.shape[0] + 12) \
+                    + hist.numel() * 4
+                bound = nbytes / MEM_BYTES_PER_S * 1e3
+                ms = time_ms(fn, dev, reps)
+                out[name].update({f"phase10_{key}_{what}_ms": ms,
+                                  f"phase10_{key}_{what}_bound_ms": bound})
+                print(f"[phase 10] (a) {name} {label} on the {what} matrix "
+                      f"({mat.shape[0]} x {n} bytes): {ms:.4f} ms (events; "
+                      f"bound {bound:.4f} ms, bytes: {n_hit} rows landed at "
+                      f"{mat.shape[0] + 12} B; {card})")
+            if not torch.equal(res["storage"], res["logical"]):
+                raise AssertionError(f"phase 10 (a) {name} {label}: the "
+                                     "storage's histogram differs from the "
+                                     "logical matrix's")
+    out.update(time_packed_routes(binsT, logical, spec, B, wT, grad * counts,
+                                  counts, *cases["W=126"], dev, reps, card,
+                                  rng))
+    return out
+
+
+def time_packed_routes(binsT, logical, spec, B, wT, grad, counts, leaf,
+                       table, slots, dev, reps, card, rng):
+    """Phase 10 (a), W=126 (``leaf``, ``table``, ``slots`` of
+    time_packed_hist): kernels B and H, J on the leaf partition, and
+    D's routing launch (its device time from the profiler, beside the
+    whole call's events), on the storage and on the logical matrix, each
+    held against its plain version (and the two matrices' results
+    against each other) and timed beside its bytes bound.  Returns
+    {kernel: numbers}."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.partition import block_slots
+    G, n = logical.shape
+    L, W = 255, slots.shape[0]
+    values = torch.from_numpy(rng.randn(L).astype(np.float32)).to(dev)
+    wf = torch.stack([grad, 0.25 * counts, counts]).contiguous()
+    pad = -n % H.SEG_BLOCK
+    leaf_x = torch.nn.functional.pad(leaf, (0, pad), value=-1)
+    wT_x = torch.nn.functional.pad(wT, (0, pad))
+    splits = split_rows(leaf, table)
+    route_bytes = 8 * n + splits + table.numel() * 4
+    hit = int(torch.isin(leaf, slots).sum())
+    ohb = H.precompute_bin_onehot(logical.t(), max_group_bin=B)
+    out = {k: {} for k in ("route_apply", "route_only", "seg_hist",
+                           "fused_onehot_hist")}
+    res = {}
+    for what, mat, m_spec in (("storage", binsT, spec),
+                              ("logical", logical, 0)):
+        # slots are leaf ids below 2L (new right children past L)
+        binsT_p, wT_p, blk_leaf = partition(
+            torch.nn.functional.pad(mat, (0, pad)), wT_x, leaf_x, 2 * L)
+        blk = block_slots(blk_leaf, slots, 2 * L)
+        live = int(((blk >= 0) & (blk < W)).sum())
+        dkw = dict(max_group_bin=B, pack=1, num_groups=G,
+                   packed_groups=m_spec)
+        jobs = {
+            "route_apply": (
+                lambda: H.route_apply_tiled(mat, leaf, table, values, m_spec),
+                lambda: H.route_apply_plain(mat, leaf, table, values, m_spec),
+                route_bytes + 4 * n + 4 * L),
+            "route_only": (
+                lambda: H.route_only_tiled(mat, leaf, table, m_spec),
+                lambda: H.route_only_plain(mat, leaf, table, m_spec),
+                route_bytes),
+            "seg_hist": (
+                lambda: H.seg_hist(binsT_p, wT_p, blk, W, B,
+                                   packed_groups=m_spec),
+                lambda: H.seg_hist_plain(binsT_p, wT_p, blk, W, B,
+                                         packed_groups=m_spec),
+                4 * blk.numel() + 12 * live * H.SEG_BLOCK
+                + hit * mat.shape[0] + W * G * B * 12),
+            "fused_onehot_hist": (
+                lambda: H.fused_onehot_hist(ohb, mat, wf, leaf, table,
+                                            slots, **dkw),
+                lambda: H.fused_onehot_hist_plain(ohb, mat, wf, leaf, table,
+                                                  slots, **dkw),
+                route_bytes)}
+        for name, (fn, plain, nbytes) in jobs.items():
+            got, want = fn(), plain()
+            if name == "seg_hist":
+                ok = torch.equal(got, want)
+            elif name == "route_only":
+                ok = torch.equal(got, want)
+            elif name == "route_apply":
+                ok = torch.equal(got[0], want[0]) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32))
+            else:
+                ok = torch.equal(got[1], want[1])
+                hold_hist(f"phase 10 (a) D on the {what} matrix", got[0],
+                          want[0], H.onehot_hist_plain(
+                              ohb, wf.t().abs(), want[1], slots,
+                              max_group_bin=B, pack=1, num_groups=G))
+            if not ok:
+                raise AssertionError(f"phase 10 (a) {name} on the {what} "
+                                     "matrix: kernel != plain")
+            res[(name, what)] = got[0] if isinstance(got, tuple) else got
+            bound = nbytes / MEM_BYTES_PER_S * 1e3
+            ms = time_ms(fn, dev, reps)
+            nums = {f"phase10_w126_{what}_ms": ms,
+                    f"phase10_w126_{what}_bound_ms": bound}
+            detail = f"{ms:.4f} ms the call (events)"
+            if name == "fused_onehot_hist" and dev.type == "cuda":
+                parts = device_ms(fn, reps, split=True) or {}
+                route = sum(v for k, v in parts.items()
+                            if kernel_name(k) == "route_rows_kernel")
+                nums[f"phase10_w126_{what}_route_device_ms"] = route
+                detail += f", its routing launch {route:.4f} ms (device)"
+            out[name].update(nums)
+            what_bound = ", the routing" if name == "fused_onehot_hist" \
+                else ""
+            print(f"[phase 10] (a) {name} W=126 on the {what} matrix "
+                  f"({mat.shape[0]} x {n} bytes): {detail}; bound "
+                  f"{bound:.4f} ms (bytes{what_bound}; {card})")
+    for name in out:
+        if not torch.equal(res[(name, "storage")], res[(name, "logical")]):
+            raise AssertionError(f"phase 10 (a) {name}: the storage's result "
+                                 "differs from the logical matrix's")
+    return out
+
+
+def check_packed(lgb, kernels, params, X, y, Xv, yv, dev, card, rehearse,
+                 plan_runs):
+    """Phase 10: sub-byte bin storage through lgb.train on the card.  (a)
+    the bench rows at max_bin 15, fused_tiled 10 trees under 4bit and
+    8bit (the texts equal, the resident bin matrix's bytes, every A and
+    B call of the 4bit run held, A and G timed on the storage and on the
+    logical matrix); (b) the mixed-width rows under auto (crumbs,
+    nibbles, wide groups) on five plans, 3 trees each, every text equal
+    to its 8bit run's and every A, G, J, B, H and D call held; (c)
+    (a)'s validation scores and in-session binned scan equal to the
+    8bit run's bit for bit.  Each run's launches are counted on their
+    own.  Returns the numbers for the kernels line."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.packing import pack_spec, storage_cols
+    t_phase = time.perf_counter()
+    reps = 3 if rehearse else 20
+    extra = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def dataset(Xt, yt, run_params, valid=None):
+        cfg = lgb.Config.from_params(run_params)
+        d = lgb.Dataset(Xt, label=yt, free_raw_data=False)
+        core = d.construct(cfg)
+        v = None
+        if valid is not None:
+            v = lgb.Dataset(valid[0], label=valid[1], reference=d)
+            v.construct_aligned(core, cfg)
+        return d, v
+
+    def run(label, run_params, d, v, rounds, plan, want, names=()):
+        tap = CallTap(*names) if names else contextlib.nullcontext()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with tap:
+            bst = lgb.train(run_params, d, rounds,
+                            valid_sets=[v] if v is not None else [],
+                            verbose_eval=False, keep_training_booster=True)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0) / rounds
+        launches = {k: c for k, c in kernels.LAUNCHES.items() if c}
+        need_launches(dev, label, launches, want)
+        g = bst.gbdt.grower
+        if g.plan.name != plan:
+            raise AssertionError(f"phase 10 {label}: resolved the "
+                                 f"{g.plan.name} plan, not {plan}")
+        for name, count in launches.items():
+            plan_runs.setdefault(name, {})[f"phase 10 {label}"] = count
+        held = {}
+        if names:
+            held = hold_tapped(tap, f"phase 10 {label}")
+            for name, (calls, _) in held.items():
+                extra.setdefault(name, {})[
+                    f"phase10_{label.split()[0][1]}_{plan}_held_calls"] = \
+                    calls
+        print(f"[phase 10] {label}: plan {plan}, pack spec {g.pack_P}, "
+              f"{bst.num_trees()} trees, {ms:.1f} ms/tree (wall of "
+              f"lgb.train over trees; {card}); resident bin matrix "
+              f"{g.resident_bin_bytes()} bytes; launches {launches}"
+              + (f"; every kernel call held bit for bit against its plain "
+                 f"version on the same inputs (kernel: calls, rows routed "
+                 f"by a categorical bin of 64 or above) {held}"
+                 if names else ""))
+        return bst
+
+    # ---- (a) the bench rows at max_bin 15: 4bit stores 28 nibble groups
+    # in 14 bytes a row
+    p_a = dict(params, max_bin=PACKED_MAX_BIN)
+    t0 = time.perf_counter()
+    sets = {m: dataset(X, y, dict(p_a, bin_packing=m), (Xv, yv))
+            for m in ("8bit", "4bit")}
+    print(f"[phase 10] (a) binned {X.shape[0]} + {Xv.shape[0]} rows x "
+          f"{X.shape[1]} at max_bin {PACKED_MAX_BIN} under 8bit and 4bit in "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    boosters = {}
+    for mode in ("8bit", "4bit"):
+        d, v = sets[mode]
+        boosters[mode] = run(
+            f"(a) {mode}", dict(p_a, bin_packing=mode), d, v, 10,
+            "fused_tiled", ("fused_route_hist", "route_apply"),
+            ("compute_group_histograms_fused_tiled", "route_apply_tiled")
+            if mode == "4bit" else ())
+    b8, b4 = boosters["8bit"], boosters["4bit"]
+    g8, g4 = b8.gbdt.grower, b4.gbdt.grower
+    G = g4.num_groups
+    if g4.pack_P != pack_spec(G) or g4.binsT.shape != (
+            storage_cols(G, g4.pack_P), g4.n_padded):
+        raise AssertionError(f"phase 10 (a): 4bit holds "
+                             f"{tuple(g4.binsT.shape)} under spec "
+                             f"{g4.pack_P}")
+    if strip_packing(b4.model_to_string()) != strip_packing(
+            b8.model_to_string()):
+        raise AssertionError("phase 10 (a): the 4bit model text differs "
+                             "from the 8bit one")
+    logical = H.unpack_bins_cols(g4.binsT.t(), num_groups=G,
+                                 packed_groups=g4.pack_P)
+    if not torch.equal(logical, g8.binsT.t()):
+        raise AssertionError("phase 10 (a): the 4bit storage does not hold "
+                             "the 8bit run's bins")
+    del logical
+    r8, r4 = g8.resident_bin_bytes(), g4.resident_bin_bytes()
+    print(f"[phase 10] (a) the 4bit model text equals the 8bit one; "
+          f"resident bin matrix {r4 / 1e6:.1f} MB ({tuple(g4.binsT.shape)}) "
+          f"against {r8 / 1e6:.1f} MB ({tuple(g8.binsT.shape)}) under 8bit "
+          f"({card})")
+    extra.setdefault("fused_route_hist", {}).update(
+        phase10_resident_bytes_4bit=r4, phase10_resident_bytes_8bit=r8)
+    for name, nums in time_packed_hist(g4.binsT, g4.pack_P,
+                                       g4.max_group_bin, dev, reps, card,
+                                       np.random.RandomState(41)).items():
+        extra.setdefault(name, {}).update(nums)
+
+    # ---- (c) (a)'s validation scores and in-session binned scan
+    s8 = b8.gbdt.valid_sets[0].scores
+    s4 = b4.gbdt.valid_sets[0].scores
+    vb = b4.gbdt.valid_sets[0].bins
+    if vb.shape != (Xv.shape[0], storage_cols(G, g4.pack_P)):
+        raise AssertionError(f"phase 10 (c): the validation set holds "
+                             f"{tuple(vb.shape)}")
+    if not torch.equal(s8, s4):
+        raise AssertionError("phase 10 (c): the 4bit validation scores "
+                             "differ from the 8bit ones")
+    scan = {}
+    for mode, bst in boosters.items():
+        t0 = time.perf_counter()
+        scan[mode] = bst._device_predict_raw(Xv, -1)
+        scan[mode + "_ms"] = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(scan["8bit"], scan["4bit"]):
+        raise AssertionError("phase 10 (c): the 4bit binned scan differs "
+                             "from the 8bit one")
+    print(f"[phase 10] (c) validation scores of {Xv.shape[0]} rows (held "
+          f"as {tuple(vb.shape)} storage) and the in-session binned scan of "
+          f"them equal the 8bit run's bit for bit; the scan "
+          f"{scan['4bit_ms']:.1f} ms under 4bit, {scan['8bit_ms']:.1f} ms "
+          f"under 8bit (binning included; {card})")
+    del boosters, b8, b4, g8, g4, sets, s8, s4, vb
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- (b) mixed widths under auto: crumbs, nibbles and wide groups
+    Xm = mixed_width_rows(X)
+    default = {k: v for k, v in params.items()
+               if k not in ("quantized_grad", "hist_compute_dtype")}
+    t0 = time.perf_counter()
+    sets = {m: dataset(Xm, y, dict(params, bin_packing=m)
+                       )[0] for m in ("8bit", "auto")}
+    print(f"[phase 10] (b) binned the mixed-width rows under 8bit and auto "
+          f"in {time.perf_counter() - t0:.1f} s ({card})")
+    for plan, run_params, want, names in [
+            ("q_tiled(split_route)", dict(params, hist_split_route=True),
+             ("route_only", "tiled_hist", "route_apply"),
+             ("route_only_tiled", "compute_group_histograms_q_tiled",
+              "route_apply_tiled")),
+            ("seg_tiled(leaf_partition)",
+             dict(params, hist_leaf_partition="on"),
+             ("route_only", "seg_hist", "route_apply"),
+             ("route_only_tiled", "compute_group_histograms_seg_tiled",
+              "route_apply_tiled")),
+            ("fused_streamed", dict(params, quantized_grad=False),
+             ("fused_onehot_hist", "route_apply"),
+             ("compute_group_histograms_fused", "route_apply_tiled")),
+            ("pre_onehot", dict(params, quantized_grad=False,
+                                hist_fused_route=False),
+             ("hist_pre_packed",), ()),
+            ("xla", default, (), ())]:
+        texts, specs = {}, {}
+        for mode in ("8bit", "auto"):
+            bst = run(f"(b) {mode} {plan}", dict(run_params, bin_packing=mode),
+                      sets[mode], None, 3, plan, want,
+                      names if mode == "auto" else ())
+            texts[mode] = bst.model_to_string()
+            specs[mode] = bst.gbdt.grower.pack_P
+            del bst
+        if strip_packing(texts["auto"]) != strip_packing(texts["8bit"]):
+            raise AssertionError(f"phase 10 (b) {plan}: the auto model text "
+                                 "differs from the 8bit one")
+        print(f"[phase 10] (b) {plan}: the auto model text (pack spec "
+              f"{specs['auto']}: P {specs['auto'] & 0xFFFF}, C "
+              f"{specs['auto'] >> 16}) equals the 8bit one")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print(f"[phase 10] done in {secs:.1f} s ({card})")
+    extra.setdefault("fused_route_hist", {})["phase10_s"] = secs
+    return extra
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     rehearse = "--rehearse" in argv
@@ -2943,10 +3424,16 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         kernels.build_kernels()
         print(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f} s")
+        # each entry function's registers and spills, under its mangled
+        # name (the template arguments show which instantiation: e.g.
+        # hist_i32_kernelILi4ELb0ELb1E is <4, transposed, packed>)
         for name, log in kernels.BUILD_LOG.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[phase 1] {name}: {line.strip()}")
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    print(f"[phase 1] {name}: {m.group(1)}")
+                elif "registers" in line or "spill" in line:
+                    print(f"[phase 1] {name}:   {line.strip()}")
 
     # the bench rows, binned once: phase 2's make_data first round and
     # phase 3's training
@@ -3205,6 +3692,11 @@ def main(argv) -> int:
         lgb, kernels, P, bst, texts, params, train_ds, Xv, dev, card,
         rehearse)
     numbers["predict_level"].update(served_numbers)
+
+    # ---- phase 10: sub-byte bin storage (4bit, auto) on the card
+    for name, extra in check_packed(lgb, kernels, params, X, y, Xv, yv,
+                                    dev, card, rehearse, plan_runs).items():
+        numbers[name].update(extra)
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")
         return 3

@@ -658,13 +658,14 @@ class Booster:
         _device_predict_raw): the rows binned with the training mappers,
         then each device tree walked over the bins (``predict_binned``,
         torch ops) and added at its shrinkage to the init score (the
-        session's trees do not hold it), in f32 on the session's
-        device."""
+        session's trees do not hold it), in f32 on the session's device.
+        The rows are binned into the training set's storage layout and
+        uploaded as stored (sub-byte under a pack spec)."""
         g = self.gbdt
         vcore = Dataset.from_matrix(np.asarray(data, dtype=np.float64),
                                     config=g.config, reference=g.train_set)
         vbins = torch.from_numpy(np.ascontiguousarray(
-            vcore.logical_group_bins())).to(g.device)
+            vcore.group_bins)).to(g.device)
         n_trees = self._n_used_trees(num_iteration)
         total = torch.full((vbins.shape[0],), float(g.init_score),
                            dtype=torch.float32, device=g.device)

@@ -50,12 +50,15 @@ def _score_rows(metadata, num_class: int, num_data: int,
 
 
 class _ValidSet:
-    """Per-validation-set device state (the ScoreUpdater analog)."""
+    """Per-validation-set device state (the ScoreUpdater analog): the
+    set's (N, cols) storage matrix as it holds it (sub-byte under the
+    training set's layout, which add_valid's gate guarantees) and its
+    scores."""
 
     def __init__(self, dataset: Dataset, num_class: int, init_score: float,
                  metrics: List[Metric], device: torch.device):
         self.bins = torch.from_numpy(np.ascontiguousarray(
-            dataset.logical_group_bins())).to(device)
+            dataset.group_bins)).to(device)
         self.scores = torch.from_numpy(_score_rows(
             dataset.metadata, num_class, dataset.num_data,
             init_score)).to(device)
@@ -450,17 +453,19 @@ class GBDT:
         self._scale_offset += len(models)
 
     def _train_bins(self) -> torch.Tensor:
-        """The training rows' (n_padded, G) bins: the fused plans keep
-        only the transposed matrix, walked through its transposed
-        view."""
+        """The training rows' (n_padded, cols) storage bins: the fused
+        plans keep only the transposed matrix, walked through its
+        transposed view."""
         g_ = self.grower
         return g_.bins if g_.bins is not None else g_.binsT.t()
 
     def _predict_tree(self, tree: dict, bins: torch.Tensor) -> torch.Tensor:
-        """One grown tree's unshrunk leaf values of binned (N, G) rows."""
+        """One grown tree's unshrunk leaf values of binned rows, stored in
+        the training set's layout ((N, cols), the grower's pack spec)."""
         g_ = self.grower
         return predict_binned(tree, bins, g_.f_group, g_.g2f_lut,
-                              g_.f_missing, g_.f_default_bin, g_.f_num_bin)
+                              g_.f_missing, g_.f_default_bin, g_.f_num_bin,
+                              g_.pack_P)
 
     def rollback_one_iter(self) -> None:
         """Take the last iteration's K trees out of the model and their

@@ -38,6 +38,13 @@
 // leaf ids: routing in every group-chunk CTA would repeat it gridDim.y
 // times.
 //
+// Sub-byte bin storage (a nonzero pack spec, packing.py): binsT is the
+// (cols, n) storage of the G logical groups, and both launches read it
+// as stored: the routing widens the chosen group's byte (route.cuh), the
+// histogram each group's 4-row word (hist_i32.cuh), in registers, the
+// same bins as the byte-wide matrix's from half (nibbles) or a quarter
+// (crumbs) of its bytes.
+//
 // Why the result does not depend on the order of the adds: int32
 // addition wraps modulo 2^32, which is associative and commutative, so
 // every schedule leaves the same bits; and with at most QUANT_ROW_LIMIT
@@ -53,25 +60,31 @@
 namespace {
 
 // Kernel A's routing launch: one thread a row applies the pending route
-// table to its leaf id.
+// table to its leaf id (kPacked: over the sub-byte storage of the spec
+// (P, C), csrc/pack.cuh).
+template <bool kPacked>
 __global__ void routing_pass_kernel(const uint8_t* __restrict__ binsT,
                                     const int32_t* __restrict__ leaf_in,
                                     const float* __restrict__ table,
                                     int32_t* __restrict__ leaf_out,
-                                    int64_t n, int G, int L, int K) {
+                                    int64_t n, int G, int L, int K, int P,
+                                    int C) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
   bool went_right;
-  leaf_out[row] = ltt_route_row(binsT, n, row, G, leaf_in[row], table, L,
-                                K, K - LTT_ROUTE_FIXED_COLS, &went_right);
+  leaf_out[row] = ltt_route_row<kPacked>(binsT, n, row, G, leaf_in[row],
+                                         table, L, K, K - LTT_ROUTE_FIXED_COLS,
+                                         &went_right, P, C);
 }
 
 }  // namespace
 
-// Kernel A.  binsT (G, n) uint8, wT (3, n) int32, leaf_in (n,) int32,
-// table (L, K) f32, slots (W,) int32 -> hist (W, G, B, 3) int32 (zeroed
-// every word written), leaf_out (n,) int32; plan: the int64 launch plan
-// of ops/histogram.py frontier_hist_plan; part: its (grid_x, W, G, B, 3)
+// Kernel A.  binsT (G, n) uint8 (spec != 0: the (cols, n) sub-byte
+// storage of G logical groups, spec = P | C << 16, packing.py
+// pack_spec), wT (3, n) int32, leaf_in (n,) int32, table (L, K) f32,
+// slots (W,) int32 -> hist (W, G, B, 3) int32 (zeroed every word
+// written), leaf_out (n,) int32; plan: the int64 launch plan of
+// ops/histogram.py frontier_hist_plan; part: its (grid_x, W, G, B, 3)
 // int32 scratch.  Three launches on ``stream``: the routing pass, the
 // histogram of the new leaf ids, the sum of its copies.  Returns the
 // first nonzero cudaGetLastError().
@@ -79,34 +92,43 @@ extern "C" int ltt_fused_route_hist(
     const void* binsT, const void* wT, const void* leaf_in,
     const void* table, const void* slots, void* hist, void* leaf_out,
     int64_t n, int G, int B, int L, int K, int W, const int64_t* plan,
-    void* part, void* stream) {
+    void* part, int spec, void* stream) {
+  const int P = spec & 0xffff, C = spec >> 16;
   if (n > 0) {
     const int threads = 256;
-    routing_pass_kernel<<<(unsigned)((n + threads - 1) / threads), threads,
-                          0, (cudaStream_t)stream>>>(
-        (const uint8_t*)binsT, (const int32_t*)leaf_in, (const float*)table,
-        (int32_t*)leaf_out, n, G, L, K);
+    const unsigned grid = (unsigned)((n + threads - 1) / threads);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (spec)
+      routing_pass_kernel<true><<<grid, threads, 0, s>>>(
+          (const uint8_t*)binsT, (const int32_t*)leaf_in,
+          (const float*)table, (int32_t*)leaf_out, n, G, L, K, P, C);
+    else
+      routing_pass_kernel<false><<<grid, threads, 0, s>>>(
+          (const uint8_t*)binsT, (const int32_t*)leaf_in,
+          (const float*)table, (int32_t*)leaf_out, n, G, L, K, 0, 0);
     const int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
   }
   const ltt_i32::In in{(const uint8_t*)binsT, (const int32_t*)wT,
                        (const int32_t*)leaf_out, (const int32_t*)slots,
-                       (int32_t*)hist, (int32_t*)part, n, G, B, W};
+                       (int32_t*)hist, (int32_t*)part, n, G, B, W, P, C};
   return ltt_i32::launch<false>(in, plan, (cudaStream_t)stream);
 }
 
 // Kernel G.  The same histogram of the rows' current leaf ids: binsT
-// (G, n) uint8, wT (3, n) int32, leaf_in (n,) int32, slots (W,) int32 ->
-// hist (W, G, B, 3) int32 (every word written); plan and part as for A.
-// Two launches: the histogram and the sum of its copies.  Returns the
-// first nonzero cudaGetLastError().
+// (G, n) uint8 (or, spec != 0, the storage as for A), wT (3, n) int32,
+// leaf_in (n,) int32, slots (W,) int32 -> hist (W, G, B, 3) int32 (every
+// word written); plan and part as for A.  Two launches: the histogram
+// and the sum of its copies.  Returns the first nonzero
+// cudaGetLastError().
 extern "C" int ltt_tiled_hist(const void* binsT, const void* wT,
                               const void* leaf_in, const void* slots,
                               void* hist, int64_t n, int G, int B, int W,
-                              const int64_t* plan, void* part,
+                              const int64_t* plan, void* part, int spec,
                               void* stream) {
   const ltt_i32::In in{(const uint8_t*)binsT, (const int32_t*)wT,
                        (const int32_t*)leaf_in, (const int32_t*)slots,
-                       (int32_t*)hist, (int32_t*)part, n, G, B, W};
+                       (int32_t*)hist, (int32_t*)part, n, G, B, W,
+                       spec & 0xffff, spec >> 16};
   return ltt_i32::launch<false>(in, plan, (cudaStream_t)stream);
 }

@@ -22,6 +22,15 @@
 // table, the chains, the far list, the adds, the copies and their sum)
 // is one code path for both.
 //
+// The transposed layout also comes packed (the template's kPacked; A, G
+// and J): binsT is then the (cols, n) sub-byte storage of the G logical
+// groups (csrc/pack.cuh; In's P and C), and group g's 4-row word is the
+// word of storage row byte(g) widened in registers, (word >> shift) &
+// (mask * 0x01010101), so that its 4 bytes are the 4 rows' bins as in the
+// byte-wide word (the TPU's _bin_row_T, histogram.py:85).  A group chunk
+// that starts or ends inside a storage byte reads that byte in both CTAs.
+// kPacked false is the byte-wide code as it was.
+//
 // Layout of the work (the launch plan is Python's: ops/histogram.py
 // frontier_hist_plan; the kernel reads it as given).  A CTA of 1024
 // threads, one an SM, owns
@@ -70,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "pack.cuh"
+
 namespace ltt_i32 {
 
 // bin bytes a thread loads before its adds
@@ -94,7 +105,9 @@ struct Plan {
 // launch's layout (transposed: (G, n) and (3, n); row-major: (n, G) and
 // (n, 3)), leaf (n,) int32, slots (W,) int32 -> hist (W, G, B, 3) int32,
 // every word written; part is the (grid_x, W, G, B, 3) int32 scratch of
-// the CTAs' copies, every word written before it is read.
+// the CTAs' copies, every word written before it is read.  P and C: the
+// pack spec of transposed bins stored sub-byte ((cols, n), P > 0), else
+// 0.
 struct In {
   const uint8_t* bins;
   const int32_t* w;
@@ -104,6 +117,7 @@ struct In {
   int32_t* part;
   int64_t n;
   int G, B, W;
+  int P, C;
 };
 
 // Where row ``row``'s bin of group ``g`` is, and the bytes from one
@@ -119,16 +133,50 @@ __device__ __forceinline__ int64_t group_stride(const In& in) {
   return kRowMajor ? 1 : in.n;
 }
 
-// Add one row's weights at its gcn bins (bins from ``b``, a group every
-// ``gs`` bytes) into the (gcn, B, 3) histogram at ``h``.
-__device__ __forceinline__ void add_row(int32_t* h, const uint8_t* b,
-                                        int64_t gs, int gcn, int B,
-                                        int32_t w0, int32_t w1, int32_t w2) {
+// One row's bins of a group chunk from g0: at(k) is group g0 + k's bin.
+// Byte-wide (either layout): a group every ``gs`` bytes from ``b``.
+// Packed (transposed): storage row byte(g0 + k) from ``b`` (the row's
+// byte of storage row 0), widened.
+template <bool kPacked>
+struct RowBins;
+template <>
+struct RowBins<false> {
+  const uint8_t* b;
+  int64_t gs;
+  __device__ __forceinline__ int at(int k) const {
+    return (int)__ldg(b + (int64_t)k * gs);
+  }
+};
+template <>
+struct RowBins<true> {
+  const uint8_t* b;
+  int64_t n;
+  int g0, P, C;
+  __device__ __forceinline__ int at(int k) const {
+    const LttPackSel s = ltt_pack_select(g0 + k, P, C);
+    return ((int)__ldg(b + (int64_t)s.byte * n) >> s.shift) & s.mask;
+  }
+};
+template <bool kRowMajor, bool kPacked>
+__device__ __forceinline__ RowBins<kPacked> row_bins(const In& in,
+                                                     int64_t row, int g0) {
+  if constexpr (kPacked)
+    return {in.bins + row, in.n, g0, in.P, in.C};
+  else
+    return {bin_at<kRowMajor>(in, row, g0), group_stride<kRowMajor>(in)};
+}
+
+// Add one row's weights at its gcn bins (``rb``) into the (gcn, B, 3)
+// histogram at ``h``.
+template <class R>
+__device__ __forceinline__ void add_row(int32_t* h, const R& rb, int gcn,
+                                        int B, int32_t w0, int32_t w1,
+                                        int32_t w2) {
   for (int gt = 0; gt < gcn; gt += kGroupTile) {
     int bin[kGroupTile];
 #pragma unroll
     for (int k = 0; k < kGroupTile; ++k)
-      bin[k] = gt + k < gcn ? (int)__ldg(b + (int64_t)(gt + k) * gs) : B;
+      bin[k] = gt + k < gcn ? rb.at(gt + k) : B;
 #pragma unroll
     for (int k = 0; k < kGroupTile; ++k) {
       if (bin[k] >= B) continue;
@@ -143,20 +191,21 @@ __device__ __forceinline__ void add_row(int32_t* h, const uint8_t* b,
 // Add a row with leaf id ``leaf`` at every one of its slot positions:
 // the table's chain from ``q``, or (a leaf past the table) the scan of
 // the far list.
+template <class R>
 __device__ __forceinline__ void add_at_slots(
     int32_t* s_hist, const int32_t* s_slot, const int32_t* s_next,
     const int32_t* s_far, int nfar, int leaf, int q, bool far,
-    int slot_words, const uint8_t* b, int64_t gs, int gcn, int B,
-    int32_t w0, int32_t w1, int32_t w2) {
+    int slot_words, const R& rb, int gcn, int B, int32_t w0, int32_t w1,
+    int32_t w2) {
   if (far) {
     for (int f = 0; f < nfar; ++f) {
       const int qf = s_far[f];
       if (s_slot[qf] == leaf)
-        add_row(s_hist + qf * slot_words, b, gs, gcn, B, w0, w1, w2);
+        add_row(s_hist + qf * slot_words, rb, gcn, B, w0, w1, w2);
     }
   } else {
     for (; q >= 0; q = s_next[q])
-      add_row(s_hist + q * slot_words, b, gs, gcn, B, w0, w1, w2);
+      add_row(s_hist + q * slot_words, rb, gcn, B, w0, w1, w2);
   }
 }
 
@@ -174,21 +223,21 @@ struct Slots {
 
 // A row whose leaf id is past the table: every far slot equal to it.
 // Rare, so kept out of line (its registers stay out of the row loops).
+template <class R>
 __device__ __noinline__ void add_far_row(const Slots& sl, int leaf,
-                                         const uint8_t* b, int64_t gs,
-                                         int gcn, int B, int32_t w0,
-                                         int32_t w1, int32_t w2) {
+                                         const R rb, int gcn, int B,
+                                         int32_t w0, int32_t w1,
+                                         int32_t w2) {
   add_at_slots(sl.hist, sl.slot, sl.next, sl.far, sl.nfar, leaf, -1, true,
-               sl.slot_words, b, gs, gcn, B, w0, w1, w2);
+               sl.slot_words, rb, gcn, B, w0, w1, w2);
 }
 
 // One row a thread (any n, any alignment): the thread's rows are tid +
 // k * stride of the CTA's rows.
-template <bool kRowMajor>
+template <bool kRowMajor, bool kPacked>
 __device__ __forceinline__ void add_rows1(const In& in, const Slots& sl,
                                           int g0, int gcn) {
   const int64_t n = in.n;
-  const int64_t gs = group_stride<kRowMajor>(in);
   const int64_t cs = kRowMajor ? 1 : n;       // channel stride of w
   const int64_t rs = kRowMajor ? 3 : 1;       // row stride of w
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
@@ -203,12 +252,12 @@ __device__ __forceinline__ void add_rows1(const In& in, const Slots& sl,
     const int32_t w0 = __ldg(wr), w1 = __ldg(wr + cs),
                   w2 = __ldg(wr + 2 * cs);
     if ((w0 | w1 | w2) == 0) continue;
-    const uint8_t* b = bin_at<kRowMajor>(in, row, g0);
+    const RowBins<kPacked> rb = row_bins<kRowMajor, kPacked>(in, row, g0);
     if (far)
-      add_far_row(sl, leaf, b, gs, gcn, in.B, w0, w1, w2);
+      add_far_row(sl, leaf, rb, gcn, in.B, w0, w1, w2);
     else
       add_at_slots(sl.hist, sl.slot, sl.next, sl.far, sl.nfar, leaf, q,
-                   false, sl.slot_words, b, gs, gcn, in.B, w0, w1, w2);
+                   false, sl.slot_words, rb, gcn, in.B, w0, w1, w2);
   }
 }
 
@@ -230,11 +279,14 @@ __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b,
 // The bins of groups [g0 + gt, g0 + gt + kGroupTile) of rows r0..r0+3
 // (groups past gcn read as anything; the adds skip them) as kGroupTile
 // words, byte k of word j row k's bin of group gt + j.  Transposed: one
-// word a group.  Row-major (n % 4 == 0 and bins 4-byte aligned, so the
-// words covering any of its bytes lie inside it): a row's cnt bytes from
-// byte offset o lie in the aligned words o/4 .. (o + cnt - 1)/4, at most
-// three, cut by funnel shifts, then transposed.
-template <bool kRowMajor>
+// word a group (packed: the word of the group's storage row, widened
+// with the group's own shift and mask, which may differ from group to
+// group of a tile where auto's sections meet).  Row-major (n % 4 == 0
+// and bins 4-byte aligned, so the words covering any of its bytes lie
+// inside it): a row's cnt bytes from byte offset o lie in the aligned
+// words o/4 .. (o + cnt - 1)/4, at most three, cut by funnel shifts, then
+// transposed.
+template <bool kRowMajor, bool kPacked>
 __device__ __forceinline__ void load_tile4(const In& in, int64_t r0, int g0,
                                            int gt, int gcn,
                                            uint32_t* word) {
@@ -256,6 +308,17 @@ __device__ __forceinline__ void load_tile4(const In& in, int64_t r0, int g0,
     }
     transpose4(lo[0], lo[1], lo[2], lo[3], word);
     transpose4(hi[0], hi[1], hi[2], hi[3], word + 4);
+  } else if constexpr (kPacked) {
+#pragma unroll
+    for (int j = 0; j < kGroupTile; ++j) {
+      word[j] = 0u;
+      if (gt + j < gcn) {
+        const LttPackSel s = ltt_pack_select(g0 + gt + j, in.P, in.C);
+        const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(
+            in.bins + (int64_t)s.byte * in.n + r0));
+        word[j] = (v >> s.shift) & ((uint32_t)s.mask * 0x01010101u);
+      }
+    }
   } else {
 #pragma unroll
     for (int j = 0; j < kGroupTile; ++j)
@@ -336,7 +399,7 @@ __device__ __forceinline__ void add_tile_row(int32_t* h, int k,
 // with a landed row loads its three weight int4 and its first tile of
 // bin words together.  Rows past the table go one by one through the
 // far list.
-template <bool kRowMajor>
+template <bool kRowMajor, bool kPacked>
 __device__ __forceinline__ void add_rows4(const In& in, const Slots& sl,
                                           int g0, int gcn) {
   const int64_t n = in.n;
@@ -356,7 +419,7 @@ __device__ __forceinline__ void add_rows4(const In& in, const Slots& sl,
     }
     if (!any) continue;
     uint32_t word[kGroupTile];
-    load_tile4<kRowMajor>(in, r0, g0, 0, gcn, word);
+    load_tile4<kRowMajor, kPacked>(in, r0, g0, 0, gcn, word);
     int32_t w[3][4];
     load_weights4<kRowMajor>(in, r0, w);
     int top = -1;
@@ -364,14 +427,13 @@ __device__ __forceinline__ void add_rows4(const In& in, const Slots& sl,
     for (int k = 0; k < 4; ++k) {
       if ((w[0][k] | w[1][k] | w[2][k]) == 0) q[k] = -1, far[k] = false;
       if (far[k])
-        add_far_row(sl, leaf[k], bin_at<kRowMajor>(in, r0 + k, g0),
-                    group_stride<kRowMajor>(in), gcn, B, w[0][k], w[1][k],
-                    w[2][k]);
+        add_far_row(sl, leaf[k], row_bins<kRowMajor, kPacked>(in, r0 + k, g0),
+                    gcn, B, w[0][k], w[1][k], w[2][k]);
       top = max(top, q[k]);
     }
     if (top < 0) continue;
     for (int gt = 0; gt < gcn; gt += kGroupTile) {
-      if (gt > 0) load_tile4<kRowMajor>(in, r0, g0, gt, gcn, word);
+      if (gt > 0) load_tile4<kRowMajor, kPacked>(in, r0, g0, gt, gcn, word);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         add_tile4(sl, q[k], k, word, gt, gcn, B, w[0][k], w[1][k],
@@ -383,7 +445,7 @@ __device__ __forceinline__ void add_rows4(const In& in, const Slots& sl,
 // V rows a thread at a time in the given layout: add_rows4 (the plan's
 // rows_per_thread 4: n % 4 == 0, 16-byte aligned leaf ids and weights,
 // 4-byte aligned bins) or add_rows1.
-template <int V, bool kRowMajor>
+template <int V, bool kRowMajor, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
     hist_i32_kernel(In in, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -421,9 +483,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const Slots sl{s_hist, s_slot, s_next, s_far, s_head, nfar, p.table,
                    gcn * row3};
     if constexpr (V == 4)
-      add_rows4<kRowMajor>(in, sl, g0, gcn);
+      add_rows4<kRowMajor, kPacked>(in, sl, g0, gcn);
     else
-      add_rows1<kRowMajor>(in, sl, g0, gcn);
+      add_rows1<kRowMajor, kPacked>(in, sl, g0, gcn);
   }
   __syncthreads();
   // store the CTA's copy: a warp per (slot, group) row of 3B words
@@ -464,29 +526,39 @@ __global__ void sum_copies_kernel(const int32_t* __restrict__ part,
 // Launch the histogram on ``stream`` with the plan's geometry (shared
 // memory past 48 KB opted in) and rows a thread.  Returns the first
 // nonzero cudaGetLastError().
-template <int V, bool kRowMajor>
+template <int V, bool kRowMajor, bool kPacked>
 int launch_v(const In& in, const Plan& p, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      hist_i32_kernel<V, kRowMajor>,
+      hist_i32_kernel<V, kRowMajor, kPacked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
   // all of the SM's 228 KB as shared memory, so two 105 KB CTAs fit
-  e = cudaFuncSetAttribute(hist_i32_kernel<V, kRowMajor>,
+  e = cudaFuncSetAttribute(hist_i32_kernel<V, kRowMajor, kPacked>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  hist_i32_kernel<V, kRowMajor><<<dim3((unsigned)p.grid_x,
-                                       (unsigned)p.grid_y,
-                                       (unsigned)p.grid_z),
-                                  (unsigned)p.threads, (size_t)p.smem,
-                                  stream>>>(in, p);
+  hist_i32_kernel<V, kRowMajor, kPacked><<<dim3((unsigned)p.grid_x,
+                                                (unsigned)p.grid_y,
+                                                (unsigned)p.grid_z),
+                                           (unsigned)p.threads,
+                                           (size_t)p.smem, stream>>>(in, p);
   return (int)cudaGetLastError();
+}
+
+// The plan's rows a thread, byte-wide or (transposed, in.P > 0) packed.
+template <int V, bool kRowMajor>
+int launch_vp(const In& in, const Plan& p, cudaStream_t stream) {
+  if constexpr (!kRowMajor) {
+    if (in.P > 0) return launch_v<V, false, true>(in, p, stream);
+  }
+  return launch_v<V, kRowMajor, false>(in, p, stream);
 }
 
 // The histogram in the given layout, then the sum of its grid_x copies
 // into hist.  A plan of 4 rows a thread on pointers or rows not aligned
 // for it is refused (cudaErrorMisalignedAddress): the wrapper's plan
-// decides, from the same pointers.
+// decides, from the same pointers.  Row-major bins have no packed form
+// (kernel I; in.P must be 0).
 template <bool kRowMajor>
 int launch(const In& in, const int64_t* plan, cudaStream_t stream) {
   const int64_t words = (int64_t)in.W * in.G * in.B * 3;
@@ -499,9 +571,10 @@ int launch(const In& in, const int64_t* plan, cudaStream_t stream) {
                          reinterpret_cast<uintptr_t>(in.bins) % 4 == 0;
     if (!aligned) return (int)cudaErrorMisalignedAddress;
   }
+  if (kRowMajor && in.P != 0) return (int)cudaErrorInvalidValue;
   const int rc = p.rows_per_thread == 4
-                     ? launch_v<4, kRowMajor>(in, p, stream)
-                     : launch_v<1, kRowMajor>(in, p, stream);
+                     ? launch_vp<4, kRowMajor>(in, p, stream)
+                     : launch_vp<1, kRowMajor>(in, p, stream);
   if (rc != 0) return rc;
   sum_copies_kernel<<<(unsigned)((words + 31) / 32), dim3(32, 8), 0,
                       stream>>>(in.part, in.hist, words, p.grid_x);

@@ -69,6 +69,12 @@
 // int8-quantized weights (int32 in [-127, 127]) keep the first design:
 // a warp per 32-row tile adds each live row with int32 global atomics,
 // exact in any order (onehot_hist_q_kernel below).
+//
+// Sub-byte bin storage (a nonzero spec): the one-hot is built from the
+// storage by the wrapper's builder (ops/histogram.py), so the histogram
+// does not change; D's routing reads binsT as the (cols, n) packed
+// matrix and widens the chosen group's storage byte in registers
+// (csrc/route.cuh, kPacked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,14 +150,14 @@ __device__ __forceinline__ void add_row(
 // its own row; the warp then walks the tile's live rows, matches each
 // against the frontier slots in shared memory (one ballot per 32 slots,
 // every equal slot) and adds it cooperatively.
-template <int V, bool ROUTE>
+template <int V, bool ROUTE, bool kPacked>
 __global__ void onehot_hist_q_kernel(
     const uint8_t* __restrict__ ohb, int64_t row_bytes,
     const uint8_t* __restrict__ binsT, const int32_t* __restrict__ w,
     int64_t ws_r, int64_t ws_c, const int32_t* __restrict__ leaf_in,
     const float* __restrict__ table, const int32_t* __restrict__ slots,
     int32_t* __restrict__ hist, int32_t* __restrict__ leaf_out, int64_t n,
-    int G, int B, int L, int K, int W, int pack, int gbp) {
+    int G, int B, int L, int K, int W, int pack, int gbp, int P, int C) {
   extern __shared__ int32_t s_slots[];
   for (int i = threadIdx.x; i < W; i += blockDim.x) s_slots[i] = slots[i];
   __syncthreads();
@@ -167,8 +173,9 @@ __global__ void onehot_hist_q_kernel(
       leaf = leaf_in[row];
       if constexpr (ROUTE) {
         bool went_right;
-        leaf = ltt_route_row(binsT, n, row, G, leaf, table, L, K,
-                             K - LTT_ROUTE_FIXED_COLS, &went_right);
+        leaf = ltt_route_row<kPacked>(binsT, n, row, G, leaf, table, L, K,
+                                      K - LTT_ROUTE_FIXED_COLS, &went_right,
+                                      P, C);
         leaf_out[row] = leaf;
       }
       if (leaf >= 0) {
@@ -202,34 +209,37 @@ __global__ void onehot_hist_q_kernel(
 }
 
 // Kernel D's routing for f32 weights: one thread a row (route.cuh).
+template <bool kPacked>
 __global__ void route_rows_kernel(const uint8_t* __restrict__ binsT,
                                   const int32_t* __restrict__ leaf_in,
                                   const float* __restrict__ table,
                                   int32_t* __restrict__ leaf_out, int64_t n,
-                                  int G, int L, int K) {
+                                  int G, int L, int K, int P, int C) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
   bool went_right;
-  leaf_out[row] = ltt_route_row(binsT, n, row, G, leaf_in[row], table, L, K,
-                                K - LTT_ROUTE_FIXED_COLS, &went_right);
+  leaf_out[row] = ltt_route_row<kPacked>(binsT, n, row, G, leaf_in[row],
+                                         table, L, K,
+                                         K - LTT_ROUTE_FIXED_COLS,
+                                         &went_right, P, C);
 }
 
-template <int V, bool ROUTE>
+template <int V, bool ROUTE, bool kPacked>
 int launch_q(const void* ohb, int64_t row_bytes, const void* binsT,
              const void* w, int64_t ws_r, int64_t ws_c, const void* leaf_in,
              const void* table, const void* slots, void* hist,
              void* leaf_out, int64_t n, int G, int B, int L, int K, int W,
-             int pack, int gbp, cudaStream_t stream) {
+             int pack, int gbp, int P, int C, cudaStream_t stream) {
   const int threads = 256;
   int64_t blocks = (n + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;        // grid-stride over row tiles
   const size_t smem = (size_t)(W > 0 ? W : 1) * sizeof(int32_t);
-  onehot_hist_q_kernel<V, ROUTE><<<(unsigned)blocks, threads, smem,
-                                   stream>>>(
+  onehot_hist_q_kernel<V, ROUTE, kPacked><<<(unsigned)blocks, threads, smem,
+                                            stream>>>(
       (const uint8_t*)ohb, row_bytes, (const uint8_t*)binsT,
       (const int32_t*)w, ws_r, ws_c, (const int32_t*)leaf_in,
       (const float*)table, (const int32_t*)slots, (int32_t*)hist,
-      (int32_t*)leaf_out, n, G, B, L, K, W, pack, gbp);
+      (int32_t*)leaf_out, n, G, B, L, K, W, pack, gbp, P, C);
   return (int)cudaGetLastError();
 }
 
@@ -238,20 +248,32 @@ int launch(int quant, const void* ohb, int64_t row_bytes, const void* binsT,
            const void* w, int64_t ws_r, int64_t ws_c, const void* leaf_in,
            const void* table, const void* slots, void* hist, void* leaf_out,
            int64_t n, int G, int B, int L, int K, int W, int pack, int gbp,
-           const int64_t* plan, cudaStream_t s) {
-  if (quant)
-    return launch_q<V, ROUTE>(ohb, row_bytes, binsT, w, ws_r, ws_c, leaf_in,
-                              table, slots, hist, leaf_out, n, G, B, L, K, W,
-                              pack, gbp, s);
+           const int64_t* plan, int P, int C, cudaStream_t s) {
+  if (quant) {
+    if constexpr (ROUTE) {
+      if (P > 0)
+        return launch_q<V, true, true>(ohb, row_bytes, binsT, w, ws_r, ws_c,
+                                       leaf_in, table, slots, hist, leaf_out,
+                                       n, G, B, L, K, W, pack, gbp, P, C, s);
+    }
+    return launch_q<V, ROUTE, false>(ohb, row_bytes, binsT, w, ws_r, ws_c,
+                                     leaf_in, table, slots, hist, leaf_out,
+                                     n, G, B, L, K, W, pack, gbp, 0, 0, s);
+  }
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   if (ROUTE) {
     // kernel D: every row routed once, its new leaf id written; the
     // histogram launch (stream-ordered after it) reads those leaf ids
     const int threads = 256;
-    route_rows_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                        s>>>((const uint8_t*)binsT, (const int32_t*)leaf_in,
-                             (const float*)table, (int32_t*)leaf_out, n, G,
-                             L, K);
+    const unsigned grid = (unsigned)((n + threads - 1) / threads);
+    if (P > 0)
+      route_rows_kernel<true><<<grid, threads, 0, s>>>(
+          (const uint8_t*)binsT, (const int32_t*)leaf_in,
+          (const float*)table, (int32_t*)leaf_out, n, G, L, K, P, C);
+    else
+      route_rows_kernel<false><<<grid, threads, 0, s>>>(
+          (const uint8_t*)binsT, (const int32_t*)leaf_in,
+          (const float*)table, (int32_t*)leaf_out, n, G, L, K, 0, 0);
     const int e = (int)cudaGetLastError();
     if (e != 0) return e;
     leaf_in = leaf_out;
@@ -269,18 +291,18 @@ int dispatch_vec(int vec, int quant, const void* ohb, int64_t row_bytes,
                  int64_t ws_c, const void* leaf_in, const void* table,
                  const void* slots, void* hist, void* leaf_out, int64_t n,
                  int G, int B, int L, int K, int W, int pack, int gbp,
-                 const int64_t* plan, cudaStream_t s) {
+                 const int64_t* plan, int P, int C, cudaStream_t s) {
   if (vec == 16)
     return launch<16, ROUTE>(quant, ohb, row_bytes, binsT, w, ws_r, ws_c,
                              leaf_in, table, slots, hist, leaf_out, n, G, B,
-                             L, K, W, pack, gbp, plan, s);
+                             L, K, W, pack, gbp, plan, P, C, s);
   if (vec == 4)
     return launch<4, ROUTE>(quant, ohb, row_bytes, binsT, w, ws_r, ws_c,
                             leaf_in, table, slots, hist, leaf_out, n, G, B,
-                            L, K, W, pack, gbp, plan, s);
+                            L, K, W, pack, gbp, plan, P, C, s);
   return launch<1, ROUTE>(quant, ohb, row_bytes, binsT, w, ws_r, ws_c,
                           leaf_in, table, slots, hist, leaf_out, n, G, B, L,
-                          K, W, pack, gbp, plan, s);
+                          K, W, pack, gbp, plan, P, C, s);
 }
 
 }  // namespace
@@ -290,23 +312,26 @@ int dispatch_vec(int vec, int quant, const void* ohb, int64_t row_bytes,
 // int32; leaf_in (n,) int32; slots (W,) int32; hist (W, G * B, 3) f64 or
 // (quant) int32, zeroed by the caller and accumulated here.  With
 // ``route`` the (L, K) f32 table routes each row first over binsT (G, n)
-// uint8 and leaf_out (n,) receives the new leaf ids; without it binsT,
-// table and leaf_out are unused.  ``plan`` is the f32 launch geometry
-// (ops/histogram.py onehot_hist_plan; unused with quant).  Returns the
+// uint8 (spec != 0: the (cols, n) sub-byte storage of G logical groups,
+// spec = P | C << 16) and leaf_out (n,) receives the new leaf ids;
+// without it binsT, table, leaf_out and spec are unused.  ``plan`` is
+// the f32 launch geometry (ops/histogram.py onehot_hist_plan; unused
+// with quant).  Returns the
 // launch's cudaGetLastError() (or the shared-memory attribute's error).
 extern "C" int ltt_onehot_hist(
     const void* ohb, int64_t row_bytes, int vec, const void* binsT,
     const void* w, int64_t ws_r, int64_t ws_c, int quant,
     const void* leaf_in, const void* table, const void* slots, void* hist,
     void* leaf_out, int64_t n, int G, int B, int L, int K, int W, int pack,
-    int gbp, int route, const int64_t* plan, void* stream) {
+    int gbp, int route, const int64_t* plan, int spec, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const int P = spec & 0xffff, C = spec >> 16;
   if (route)
     return dispatch_vec<true>(vec, quant, ohb, row_bytes, binsT, w, ws_r,
                               ws_c, leaf_in, table, slots, hist, leaf_out, n,
-                              G, B, L, K, W, pack, gbp, plan, s);
+                              G, B, L, K, W, pack, gbp, plan, P, C, s);
   return dispatch_vec<false>(vec, quant, ohb, row_bytes, binsT, w, ws_r,
                              ws_c, leaf_in, table, slots, hist, leaf_out, n,
-                             G, B, L, K, W, pack, gbp, plan, s);
+                             G, B, L, K, W, pack, gbp, plan, 0, 0, s);
 }

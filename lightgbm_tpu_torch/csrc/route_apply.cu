@@ -47,6 +47,14 @@
 // pairs in shared memory up to 6,144 leaves, and past that each row
 // builds its own.  With the values off (H) there is no value pair and no
 // value store.
+//
+// Sub-byte storage (the template's kPacked, a nonzero spec): binsT is the
+// (cols, n) packed matrix of G logical groups (csrc/pack.cuh), and each
+// leaf's record holds its chosen group's storage byte, shift and mask in
+// place of the group (csrc/route.cuh ltt_route_rec), decoded once a CTA
+// like the rest of the record, so that a row reads its storage byte and
+// widens it in registers; past the records' shared memory each row
+// selects from the table itself.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -94,13 +102,14 @@ struct RouteIn {
   float* val_out;       // B only
   int64_t n;
   int G, L, K;
+  int P, C;             // the pack spec (kPacked only)
 };
 
 // Route row ``row`` of leaf ``leaf``, whose chosen group's bin is
 // ``gb`` where the records are shared (kRec: ltt_route_rec_bin; the
 // table path reads it itself); returns its value (kValues, from the
 // shared pairs where kVal; else 0) and sets ``*out`` to its new leaf.
-template <bool kValues, bool kRec, bool kVal>
+template <bool kValues, bool kRec, bool kVal, bool kPacked>
 __device__ __forceinline__ float route_value(const RouteIn& in,
                                              const int4* s_rec,
                                              const float2* s_val,
@@ -110,8 +119,9 @@ __device__ __forceinline__ float route_value(const RouteIn& in,
   const int nb = in.K - LTT_ROUTE_FIXED_COLS;
   *out = kRec
              ? ltt_route_rec_leaf(leaf, gb, s_rec, in.table, in.K, nb, &right)
-             : ltt_route_row(in.binsT, in.n, row, in.G, leaf, in.table,
-                             in.L, in.K, nb, &right);
+             : ltt_route_row<kPacked>(in.binsT, in.n, row, in.G, leaf,
+                                      in.table, in.L, in.K, nb, &right, in.P,
+                                      in.C);
   if constexpr (!kValues) {
     return 0.0f;
   } else {
@@ -126,8 +136,9 @@ __device__ __forceinline__ float route_value(const RouteIn& in,
 // Kernels B (kValues) and H: V rows a thread (4: n % 4 == 0 and the
 // leaf and value pointers 16-byte aligned), the grid striding over the
 // rows; in shared memory, decoded once a CTA, every leaf's route record
-// (kRec, csrc/route.cuh) and, for B, its value pair (kVal).
-template <int V, bool kValues, bool kRec, bool kVal>
+// (kRec, csrc/route.cuh) and, for B, its value pair (kVal); kPacked: the
+// bins stored sub-byte.
+template <int V, bool kValues, bool kRec, bool kVal, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
     route_value_kernel(RouteIn in) {
   extern __shared__ int4 s_raw[];
@@ -135,7 +146,9 @@ __global__ void __launch_bounds__(kThreads)
   float2* s_val = reinterpret_cast<float2*>(s_raw + (kRec ? 2 * in.L : 0));
   if constexpr (kRec || kVal) {
     for (int l = threadIdx.x; l < in.L; l += blockDim.x) {
-      if constexpr (kRec) ltt_route_rec(in.table, l, in.K, s_rec + 2 * l);
+      if constexpr (kRec)
+        ltt_route_rec<kPacked>(in.table, l, in.K, s_rec + 2 * l, in.G, in.P,
+                               in.C);
       if constexpr (kVal)
         s_val[l] = value_pair(in.values, in.table, l, in.L, in.K);
     }
@@ -154,15 +167,15 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kRec) {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          gb[k] = ltt_route_rec_bin(in.binsT, in.n, r0 + k, in.G, leaf[k],
-                                    in.L, s_rec);
+          gb[k] = ltt_route_rec_bin<kPacked>(in.binsT, in.n, r0 + k, in.G,
+                                             leaf[k], in.L, s_rec);
       }
       int out[4];
       float val[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        val[k] = route_value<kValues, kRec, kVal>(in, s_rec, s_val, r0 + k,
-                                                  gb[k], leaf[k], &out[k]);
+        val[k] = route_value<kValues, kRec, kVal, kPacked>(
+            in, s_rec, s_val, r0 + k, gb[k], leaf[k], &out[k]);
       *reinterpret_cast<int4*>(in.leaf_out + r0) =
           make_int4(out[0], out[1], out[2], out[3]);
       if constexpr (kValues)
@@ -171,47 +184,28 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       int lo;
       const int leaf = __ldg(in.leaf_in + r0);
-      const int gb = kRec ? ltt_route_rec_bin(in.binsT, in.n, r0, in.G,
-                                              leaf, in.L, s_rec)
+      const int gb = kRec ? ltt_route_rec_bin<kPacked>(in.binsT, in.n, r0,
+                                                       in.G, leaf, in.L,
+                                                       s_rec)
                           : -1;
-      const float v = route_value<kValues, kRec, kVal>(in, s_rec, s_val, r0,
-                                                       gb, leaf, &lo);
+      const float v = route_value<kValues, kRec, kVal, kPacked>(
+          in, s_rec, s_val, r0, gb, leaf, &lo);
       if constexpr (kValues) in.val_out[r0] = v;
       in.leaf_out[r0] = lo;
     }
   }
 }
 
-template <int V, bool kValues, bool kRec, bool kVal>
+template <int V, bool kValues, bool kRec, bool kVal, bool kPacked>
 int launch(const RouteIn& in, int sms, cudaStream_t stream) {
   const int64_t need = (in.n + (int64_t)kThreads * V - 1) / (kThreads * V);
   const int64_t grid = need < (int64_t)sms * kCtasPerSm
                            ? need : (int64_t)sms * kCtasPerSm;
   const size_t smem = (size_t)in.L * ((kRec ? 2 * sizeof(int4) : 0) +
                                       (kVal ? sizeof(float2) : 0));
-  route_value_kernel<V, kValues, kRec, kVal>
+  route_value_kernel<V, kValues, kRec, kVal, kPacked>
       <<<(unsigned)grid, kThreads, smem, stream>>>(in);
   return (int)cudaGetLastError();
-}
-
-// B at V rows a thread: records and value pairs shared where both fit
-// kSharedBytes, the value pairs alone where they fit, else neither.
-template <int V>
-int launch_b(const RouteIn& in, int sms, cudaStream_t stream) {
-  const int64_t L = in.L;
-  if (L * 40 <= kSharedBytes)             // a 32-byte record, an 8-byte pair
-    return launch<V, true, true, true>(in, sms, stream);
-  if (L * 8 <= kSharedBytes)
-    return launch<V, true, false, true>(in, sms, stream);
-  return launch<V, true, false, false>(in, sms, stream);
-}
-
-// H at V rows a thread: the records shared where they fit kSharedBytes.
-template <int V>
-int launch_h(const RouteIn& in, int sms, cudaStream_t stream) {
-  if ((int64_t)in.L * 32 <= kSharedBytes)
-    return launch<V, false, true, false>(in, sms, stream);
-  return launch<V, false, false, false>(in, sms, stream);
 }
 
 // 4 rows a thread where n % 4 == 0 and the leaf pointers (and B's value
@@ -223,35 +217,73 @@ bool rows4(const RouteIn& in) {
          reinterpret_cast<uintptr_t>(in.val_out) % 16 == 0;
 }
 
+// B at V rows a thread: records and value pairs shared where both fit
+// kSharedBytes, the value pairs alone where they fit, else neither.
+template <int V, bool kPacked>
+int launch_b(const RouteIn& in, int sms, cudaStream_t stream) {
+  const int64_t L = in.L;
+  if (L * 40 <= kSharedBytes)             // a 32-byte record, an 8-byte pair
+    return launch<V, true, true, true, kPacked>(in, sms, stream);
+  if (L * 8 <= kSharedBytes)
+    return launch<V, true, false, true, kPacked>(in, sms, stream);
+  return launch<V, true, false, false, kPacked>(in, sms, stream);
+}
+
+// H at V rows a thread: the records shared where they fit kSharedBytes.
+template <int V, bool kPacked>
+int launch_h(const RouteIn& in, int sms, cudaStream_t stream) {
+  if ((int64_t)in.L * 32 <= kSharedBytes)
+    return launch<V, false, true, false, kPacked>(in, sms, stream);
+  return launch<V, false, false, false, kPacked>(in, sms, stream);
+}
+
+// B (kValues) or H at 4 rows a thread where rows4 allows it, else 1.
+template <bool kValues, bool kPacked>
+int launch_bh(const RouteIn& in, int sms, cudaStream_t s) {
+  const bool v4 = rows4(in);
+  if constexpr (kValues)
+    return v4 ? launch_b<4, kPacked>(in, sms, s)
+              : launch_b<1, kPacked>(in, sms, s);
+  else
+    return v4 ? launch_h<4, kPacked>(in, sms, s)
+              : launch_h<1, kPacked>(in, sms, s);
+}
+
 }  // namespace
 
-// Kernel B.  binsT (G, n) uint8, leaf_in (n,) int32, table (L, K) f32
-// (the pending route table), values (L,) f32 (the tree's leaf values)
-// -> leaf_out (n,) int32, val_out (n,) f32; sms: the card's SMs (the
-// grid is kCtasPerSm CTAs an SM).  One launch.  Returns
-// cudaGetLastError().
+// Kernel B.  binsT (G, n) uint8 (spec != 0: the (cols, n) sub-byte
+// storage of G logical groups, spec = P | C << 16, packing.py
+// pack_spec), leaf_in (n,) int32, table (L, K) f32 (the pending route
+// table), values (L,) f32 (the tree's leaf values) -> leaf_out (n,)
+// int32, val_out (n,) f32; sms: the card's SMs (the grid is kCtasPerSm
+// CTAs an SM).  One launch.  Returns cudaGetLastError().
 extern "C" int ltt_route_apply(const void* binsT, const void* leaf_in,
                                const void* table, const void* values,
                                void* leaf_out, void* val_out, int64_t n,
-                               int G, int L, int K, int sms, void* stream) {
+                               int G, int L, int K, int sms, int spec,
+                               void* stream) {
   if (n <= 0) return 0;
   const RouteIn in{(const uint8_t*)binsT, (const int32_t*)leaf_in,
                    (const float*)table, (const float*)values,
-                   (int32_t*)leaf_out, (float*)val_out, n, G, L, K};
+                   (int32_t*)leaf_out, (float*)val_out, n, G, L, K,
+                   spec & 0xffff, spec >> 16};
   cudaStream_t s = (cudaStream_t)stream;
-  return rows4(in) ? launch_b<4>(in, sms, s) : launch_b<1>(in, sms, s);
+  return spec ? launch_bh<true, true>(in, sms, s)
+              : launch_bh<true, false>(in, sms, s);
 }
 
-// Kernel H.  binsT (G, n) uint8, leaf_in (n,) int32, table (L, K) f32 ->
-// leaf_out (n,) int32; sms: the card's SMs.  B's launch without values.
-// Returns cudaGetLastError().
+// Kernel H.  binsT (G, n) uint8 (or, spec != 0, the storage as for B),
+// leaf_in (n,) int32, table (L, K) f32 -> leaf_out (n,) int32; sms: the
+// card's SMs.  B's launch without values.  Returns cudaGetLastError().
 extern "C" int ltt_route_only(const void* binsT, const void* leaf_in,
                               const void* table, void* leaf_out, int64_t n,
-                              int G, int L, int K, int sms, void* stream) {
+                              int G, int L, int K, int sms, int spec,
+                              void* stream) {
   if (n <= 0) return 0;
   const RouteIn in{(const uint8_t*)binsT, (const int32_t*)leaf_in,
                    (const float*)table, nullptr, (int32_t*)leaf_out,
-                   nullptr, n, G, L, K};
+                   nullptr, n, G, L, K, spec & 0xffff, spec >> 16};
   cudaStream_t s = (cudaStream_t)stream;
-  return rows4(in) ? launch_h<4>(in, sms, s) : launch_h<1>(in, sms, s);
+  return spec ? launch_bh<false, true>(in, sms, s)
+              : launch_bh<false, false>(in, sms, s);
 }

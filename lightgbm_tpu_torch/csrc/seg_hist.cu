@@ -50,6 +50,10 @@
 // The group split over gridDim.y remains for a one-slot histogram past
 // a CTA's shared memory (G * B > 19,370: 76 groups of 255 bins).
 //
+// Sub-byte bin storage (a nonzero pack spec): binsT_p is the partitioned
+// (cols, n_cap) storage (the partition moves whole storage bytes), and
+// a row's 4-row group words are widened in registers as in hist_i32.cuh.
+//
 // Why the result does not depend on the schedule: int32 atomic
 // additions, shared and global, wrap modulo 2^32, which is associative
 // and commutative, and below QUANT_ROW_LIMIT rows no sum wraps, so
@@ -165,8 +169,9 @@ __global__ void __launch_bounds__(kPlanThreads, 1)
 
 // Launch 2.  V rows an item (4: the plan's choice where the pointers
 // and the block allow it); in.W is num_out; up to kslots slots'
-// histograms in shared memory at once.
-template <int V>
+// histograms in shared memory at once; kPacked: binsT is the sub-byte
+// storage of in.P and in.C, widened in registers (csrc/hist_i32.cuh).
+template <int V, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 2)
     seg_hist_kernel(ltt_i32::In in, const int32_t* __restrict__ blk_slot,
                     const int32_t* __restrict__ meta, int nblk, int block,
@@ -209,7 +214,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (!any) continue;
         for (int gt = 0; gt < gcn; gt += ltt_i32::kGroupTile) {
           uint32_t word[ltt_i32::kGroupTile];
-          ltt_i32::load_tile4<false>(in, row, g0, gt, gcn, word);
+          ltt_i32::load_tile4<false, kPacked>(in, row, g0, gt, gcn, word);
 #pragma unroll
           for (int k = 0; k < 4; ++k)
             if (live[k])
@@ -221,8 +226,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                       w1 = __ldg(in.w + in.n + row),
                       w2 = __ldg(in.w + 2 * in.n + row);
         if ((w0 | w1 | w2) == 0) continue;
-        ltt_i32::add_row(h, in.bins + (int64_t)g0 * in.n + row, in.n, gcn,
-                         B, w0, w1, w2);
+        ltt_i32::add_row(h, ltt_i32::row_bins<false, kPacked>(in, row, g0),
+                         gcn, B, w0, w1, w2);
       }
     }
     __syncthreads();
@@ -240,28 +245,43 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int V>
+template <int V, bool kPacked>
 int launch_hist(const ltt_i32::In& in, const int32_t* blk_slot,
                 const int32_t* meta, int nblk, const Plan& p, int block,
                 cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      seg_hist_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      p.smem);
+      seg_hist_kernel<V, kPacked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(seg_hist_kernel<V>,
+  e = cudaFuncSetAttribute(seg_hist_kernel<V, kPacked>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  seg_hist_kernel<V><<<dim3((unsigned)p.ctas, (unsigned)p.grid_y),
-                       (unsigned)p.threads, (size_t)p.smem, stream>>>(
-      in, blk_slot, meta, nblk, block, p.gc, p.slots_per_cta);
+  seg_hist_kernel<V, kPacked><<<dim3((unsigned)p.ctas, (unsigned)p.grid_y),
+                                (unsigned)p.threads, (size_t)p.smem,
+                                stream>>>(in, blk_slot, meta, nblk, block,
+                                          p.gc, p.slots_per_cta);
   return (int)cudaGetLastError();
+}
+
+// The plan's rows an item, byte-wide or (in.P > 0) packed.
+template <int V>
+int launch_hist_vp(const ltt_i32::In& in, const int32_t* blk_slot,
+                   const int32_t* meta, int nblk, const Plan& p, int block,
+                   cudaStream_t stream) {
+  return in.P > 0
+             ? launch_hist<V, true>(in, blk_slot, meta, nblk, p, block,
+                                    stream)
+             : launch_hist<V, false>(in, blk_slot, meta, nblk, p, block,
+                                     stream);
 }
 
 }  // namespace
 
-// Kernel J.  binsT (G, n_cap) uint8 and wT (3, n_cap) int32 in
-// partitioned order, blk_slot (n_cap / block,) int32 -> hist
+// Kernel J.  binsT (G, n_cap) uint8 (spec != 0: the (cols, n_cap)
+// sub-byte storage of G logical groups, spec = P | C << 16, packing.py
+// pack_spec) and wT (3, n_cap) int32 in partitioned order, blk_slot
+// (n_cap / block,) int32 -> hist
 // (num_out, G, B, 3) int32, every word written (zeroed, then the runs
 // added).  A block whose slot is negative or >= num_out adds nothing.
 // plan: ops/histogram.py SegPlan.as_args; meta: its meta_words int32 of
@@ -271,7 +291,8 @@ int launch_hist(const ltt_i32::In& in, const int32_t* blk_slot,
 extern "C" int ltt_seg_hist(const void* binsT, const void* wT,
                             const void* blk_slot, void* hist, int64_t n_cap,
                             int G, int B, int num_out, int block,
-                            const int64_t* plan, void* meta, void* stream) {
+                            const int64_t* plan, void* meta, int spec,
+                            void* stream) {
   if (num_out <= 0 || G <= 0) return 0;
   const Plan p(plan);
   const int nblk = (int)(n_cap / block);
@@ -296,9 +317,9 @@ extern "C" int ltt_seg_hist(const void* binsT, const void* wT,
   if (rc != 0) return rc;
   const ltt_i32::In in{(const uint8_t*)binsT, (const int32_t*)wT, nullptr,
                        nullptr, (int32_t*)hist, nullptr, n_cap, G, B,
-                       num_out};
-  return V == 4 ? launch_hist<4>(in, (const int32_t*)blk_slot,
-                                 (const int32_t*)meta, nblk, p, block, s)
-                : launch_hist<1>(in, (const int32_t*)blk_slot,
-                                 (const int32_t*)meta, nblk, p, block, s);
+                       num_out, spec & 0xffff, spec >> 16};
+  return V == 4 ? launch_hist_vp<4>(in, (const int32_t*)blk_slot,
+                                    (const int32_t*)meta, nblk, p, block, s)
+                : launch_hist_vp<1>(in, (const int32_t*)blk_slot,
+                                    (const int32_t*)meta, nblk, p, block, s);
 }

@@ -292,11 +292,16 @@ class TreeGrower:
                                  4 if config.hist_compute_dtype == "float32"
                                  else 2, min_chunk=1024)
         self.n_padded = -(-n // self.chunk) * self.chunk
+        # sub-byte storage (packing.py): the device matrix IS the storage
+        # matrix, and every reader widens the crumbs and nibbles itself
+        # (JAX grower.py:167-176); pack_P is the pack spec, 0 when the
+        # dataset is stored a byte a group
         lay = getattr(dataset, "bin_layout", None)
+        self.pack_P = lay.device_spec if lay is not None else 0
         self.plan = resolve_plan(
             config, n_padded=self.n_padded, num_groups=self.num_groups,
             max_group_bin=self.max_group_bin, frontier=self.frontier,
-            pack_P=lay.device_spec if lay is not None else 0)
+            pack_P=self.pack_P)
 
         def dev(a, dtype=None):
             t = torch.as_tensor(np.asarray(a))
@@ -336,9 +341,9 @@ class TreeGrower:
         self.packed_dispatch = bool(getattr(config, "hist_packed_dispatch",
                                             True))
 
-        # the kernels read the LOGICAL (N, G) byte matrix: a nibble-
-        # packed storage layout is unpacked once on the host
-        bins = dataset.logical_group_bins()
+        # the (N, cols) storage matrix as the dataset holds it: under a
+        # pack spec, sub-byte; zero padding rows are bin 0 of every group
+        bins = np.asarray(dataset.group_bins)
         pad = self.n_padded - n
         if pad:
             bins = np.concatenate(
@@ -353,15 +358,23 @@ class TreeGrower:
         self.ohb = None
         if self.plan.name in ("fused_streamed", "pre_onehot"):
             self.ohb = (precompute_bin_onehot(
-                bins_d, max_group_bin=self.max_group_bin)
+                bins_d, max_group_bin=self.max_group_bin,
+                packed_groups=self.pack_P)
                 if self.plan.ohb_pack == 1 else precompute_bin_onehot_packed(
                     bins_d, max_group_bin=self.max_group_bin,
-                    pack=self.plan.ohb_pack))
+                    pack=self.plan.ohb_pack, packed_groups=self.pack_P))
         del bins_d
         valid = np.zeros(self.n_padded, bool)
         valid[:n] = True
         self.row_valid = torch.from_numpy(valid).to(device)
         self.route_cols = ROUTE_FIXED_COLS + (self.max_feature_bin + 7) // 8
+
+    def resident_bin_bytes(self) -> int:
+        """Bytes of the bin matrices the grower keeps on its device (the
+        transposed and the row-major copy, where its plan keeps both):
+        the storage's, so a sub-byte layout's are 2-4x fewer."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.binsT, self.bins) if t is not None)
 
     # ------------------------------------------------------------------
     def _load_forced_splits(self, dataset: Dataset, config: Config) -> None:
@@ -538,7 +551,8 @@ class TreeGrower:
                 # the pending splits in their own pass (JAX grower.py
                 # :1289-1313); seg_tiled then regroups the rows by leaf
                 # once for the round's passes
-                leaf_id = route_only_tiled(self.binsT, leaf_id, route_tab)
+                leaf_id = route_only_tiled(self.binsT, leaf_id, route_tab,
+                                           self.pack_P)
                 if plan.name == "seg_tiled(leaf_partition)":
                     part = self._build_partition(leaf_id, w)
             right_hist, leaf_id = self._histogram(
@@ -596,7 +610,8 @@ class TreeGrower:
                 # routed by the next round's kernel (or at exit)
                 route_tab = build_route_table(*route_args)
             elif k:
-                leaf_id = apply_splits(self.bins, leaf_id, *route_args)
+                leaf_id = apply_splits(self.bins, leaf_id, *route_args,
+                                       packed_groups=self.pack_P)
             parents = top_i[:k]
             rights = num_leaves + torch.arange(k, dtype=torch.int32,
                                                device=d)
@@ -611,7 +626,7 @@ class TreeGrower:
         # B on every fused plan; the JAX package's fused_streamed plan
         # runs the same function through XLA's apply_route_table)
         leaf_id, row_val = route_apply_tiled(self.binsT, leaf_id, route_tab,
-                                             tree["leaf_value"])
+                                             tree["leaf_value"], self.pack_P)
         return tree, leaf_id, row_val
 
     def _use_packed(self, k: int) -> bool:
@@ -628,7 +643,8 @@ class TreeGrower:
         """The round's leaf partition (JAX grower.py _build_partition
         :995-1010): the stable block-aligned permutation of the routed
         leaf ids and the partitioned copies of the transposed bins and
-        the (3, N) int8 weights that kernel J streams."""
+        the (3, N) int8 weights that kernel J streams (the storage's
+        columns move whole, so a sub-byte layout stays packed)."""
         perm, blk_leaf, _ = build_leaf_partition(
             leaf_id, num_slots=self.num_leaves, block=SEG_BLOCK)
         return (apply_partition(self.binsT, perm, axis=1),
@@ -643,7 +659,8 @@ class TreeGrower:
         return compute_group_histograms_seg_tiled(
             binsT_p, wT_p, scales,
             block_slots(blk_leaf, slots, self.num_leaves),
-            num_out=slots.shape[0], max_group_bin=self.max_group_bin)
+            num_out=slots.shape[0], max_group_bin=self.max_group_bin,
+            packed_groups=self.pack_P)
 
     def _histogram(self, w, scales, leaf_id, route_tab, slots, part=None):
         """The plan's histogram pass over ``slots`` with the tree's
@@ -651,11 +668,11 @@ class TreeGrower:
         seg_tiled, the round's partition ``part``: returns ((W, G, B, 3)
         f32 histograms, leaf ids after the pass)."""
         plan = self.plan
-        B, G = self.max_group_bin, self.num_groups
+        B, G, spec = self.max_group_bin, self.num_groups, self.pack_P
         if plan.name == "fused_tiled":
             return compute_group_histograms_fused_tiled(
                 self.binsT, w, scales, leaf_id, route_tab, slots,
-                max_group_bin=B)
+                max_group_bin=B, packed_groups=spec)
         if plan.name == "seg_tiled(leaf_partition)":
             return self._seg_histogram(part, scales, slots), leaf_id
         if plan.tiled:
@@ -665,12 +682,12 @@ class TreeGrower:
             # the row-major bins: the same histogram
             return compute_group_histograms_q_tiled(
                 self.binsT, w, scales, leaf_id, slots,
-                max_group_bin=B), leaf_id
+                max_group_bin=B, packed_groups=spec), leaf_id
         if plan.name == "fused_streamed":
             return compute_group_histograms_fused(
                 self.ohb, self.binsT, w, scales, leaf_id, route_tab, slots,
                 max_group_bin=B, quant=plan.quant, pack=plan.ohb_pack,
-                num_groups=G)
+                num_groups=G, packed_groups=spec)
         if plan.name == "pallas":
             return bins_hist(self.bins, w, leaf_id, slots, B), leaf_id
         if plan.name == "pallas_paired":
@@ -681,7 +698,7 @@ class TreeGrower:
                 self.bins, w[:, 0], w[:, 1], w[:, 2], leaf_id,
                 num_leaves=self.num_leaves, max_group_bin=B,
                 compute_dtype=self.config.hist_compute_dtype,
-                chunk=self.chunk, slots=slots), leaf_id
+                chunk=self.chunk, slots=slots, packed_groups=spec), leaf_id
         if plan.name == "pallas(quantized)":
             return compute_group_histograms_pallas_q(
                 self.bins, w, scales, leaf_id, num_leaves=self.num_leaves,

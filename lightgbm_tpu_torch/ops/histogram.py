@@ -26,6 +26,18 @@ version only for tensors on the CPU (the tests' device); there is no
 fallback between the two.  compute_group_histograms, the XLA form the
 JAX package runs outside any Pallas kernel, is torch ops on every
 device.
+
+Sub-byte bin storage (packing.py; the JAX package's bin_packing=4bit,
+2bit, auto): every reader of the bins but kernels F, K and I takes a
+``packed_groups`` pack spec (``pack_spec(P, C)``, 0 for the byte-wide
+matrix).  Under a spec the bins are the storage matrix, (cols, N)
+transposed or (N, cols), with ``cols = storage_cols(G, spec)``, and each
+reader widens the chosen crumbs and nibbles itself: the kernels in
+registers (csrc/pack.cuh), the XLA form and the one-hot builders a row
+chunk at a time (:func:`unpack_bins_cols`), the plain versions the rows
+they read.  Kernels F, K and I read byte-wide row-major bins only, as
+their TPU bodies do: the JAX grower sends a packed dataset to the xla
+plan instead.
 """
 from __future__ import annotations
 
@@ -35,6 +47,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..packing import (logical_groups, packed_bytes, spec_crumb,
+                       spec_packed, storage_cols)
 from ..utils import prng
 from . import kernels
 from .partition import ROUTE_FIXED_COLS, apply_route_table
@@ -98,6 +112,62 @@ def _check_bins(max_group_bin: int) -> None:
         raise ValueError(f"max_group_bin {max_group_bin} not in [1, 256]")
 
 
+def groups_of_storage(cols: int, packed_groups: int) -> int:
+    """The logical groups G of a bin matrix ``cols`` bytes wide under the
+    pack spec ``packed_groups`` (``cols`` itself when 0); raises on a
+    spec those bytes cannot hold."""
+    if not packed_groups:
+        return cols
+    P, C = spec_packed(packed_groups), spec_crumb(packed_groups)
+    if not 0 <= C <= P or P == 0 or cols < packed_bytes(packed_groups):
+        raise ValueError(f"pack spec {packed_groups} (P={P}, C={C}) does "
+                         f"not fit {cols} storage columns")
+    return logical_groups(cols, packed_groups)
+
+
+def unpack_bins_cols(bins: torch.Tensor, *, num_groups: int,
+                     packed_groups: int) -> torch.Tensor:
+    """(n, cols) storage block -> (n, G) logical uint8 bins, as
+    lightgbm_tpu/ops/histogram.py unpack_bins_cols (:56) widens a row
+    chunk: crumb planes, then nibble planes, then the wide bytes.
+    Identity when ``packed_groups`` is 0."""
+    if packed_groups == 0:
+        return bins
+    P, C = spec_packed(packed_groups), spec_crumb(packed_groups)
+    cb, pb = (C + 3) // 4, packed_bytes(packed_groups)
+    n = bins.shape[0]
+    parts = []
+    if C:
+        ck = bins[:, :cb].to(torch.int32)
+        parts.append(torch.stack([(ck >> (2 * k)) & 3 for k in range(4)],
+                                 dim=2).reshape(n, 4 * cb)[:, :C])
+    if P > C:
+        pk = bins[:, cb:pb].to(torch.int32)
+        parts.append(torch.stack([pk & 15, (pk >> 4) & 15],
+                                 dim=2).reshape(n, 2 * (pb - cb))[:, :P - C])
+    if bins.shape[1] > pb:
+        parts.append(bins[:, pb:].to(torch.int32))
+    out = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    if out.shape[1] != num_groups:
+        raise ValueError(f"storage of {bins.shape[1]} columns holds "
+                         f"{out.shape[1]} groups, not {num_groups}")
+    return out.to(bins.dtype)
+
+
+def pack_unit(packed_groups: int) -> int:
+    """Logical groups a group chunk should start on so that no storage
+    byte straddles two chunks: 2 for nibbles (no crumbs), 4 where the
+    crumbs end on a byte (or nothing follows them), 1 for the byte-wide
+    matrix and for an ``auto`` layout whose nibbles start inside a crumb
+    byte (no unit aligns both sections there)."""
+    if not packed_groups:
+        return 1
+    P, C = spec_packed(packed_groups), spec_crumb(packed_groups)
+    if C == 0:
+        return 2
+    return 4 if C % 4 == 0 or C == P else 1
+
+
 def _same_device(*ts: torch.Tensor) -> torch.device:
     dev = ts[0].device
     for t in ts[1:]:
@@ -114,27 +184,34 @@ def _same_device(*ts: torch.Tensor) -> torch.device:
 # ---------------------------------------------------------------------------
 def fused_route_hist_plain(binsT: torch.Tensor, wT: torch.Tensor,
                            leaf_id: torch.Tensor, route_tab: torch.Tensor,
-                           slots: torch.Tensor, max_group_bin: int):
+                           slots: torch.Tensor, max_group_bin: int,
+                           packed_groups: int = 0):
     """Plain version of kernel A: returns the (W, G, B, 3) int32
     histogram of the rows whose POST-route leaf equals each slot
-    (negative slots stay empty) and the (N,) post-route leaf ids."""
-    new_leaf = apply_route_table(binsT.t(), leaf_id, route_tab)
-    return tiled_hist_plain(binsT, wT, new_leaf, slots,
-                            max_group_bin), new_leaf
+    (negative slots stay empty) and the (N,) post-route leaf ids; under
+    ``packed_groups`` ``binsT`` is the (cols, N) sub-byte storage of the
+    G logical groups."""
+    new_leaf = apply_route_table(binsT.t(), leaf_id, route_tab,
+                                 packed_groups=packed_groups)
+    return tiled_hist_plain(binsT, wT, new_leaf, slots, max_group_bin,
+                            packed_groups), new_leaf
 
 
 def _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
-                           max_group_bin):
-    G, N = binsT.shape
+                           max_group_bin, packed_groups):
+    cols, N = binsT.shape
+    G = groups_of_storage(cols, packed_groups)
     L, K = route_tab.shape
     W = slots.shape[0]
     leaf_out = torch.empty_like(leaf_id)
     hist, part, plan = _i32_buffers(N, W, G, max_group_bin, binsT.device,
-                                    i32_aligned(binsT, wT, leaf_out))
+                                    i32_aligned(binsT, wT, leaf_out),
+                                    pack_unit(packed_groups))
     kernels.launch("fused_route_hist", binsT.data_ptr(), wT.data_ptr(),
                    leaf_id.data_ptr(), route_tab.data_ptr(),
                    slots.data_ptr(), hist.data_ptr(), leaf_out.data_ptr(),
-                   N, G, max_group_bin, L, K, W, plan, part.data_ptr())
+                   N, G, max_group_bin, L, K, W, plan, part.data_ptr(),
+                   packed_groups)
     return hist, leaf_out
 
 
@@ -148,10 +225,10 @@ def i32_aligned(bins: torch.Tensor, w: torch.Tensor,
             and (leaf_id is None or leaf_id.data_ptr() % 16 == 0))
 
 
-def _i32_buffers(N, W, G, B, dev, aligned):
+def _i32_buffers(N, W, G, B, dev, aligned, unit=1):
     """(hist, scratch of the CTAs' copies, C plan) of one launch of
     kernel A, G or I; the kernels write every word of both."""
-    plan = _i32_plan_args(N, W, G, B, aligned, dev.index or 0)
+    plan = _i32_plan_args(N, W, G, B, aligned, dev.index or 0, unit)
     copies = plan[3]                    # grid x: one copy a CTA
     hist = torch.empty((W, G, B, 3), dtype=torch.int32, device=dev)
     part = torch.empty((copies * hist.numel(),), dtype=torch.int32,
@@ -161,7 +238,8 @@ def _i32_buffers(N, W, G, B, dev, aligned):
 
 def fused_route_hist(binsT: torch.Tensor, wT: torch.Tensor,
                      leaf_id: torch.Tensor, route_tab: torch.Tensor,
-                     slots: torch.Tensor, max_group_bin: int):
+                     slots: torch.Tensor, max_group_bin: int,
+                     packed_groups: int = 0):
     """Kernel A on CUDA tensors, its plain version on CPU tensors:
     ``(int32 hist (W, G, B, 3), new leaf ids (N,))``.
 
@@ -174,20 +252,24 @@ def fused_route_hist(binsT: torch.Tensor, wT: torch.Tensor,
     a third sums the copies (see the source notes there).
 
     Args:
-      binsT: (G, N) uint8 transposed group bins.
+      binsT: (G, N) uint8 transposed group bins, or under
+        ``packed_groups`` their (cols, N) sub-byte storage (the kernel
+        widens each group's storage byte in registers).
       wT: (3, N) int32 quantized weights in [-127, 127].
       leaf_id: (N,) int32 pre-route leaf ids (negative = padded row).
       route_tab: (L, 15 + nb) f32 pending route table (all-zero routes
         nothing).
       slots: (W,) int32 frontier slots; the histogram rows follow this
         order and a negative slot's row stays zero.
+      packed_groups: the pack spec (packing.py pack_spec), 0: byte-wide.
     """
     _check(binsT, "binsT", torch.uint8, 2)
     _check(wT, "wT", torch.int32, 2)
     _check(leaf_id, "leaf_id", torch.int32, 1)
     _check(route_tab, "route_tab", torch.float32, 2)
     _check(slots, "slots", torch.int32, 1)
-    G, N = binsT.shape
+    cols, N = binsT.shape
+    groups_of_storage(cols, packed_groups)
     if wT.shape != (3, N) or leaf_id.shape != (N,):
         raise ValueError(f"wT {tuple(wT.shape)} / leaf_id "
                          f"{tuple(leaf_id.shape)} do not match N={N}")
@@ -197,21 +279,21 @@ def fused_route_hist(binsT: torch.Tensor, wT: torch.Tensor,
     dev = _same_device(binsT, wT, leaf_id, route_tab, slots)
     if dev.type == "cuda":
         return _fused_route_hist_cuda(binsT, wT, leaf_id, route_tab, slots,
-                                      max_group_bin)
+                                      max_group_bin, packed_groups)
     return fused_route_hist_plain(binsT, wT, leaf_id, route_tab, slots,
-                                  max_group_bin)
+                                  max_group_bin, packed_groups)
 
 
 def compute_group_histograms_fused_tiled(
         binsT: torch.Tensor, wT: torch.Tensor, scales: torch.Tensor,
         leaf_id: torch.Tensor, route_tab: torch.Tensor,
-        slots: torch.Tensor, *, max_group_bin: int):
+        slots: torch.Tensor, *, max_group_bin: int, packed_groups: int = 0):
     """Fused route + int8 frontier histogram, dequantized: returns
     ``(hist (W, G, B, 3) f32, new_leaf (N,))`` with the histogram rows
     following ``slots`` (the JAX entry point pads the slot list to its
     lane ladder; here the output has exactly ``len(slots)`` rows)."""
     hist, new_leaf = fused_route_hist(binsT, wT, leaf_id, route_tab, slots,
-                                      max_group_bin)
+                                      max_group_bin, packed_groups)
     return hist.to(torch.float32) * scales, new_leaf
 
 
@@ -220,54 +302,63 @@ def compute_group_histograms_fused_tiled(
 # ---------------------------------------------------------------------------
 def tiled_hist_plain(binsT: torch.Tensor, wT: torch.Tensor,
                      leaf_id: torch.Tensor, slots: torch.Tensor,
-                     max_group_bin: int) -> torch.Tensor:
+                     max_group_bin: int,
+                     packed_groups: int = 0) -> torch.Tensor:
     """Plain version of kernel G: the (W, G, B, 3) int32 histogram of
-    the rows whose leaf equals each slot, from the transposed bins and
+    the rows whose leaf equals each slot, from the transposed bins (or
+    their (cols, N) sub-byte storage under ``packed_groups``) and
     weights."""
-    return bins_hist_plain(binsT.t(), wT.t(), leaf_id, slots, max_group_bin)
+    return bins_hist_plain(binsT.t(), wT.t(), leaf_id, slots, max_group_bin,
+                           packed_groups)
 
 
 def tiled_hist(binsT: torch.Tensor, wT: torch.Tensor, leaf_id: torch.Tensor,
-               slots: torch.Tensor, max_group_bin: int) -> torch.Tensor:
+               slots: torch.Tensor, max_group_bin: int,
+               packed_groups: int = 0) -> torch.Tensor:
     """Kernel G on CUDA tensors, its plain version on CPU tensors: the
     (W, G, B, 3) int32 histogram following ``slots``.
 
     Kernel G (csrc/fused_route_hist.cu, kernel A's source and its
     histogram, csrc/hist_i32.cuh) replaces the Pallas kernel
     _hist_kernel_body_q_tiled (lightgbm_tpu/ops/histogram.py:1021).
-    ``binsT`` is the (G, N) uint8 transposed bin matrix, ``wT`` the (3,
-    N) int32 quantized weights, ``leaf_id`` the (N,) current leaf ids
-    (negative = padded row)."""
+    ``binsT`` is the (G, N) uint8 transposed bin matrix (or, under the
+    pack spec ``packed_groups``, its (cols, N) sub-byte storage, widened
+    in registers), ``wT`` the (3, N) int32 quantized weights,
+    ``leaf_id`` the (N,) current leaf ids (negative = padded row)."""
     _check(binsT, "binsT", torch.uint8, 2)
     _check(wT, "wT", torch.int32, 2)
     _check(leaf_id, "leaf_id", torch.int32, 1)
     _check_slots(slots)
-    G, N = binsT.shape
+    cols, N = binsT.shape
+    G = groups_of_storage(cols, packed_groups)
     if wT.shape != (3, N) or leaf_id.shape != (N,):
         raise ValueError(f"wT {tuple(wT.shape)} / leaf_id "
                          f"{tuple(leaf_id.shape)} do not match N={N}")
     _check_bins(max_group_bin)
     dev = _same_device(binsT, wT, leaf_id, slots)
     if dev.type != "cuda":
-        return tiled_hist_plain(binsT, wT, leaf_id, slots, max_group_bin)
+        return tiled_hist_plain(binsT, wT, leaf_id, slots, max_group_bin,
+                                packed_groups)
     W = slots.shape[0]
     hist, part, plan = _i32_buffers(N, W, G, max_group_bin, dev,
-                                    i32_aligned(binsT, wT, leaf_id))
+                                    i32_aligned(binsT, wT, leaf_id),
+                                    pack_unit(packed_groups))
     kernels.launch("tiled_hist", binsT.data_ptr(), wT.data_ptr(),
                    leaf_id.data_ptr(), slots.data_ptr(), hist.data_ptr(), N,
-                   G, max_group_bin, W, plan, part.data_ptr())
+                   G, max_group_bin, W, plan, part.data_ptr(), packed_groups)
     return hist
 
 
 def compute_group_histograms_q_tiled(
         binsT: torch.Tensor, wT: torch.Tensor, scales: torch.Tensor,
         leaf_id: torch.Tensor, slots: torch.Tensor, *,
-        max_group_bin: int) -> torch.Tensor:
+        max_group_bin: int, packed_groups: int = 0) -> torch.Tensor:
     """int8 frontier histogram of the transposed bins, dequantized:
     (W, G, B, 3) f32 following ``slots`` (the JAX entry point pads the
     slot list to its strip ladder; here the output has exactly
     ``len(slots)`` rows)."""
-    hist = tiled_hist(binsT, wT, leaf_id, slots, max_group_bin)
+    hist = tiled_hist(binsT, wT, leaf_id, slots, max_group_bin,
+                      packed_groups)
     return hist.to(torch.float32) * scales
 
 
@@ -275,13 +366,17 @@ def compute_group_histograms_q_tiled(
 # Kernel B: exit route + per-row leaf value
 # ---------------------------------------------------------------------------
 def route_apply_plain(binsT: torch.Tensor, leaf_id: torch.Tensor,
-                      route_tab: torch.Tensor, values: torch.Tensor):
-    """Plain version of kernel B: ``(new_leaf, row_value)``."""
-    return apply_route_table(binsT.t(), leaf_id, route_tab, values=values)
+                      route_tab: torch.Tensor, values: torch.Tensor,
+                      packed_groups: int = 0):
+    """Plain version of kernel B: ``(new_leaf, row_value)``; under
+    ``packed_groups`` ``binsT`` is the (cols, N) sub-byte storage."""
+    return apply_route_table(binsT.t(), leaf_id, route_tab, values=values,
+                             packed_groups=packed_groups)
 
 
 def route_apply_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
-                      route_tab: torch.Tensor, values: torch.Tensor):
+                      route_tab: torch.Tensor, values: torch.Tensor,
+                      packed_groups: int = 0):
     """Exit route: apply the final pending route table and return each
     row's post-route leaf id and leaf value (bf16-split reassembly, 0.0
     on rows with a negative leaf).  Kernel B on CUDA tensors, the plain
@@ -292,48 +387,58 @@ def route_apply_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
     launch, memory-bound at ~13 B per row, that derives each leaf's
     bf16-split keep and right-child values itself from ``values`` (the
     JAX package builds them as six table columns first; see the source
-    note)."""
+    note).  Under the pack spec ``packed_groups`` ``binsT`` is the (cols,
+    N) sub-byte storage; each leaf's route record then carries its
+    group's storage byte, shift and mask."""
     _check(values, "values", torch.float32, 1)
-    _check_route(binsT, leaf_id, route_tab)
-    G, N = binsT.shape
+    G = _check_route(binsT, leaf_id, route_tab, packed_groups)
+    N = binsT.shape[1]
     L, K = route_tab.shape
     if values.shape != (L,):
         raise ValueError("route_apply_tiled: shape mismatch")
     dev = _same_device(binsT, leaf_id, route_tab, values)
     if dev.type != "cuda":
-        return route_apply_plain(binsT, leaf_id, route_tab, values)
+        return route_apply_plain(binsT, leaf_id, route_tab, values,
+                                 packed_groups)
     leaf_out = torch.empty_like(leaf_id)
     val_out = torch.empty((N,), dtype=torch.float32, device=dev)
     kernels.launch("route_apply", binsT.data_ptr(), leaf_id.data_ptr(),
                    route_tab.data_ptr(), values.data_ptr(),
                    leaf_out.data_ptr(), val_out.data_ptr(), N, G, L, K,
-                   _num_sms(dev.index or 0))
+                   _num_sms(dev.index or 0), packed_groups)
     return leaf_out, val_out
 
 
-def _check_route(binsT, leaf_id, route_tab) -> None:
+def _check_route(binsT, leaf_id, route_tab, packed_groups) -> int:
+    """Checks of a route pass's operands; returns the logical groups."""
     _check(binsT, "binsT", torch.uint8, 2)
     _check(leaf_id, "leaf_id", torch.int32, 1)
     _check(route_tab, "route_tab", torch.float32, 2)
-    G, N = binsT.shape
+    cols, N = binsT.shape
+    G = groups_of_storage(cols, packed_groups)
     if leaf_id.shape != (N,) or route_tab.shape[1] < ROUTE_FIXED_COLS:
         raise ValueError("route pass: shape mismatch")
     if G >= 65536:
         raise ValueError("at most 65535 feature groups (the route table "
                          "encodes the group index as two bytes)")
+    return G
 
 
 # ---------------------------------------------------------------------------
 # Kernel H: kernel B's routing without the row values
 # ---------------------------------------------------------------------------
 def route_only_plain(binsT: torch.Tensor, leaf_id: torch.Tensor,
-                     route_tab: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel H: the post-route leaf ids."""
-    return apply_route_table(binsT.t(), leaf_id, route_tab)
+                     route_tab: torch.Tensor,
+                     packed_groups: int = 0) -> torch.Tensor:
+    """Plain version of kernel H: the post-route leaf ids (``binsT`` the
+    (cols, N) sub-byte storage under ``packed_groups``)."""
+    return apply_route_table(binsT.t(), leaf_id, route_tab,
+                             packed_groups=packed_groups)
 
 
 def route_only_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
-                     route_tab: torch.Tensor) -> torch.Tensor:
+                     route_tab: torch.Tensor,
+                     packed_groups: int = 0) -> torch.Tensor:
     """Apply a pending route table to the leaf ids: returns the (N,)
     post-route leaf ids.  Kernel H on CUDA tensors, the plain version on
     CPU tensors.
@@ -342,17 +447,19 @@ def route_only_tiled(binsT: torch.Tensor, leaf_id: torch.Tensor,
     _route_only_kernel_body (lightgbm_tpu/ops/histogram.py:1654): kernel
     B's one launch with its values off (a grid of a few CTAs an SM, 4
     rows a thread where N and the pointers allow it), memory-bound at ~8
-    B per row plus a bin byte per row of a splitting leaf."""
-    _check_route(binsT, leaf_id, route_tab)
-    G, N = binsT.shape
+    B per row plus a bin byte per row of a splitting leaf.  Under the pack
+    spec ``packed_groups`` ``binsT`` is the (cols, N) sub-byte storage
+    (see :func:`route_apply_tiled`)."""
+    G = _check_route(binsT, leaf_id, route_tab, packed_groups)
+    N = binsT.shape[1]
     L, K = route_tab.shape
     dev = _same_device(binsT, leaf_id, route_tab)
     if dev.type != "cuda":
-        return route_only_plain(binsT, leaf_id, route_tab)
+        return route_only_plain(binsT, leaf_id, route_tab, packed_groups)
     leaf_out = torch.empty_like(leaf_id)
     kernels.launch("route_only", binsT.data_ptr(), leaf_id.data_ptr(),
                    route_tab.data_ptr(), leaf_out.data_ptr(), N, G, L, K,
-                   _num_sms(dev.index or 0))
+                   _num_sms(dev.index or 0), packed_groups)
     return leaf_out
 
 
@@ -653,7 +760,7 @@ def _i32_most(budget: int, B: int, S: int = None, gc: int = None) -> int:
 
 def frontier_hist_plan(n: int, W: int, G: int, B: int,
                        num_sms: int = H100_SMS,
-                       aligned: bool = True) -> I32Plan:
+                       aligned: bool = True, unit: int = 1) -> I32Plan:
     """Geometry of kernels A, G (transposed bins and weights) and I
     (row-major ones): one CTA of I32_THREADS threads an SM.
     Group chunks over all W slots where one group of them fits a CTA
@@ -678,12 +785,22 @@ def frontier_hist_plan(n: int, W: int, G: int, B: int,
     (PERF.md).  Slot chunks of all G groups would read each row once,
     but a chunk's CTAs would then follow its slots' rows, which a tree's
     middle rounds put mostly in a few slots; group chunks cost no
-    balance."""
+    balance.
+
+    Sub-byte storage (A, G): ``unit`` (:func:`pack_unit`) groups share a
+    storage byte, and the group chunk is rounded up to a multiple of it
+    where that still fits, so that no byte is read by two chunks' CTAs
+    (a chunk that ends inside a byte is still right: both read it)."""
     G1, W1 = max(G, 1), max(W, 1)
     if _i32_most(SMEM_PER_CTA, B, gc=1) >= W1:
         S = W1
         gy = -(-G1 // _i32_most(SMEM_PER_CTA, B, S=S))
         gc = -(-G1 // gy)       # the same chunks, evened out
+        gcu = _round_up(gc, unit)
+        if gy > 1 and gcu != gc and \
+                _i32_layout(S, gcu, B)[-1] <= SMEM_PER_CTA:
+            gc = gcu
+            gy = -(-G1 // gc)
     else:
         S, gc, gy = _i32_most(SMEM_PER_CTA, B, gc=1), 1, G1
     gz = -(-W1 // S)
@@ -714,11 +831,11 @@ def _plan_args(kind: str, n: int, W: int, G: int, B: int, payload: int,
 
 @functools.lru_cache(maxsize=256)
 def _i32_plan_args(n: int, W: int, G: int, B: int, aligned: bool,
-                   index: int):
+                   index: int, unit: int = 1):
     """The C plan array of one int32 histogram launch shape on card
     ``index``."""
     return frontier_hist_plan(n, W, G, B, _num_sms(index),
-                              aligned).as_args()
+                              aligned, unit).as_args()
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -747,32 +864,40 @@ def _onehot_chunk_rows(width: int) -> int:
     return max(256, (chunk // 256) * 256)
 
 
-def precompute_bin_onehot(bins: torch.Tensor, *,
-                          max_group_bin: int) -> torch.Tensor:
+def precompute_bin_onehot(bins: torch.Tensor, *, max_group_bin: int,
+                          packed_groups: int = 0) -> torch.Tensor:
     """(N, G) uint8 -> (N, G*B) int8 bin one-hot on the bins' device,
     byte-identical to lightgbm_tpu precompute_bin_onehot
     (histogram.py:571).  Built in row chunks so no (N, G, B) bool is
-    ever whole (1.76 GB of output at 1M x 28 x 63)."""
-    n, g = bins.shape
+    ever whole (1.76 GB of output at 1M x 28 x 63).  Under the pack spec
+    ``packed_groups`` ``bins`` is the (N, cols) sub-byte storage, each
+    row chunk widened as it is read."""
+    n, cols = bins.shape
+    g = groups_of_storage(cols, packed_groups)
     B = max_group_bin
     out = torch.empty((n, g * B), dtype=torch.int8, device=bins.device)
     biota = torch.arange(B, dtype=torch.int32, device=bins.device)
     step = _onehot_chunk_rows(g * B)
     for i in range(0, n, step):
-        bc = bins[i:i + step].to(torch.int32)
+        bc = unpack_bins_cols(bins[i:i + step], num_groups=g,
+                              packed_groups=packed_groups).to(torch.int32)
         out[i:i + step] = (bc[:, :, None] == biota).reshape(
             bc.shape[0], g * B).to(torch.int8)
     return out
 
 
 def precompute_bin_onehot_packed(bins: torch.Tensor, *, max_group_bin: int,
-                                 pack: int) -> torch.Tensor:
+                                 pack: int,
+                                 packed_groups: int = 0) -> torch.Tensor:
     """(N, G) uint8 -> (N, round_up(G*B/pack, 128)) int8 PLANAR sub-byte
     one-hot, byte-identical to lightgbm_tpu
     precompute_bin_onehot_packed (histogram.py:615-681): byte j of a
     row carries full column ``p*GBp + j`` (GBp = G*B/pack) in bit field
-    p of width 8/pack, each field 0 or 1; bytes j >= GBp are zero."""
-    n, g = bins.shape
+    p of width 8/pack, each field 0 or 1; bytes j >= GBp are zero.
+    Under the pack spec ``packed_groups`` ``bins`` is the (N, cols)
+    sub-byte storage, each row chunk widened as it is read."""
+    n, cols = bins.shape
+    g = groups_of_storage(cols, packed_groups)
     B = max_group_bin
     gb = g * B
     if gb % pack:
@@ -788,7 +913,8 @@ def precompute_bin_onehot_packed(bins: torch.Tensor, *, max_group_bin: int,
     out = torch.zeros((n, width), dtype=torch.int8, device=dev)
     step = _onehot_chunk_rows(gb)
     for i in range(0, n, step):
-        bc = bins[i:i + step].to(torch.int32)
+        bc = unpack_bins_cols(bins[i:i + step], num_groups=g,
+                              packed_groups=packed_groups).to(torch.int32)
         acc = torch.zeros((bc.shape[0], gbp), dtype=torch.int8, device=dev)
         for p in range(pack):
             plane = (bc[:, gsel[p]] == bval[p]).to(torch.int8)
@@ -884,9 +1010,11 @@ def _onehot_vec(ohb: torch.Tensor) -> int:
 
 
 def _onehot_launch(name: str, ohb, w, leaf_id, slots, *, max_group_bin,
-                   pack, num_groups, binsT=None, route_tab=None):
-    """Launch kernel D (``route_tab`` given) or E on CUDA tensors.
-    ``w`` is (N, 3) with any strides.  f32 weights take the geometry of
+                   pack, num_groups, binsT=None, route_tab=None,
+                   packed_groups=0):
+    """Launch kernel D (``route_tab`` given; ``binsT`` stored under the
+    pack spec ``packed_groups``) or E on CUDA tensors.  ``w`` is (N, 3)
+    with any strides.  f32 weights take the geometry of
     :func:`onehot_hist_plan`.  Returns (hist, new leaf ids or None)."""
     G, B = num_groups, max_group_bin
     N = leaf_id.shape[0]
@@ -904,7 +1032,8 @@ def _onehot_launch(name: str, ohb, w, leaf_id, slots, *, max_group_bin,
                    w.stride(0), w.stride(1), int(quant), leaf_id.data_ptr(),
                    route_tab.data_ptr() if route else None, slots.data_ptr(),
                    acc.data_ptr(), leaf_out.data_ptr() if route else None,
-                   N, G, B, L, K, W, pack, G * B // pack, int(route), plan)
+                   N, G, B, L, K, W, pack, G * B // pack, int(route), plan,
+                   packed_groups)
     return (acc if quant else acc.to(torch.float32)), leaf_out
 
 
@@ -920,12 +1049,15 @@ def _check_weights(w: torch.Tensor, N: int, name: str) -> None:
 # Kernel D: fused route + histogram of the streamed one-hot
 # ---------------------------------------------------------------------------
 def fused_onehot_hist_plain(ohb, binsT, wT, leaf_id, route_tab, slots, *,
-                            max_group_bin: int, pack: int, num_groups: int):
-    """Plain version of kernel D: route every row by the pending table,
-    then histogram the rows whose NEW leaf equals each slot.  Returns
+                            max_group_bin: int, pack: int, num_groups: int,
+                            packed_groups: int = 0):
+    """Plain version of kernel D: route every row by the pending table
+    (over the (cols, N) sub-byte storage under ``packed_groups``), then
+    histogram the rows whose NEW leaf equals each slot.  Returns
     ``(hist (W, G, B, 3), new_leaf (N,))``; see onehot_hist_plain for
     the histogram's type."""
-    new_leaf = apply_route_table(binsT.t(), leaf_id, route_tab)
+    new_leaf = apply_route_table(binsT.t(), leaf_id, route_tab,
+                                 packed_groups=packed_groups)
     hist = onehot_hist_plain(ohb, wT.t(), new_leaf, slots,
                              max_group_bin=max_group_bin, pack=pack,
                              num_groups=num_groups)
@@ -933,7 +1065,8 @@ def fused_onehot_hist_plain(ohb, binsT, wT, leaf_id, route_tab, slots, *,
 
 
 def fused_onehot_hist(ohb, binsT, wT, leaf_id, route_tab, slots, *,
-                      max_group_bin: int, pack: int, num_groups: int):
+                      max_group_bin: int, pack: int, num_groups: int,
+                      packed_groups: int = 0):
     """Kernel D on CUDA tensors, its plain version on CPU tensors:
     ``(hist (W, G, B, 3), new_leaf (N,))`` — f32 sums of bf16-rounded
     f32 weights, or exact int32 sums of int32 quantized weights.
@@ -944,7 +1077,10 @@ def fused_onehot_hist(ohb, binsT, wT, leaf_id, route_tab, slots, *,
     Args:
       ohb: (N, width) int8 one-hot from precompute_bin_onehot (pack 1)
         or precompute_bin_onehot_packed (pack 2, 4).
-      binsT: (G, N) uint8 transposed group bins (the routing reads one).
+      binsT: (G, N) uint8 transposed group bins (the routing reads one),
+        or under the pack spec ``packed_groups`` their (cols, N)
+        sub-byte storage (the routing widens the chosen group's byte;
+        the one-hot is built from the same storage by the builders).
       wT: (3, N) f32 (grad, hess, count) or int32 quantized weights.
       leaf_id: (N,) int32 pre-route leaf ids (negative = padded row).
       route_tab: (L, 15 + nb) f32 pending route table (all-zero routes
@@ -959,9 +1095,12 @@ def fused_onehot_hist(ohb, binsT, wT, leaf_id, route_tab, slots, *,
     _check(route_tab, "route_tab", torch.float32, 2)
     _check_slots(slots)
     N = ohb.shape[0]
-    if binsT.shape != (G, N) or leaf_id.shape != (N,):
+    cols = storage_cols(G, packed_groups)
+    groups_of_storage(cols, packed_groups)
+    if binsT.shape != (cols, N) or leaf_id.shape != (N,):
         raise ValueError(f"binsT {tuple(binsT.shape)} / leaf_id "
-                         f"{tuple(leaf_id.shape)} do not match ({G}, {N})")
+                         f"{tuple(leaf_id.shape)} do not match ({cols}, "
+                         f"{N})")
     if wT.dim() != 2 or not wT.is_contiguous():
         raise ValueError("wT must be a contiguous (3, N) tensor")
     _check_weights(wT.t(), N, "wT.t()")
@@ -971,9 +1110,11 @@ def fused_onehot_hist(ohb, binsT, wT, leaf_id, route_tab, slots, *,
     if dev.type == "cuda":
         return _onehot_launch("fused_onehot_hist", ohb, wT.t(), leaf_id,
                               slots, max_group_bin=B, pack=pack,
-                              num_groups=G, binsT=binsT, route_tab=route_tab)
+                              num_groups=G, binsT=binsT, route_tab=route_tab,
+                              packed_groups=packed_groups)
     return fused_onehot_hist_plain(ohb, binsT, wT, leaf_id, route_tab, slots,
-                                   max_group_bin=B, pack=pack, num_groups=G)
+                                   max_group_bin=B, pack=pack, num_groups=G,
+                                   packed_groups=packed_groups)
 
 
 def _groups_of(ohb, max_group_bin, pack, num_groups):
@@ -1002,7 +1143,7 @@ def compute_group_histograms_fused(
         ohb: torch.Tensor, binsT: torch.Tensor, wT: torch.Tensor,
         scales, leaf_id: torch.Tensor, route_tab: torch.Tensor,
         slots: torch.Tensor, *, max_group_bin: int, quant: bool = False,
-        pack: int = 1, num_groups=None):
+        pack: int = 1, num_groups=None, packed_groups: int = 0):
     """Fused route + frontier histogram of the streamed one-hot: returns
     ``(hist (W, G, B, 3) f32, new_leaf (N,))`` with the histogram rows
     following ``slots`` (the JAX entry point pads them to its strip
@@ -1012,7 +1153,8 @@ def compute_group_histograms_fused(
     hist, new_leaf = fused_onehot_hist(
         ohb, binsT, wT, leaf_id, route_tab, slots,
         max_group_bin=max_group_bin, pack=pack,
-        num_groups=_groups_of(ohb, max_group_bin, pack, num_groups))
+        num_groups=_groups_of(ohb, max_group_bin, pack, num_groups),
+        packed_groups=packed_groups)
     return _dequant(hist, quant, scales), new_leaf
 
 
@@ -1116,13 +1258,17 @@ def compute_group_histograms_pre(
 # ---------------------------------------------------------------------------
 def bins_hist_plain(bins: torch.Tensor, w: torch.Tensor,
                     leaf_id: torch.Tensor, slots: torch.Tensor,
-                    max_group_bin: int) -> torch.Tensor:
+                    max_group_bin: int,
+                    packed_groups: int = 0) -> torch.Tensor:
     """Plain version of kernels F, G, I, J and K: the (W, G, B, 3)
     histogram of the rows whose leaf equals each slot; bins >= B match
     nothing.  ``bins`` is (N, G) and ``w`` (N, 3), any strides: f32
     weights give f32 sums of their bf16 roundings (accumulated in f64,
-    rounded once), int32 quantized weights give exact int32 sums."""
-    N, G = bins.shape
+    rounded once), int32 quantized weights give exact int32 sums.  Under
+    the pack spec ``packed_groups`` ``bins`` is the (N, cols) sub-byte
+    storage, whose landed rows are widened."""
+    N, cols = bins.shape
+    G = groups_of_storage(cols, packed_groups)
     B = max_group_bin
     W = slots.shape[0]
     quant = w.dtype == torch.int32
@@ -1130,7 +1276,8 @@ def bins_hist_plain(bins: torch.Tensor, w: torch.Tensor,
                        dtype=torch.int64 if quant else torch.float64)
     s_idx, r_idx = _slot_rows(leaf_id, slots)
     if s_idx.numel():
-        b = bins[r_idx].to(torch.int64)                       # (P, G)
+        b = unpack_bins_cols(bins[r_idx], num_groups=G,
+                             packed_groups=packed_groups).to(torch.int64)
         flat = (s_idx[:, None] * G
                 + torch.arange(G, device=bins.device)[None, :]) * B + b
         ok = b < B
@@ -1210,25 +1357,37 @@ def bins_hist_paired(bins: torch.Tensor, w: torch.Tensor,
                       max_group_bin, torch.float32)
 
 
+def _byte_wide_only(packed_groups: int, name: str) -> None:
+    if packed_groups:
+        raise ValueError(f"{name} reads byte-wide row-major bins: its TPU "
+                         "body has no sub-byte path, and the JAX grower "
+                         "sends a packed dataset to the xla plan")
+
+
 def bins_hist_q(bins: torch.Tensor, wq: torch.Tensor, leaf_id: torch.Tensor,
-                slots: torch.Tensor, max_group_bin: int) -> torch.Tensor:
+                slots: torch.Tensor, max_group_bin: int,
+                packed_groups: int = 0) -> torch.Tensor:
     """Kernel I behind compute_group_histograms_pallas_q (replaces
     _hist_kernel_body_q, lightgbm_tpu/ops/histogram.py:381) on CUDA
     tensors, its plain version on CPU tensors.  ``wq`` is the (N, 3)
     int32 quantized weights; returns the (W, G, B, 3) int32 histogram
     following ``slots``.  Kernel I (csrc/bins_hist.cu) is kernel G's
     int32 shared-memory histogram (csrc/hist_i32.cuh) on the row-major
-    bins and weights: the histogram launch and the sum of its copies."""
+    bins and weights: the histogram launch and the sum of its copies.
+    A pack spec is refused (no sub-byte path)."""
+    _byte_wide_only(packed_groups, "kernel I")
     return _bins_hist("bins_hist_q", bins, wq, leaf_id, slots,
                       max_group_bin, torch.int32)
 
 
 def bins_hist_q_packed(bins: torch.Tensor, wq: torch.Tensor,
                        leaf_id: torch.Tensor, slots: torch.Tensor,
-                       max_group_bin: int) -> torch.Tensor:
+                       max_group_bin: int,
+                       packed_groups: int = 0) -> torch.Tensor:
     """Kernel I behind compute_group_histograms_q_packed (replaces
     _hist_kernel_body_q_packed, lightgbm_tpu/ops/histogram.py:897); same
     contract as :func:`bins_hist_q`."""
+    _byte_wide_only(packed_groups, "kernel I")
     return _bins_hist("bins_hist_q_packed", bins, wq, leaf_id, slots,
                       max_group_bin, torch.int32)
 
@@ -1299,14 +1458,17 @@ SEG_BLOCK = 512
 
 def seg_hist_plain(binsT_p: torch.Tensor, wT_p: torch.Tensor,
                    blk_slot: torch.Tensor, num_out: int, max_group_bin: int,
-                   block: int = SEG_BLOCK) -> torch.Tensor:
+                   block: int = SEG_BLOCK, *,
+                   packed_groups: int = 0) -> torch.Tensor:
     """Plain version of kernel J: the (num_out, G, B, 3) int32 histogram
     of the partitioned rows, each row counted in its block's slot; a
-    block whose slot is negative or >= num_out adds nothing."""
+    block whose slot is negative or >= num_out adds nothing.  Under
+    ``packed_groups`` ``binsT_p`` is the partitioned (cols, n_cap)
+    sub-byte storage."""
     row_slot = blk_slot.repeat_interleave(block)
     slots = torch.arange(num_out, dtype=torch.int32, device=blk_slot.device)
     return bins_hist_plain(binsT_p.t(), wT_p.t(), row_slot, slots,
-                           max_group_bin)
+                           max_group_bin, packed_groups)
 
 
 #: csrc/seg_hist.cu: threads of a histogram CTA (kThreads)
@@ -1415,9 +1577,11 @@ def _seg_plan(n_cap: int, G: int, B: int, num_out: int, aligned: bool,
     return plan, plan.as_args()
 
 
-def _seg_hist_cuda(binsT_p, wT_p, blk_slot, num_out, max_group_bin, block):
+def _seg_hist_cuda(binsT_p, wT_p, blk_slot, num_out, max_group_bin, block,
+                   packed_groups):
     """Kernel J's zero fill and two launches."""
-    G, n_cap = binsT_p.shape
+    cols, n_cap = binsT_p.shape
+    G = groups_of_storage(cols, packed_groups)
     dev = binsT_p.device
     plan, args = _seg_plan(n_cap, G, max_group_bin, num_out,
                            i32_aligned(binsT_p, wT_p), block,
@@ -1427,13 +1591,15 @@ def _seg_hist_cuda(binsT_p, wT_p, blk_slot, num_out, max_group_bin, block):
     meta = torch.empty((plan.meta_words,), dtype=torch.int32, device=dev)
     kernels.launch("seg_hist", binsT_p.data_ptr(), wT_p.data_ptr(),
                    blk_slot.data_ptr(), hist.data_ptr(), n_cap, G,
-                   max_group_bin, num_out, block, args, meta.data_ptr())
+                   max_group_bin, num_out, block, args, meta.data_ptr(),
+                   packed_groups)
     return hist
 
 
 def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
              blk_slot: torch.Tensor, num_out: int, max_group_bin: int,
-             block: int = SEG_BLOCK) -> torch.Tensor:
+             block: int = SEG_BLOCK, *,
+             packed_groups: int = 0) -> torch.Tensor:
     """Kernel J on CUDA tensors, its plain version on CPU tensors: the
     (num_out, G, B, 3) int32 histogram of leaf-partitioned rows.
 
@@ -1448,12 +1614,15 @@ def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
     int32 operands in partitioned order (ops/partition.py
     apply_partition; gap rows carry zero weight), ``blk_slot`` the
     (n_cap / block,) int32 output slot of each row block (-1: skip), in
-    any arrangement over the blocks."""
+    any arrangement over the blocks.  Under the pack spec
+    ``packed_groups`` ``binsT_p`` is the partitioned (cols, n_cap)
+    sub-byte storage, widened in registers."""
     _check(binsT_p, "binsT_p", torch.uint8, 2)
     _check(wT_p, "wT_p", torch.int32, 2)
     _check(blk_slot, "blk_slot", torch.int32, 1)
     _check_bins(max_group_bin)
-    G, n_cap = binsT_p.shape
+    cols, n_cap = binsT_p.shape
+    G = groups_of_storage(cols, packed_groups)
     if wT_p.shape != (3, n_cap):
         raise ValueError(f"wT_p {tuple(wT_p.shape)} does not match "
                          f"n_cap={n_cap}")
@@ -1463,7 +1632,8 @@ def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
     dev = _same_device(binsT_p, wT_p, blk_slot)
     if dev.type != "cuda":
         return seg_hist_plain(binsT_p, wT_p, blk_slot, num_out,
-                              max_group_bin, block)
+                              max_group_bin, block,
+                              packed_groups=packed_groups)
     if not 0 <= num_out <= SEG_MAX_SLOTS:
         raise ValueError(f"num_out {num_out} not in [0, {SEG_MAX_SLOTS}] "
                          "(kernel J's limit)")
@@ -1471,19 +1641,19 @@ def seg_hist(binsT_p: torch.Tensor, wT_p: torch.Tensor,
         return torch.zeros((num_out, G, max_group_bin, 3),
                            dtype=torch.int32, device=dev)
     return _seg_hist_cuda(binsT_p, wT_p, blk_slot, num_out, max_group_bin,
-                          block)
+                          block, packed_groups)
 
 
 def compute_group_histograms_seg_tiled(
         binsT_p: torch.Tensor, wT_p: torch.Tensor, scales: torch.Tensor,
         blk_slot: torch.Tensor, *, num_out: int, max_group_bin: int,
-        block: int = SEG_BLOCK) -> torch.Tensor:
+        block: int = SEG_BLOCK, packed_groups: int = 0) -> torch.Tensor:
     """Leaf-partitioned int8 histogram, dequantized: (num_out, G, B, 3)
     f32 (the contract of compute_group_histograms_q_tiled with the block
-    map in place of the slot list).  The nibble-packed storage of the
-    JAX entry point (``packed_groups``) has no counterpart: the port's
-    bins are unpacked on the host."""
-    hist = seg_hist(binsT_p, wT_p, blk_slot, num_out, max_group_bin, block)
+    map in place of the slot list), on the byte-wide bins or, under the
+    pack spec ``packed_groups``, their sub-byte storage."""
+    hist = seg_hist(binsT_p, wT_p, blk_slot, num_out, max_group_bin, block,
+                    packed_groups=packed_groups)
     return hist.to(torch.float32) * scales
 
 
@@ -1507,7 +1677,8 @@ def compute_group_histograms(bins: torch.Tensor, grad: torch.Tensor,
                              leaf_id: torch.Tensor, *, num_leaves: int,
                              max_group_bin: int,
                              compute_dtype: str = "float32",
-                             chunk=None, slots=None) -> torch.Tensor:
+                             chunk=None, slots=None,
+                             packed_groups: int = 0) -> torch.Tensor:
     """The XLA histogram formulation of lightgbm_tpu/ops/histogram.py
     compute_group_histograms (:131), in torch ops on the bins' device:
     per row chunk, the (C, 3W) leaf one-hot times the weights and the
@@ -1523,7 +1694,9 @@ def compute_group_histograms(bins: torch.Tensor, grad: torch.Tensor,
     products as the JAX bf16 x bf16 -> f32 dot (a bf16 matmul here would
     return a bf16 sum).
 
-    bins (N, G) uint8 (N a multiple of ``chunk``), grad/hess/counts
+    bins (N, G) uint8 (N a multiple of ``chunk``; under the pack spec
+    ``packed_groups`` the (N, cols) sub-byte storage, each row chunk
+    widened as it is read, as the JAX function does), grad/hess/counts
     (N,) f32, leaf_id (N,) int32 (negative = ignore) ->
     (L|W, G, B, 3) f32."""
     if torch.get_float32_matmul_precision() != "highest":
@@ -1535,7 +1708,8 @@ def compute_group_histograms(bins: torch.Tensor, grad: torch.Tensor,
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
                          f"{compute_dtype!r}")
     _check(bins, "bins", torch.uint8, 2)
-    n, G = bins.shape
+    n, cols = bins.shape
+    G = groups_of_storage(cols, packed_groups)
     B = max_group_bin
     dev = bins.device
     if chunk is None:
@@ -1560,7 +1734,9 @@ def compute_group_histograms(bins: torch.Tensor, grad: torch.Tensor,
         ohl = (leaf_iota[:, None] == leaf_c[None, :]).to(torch.float32)
         lhs = (ohl[:, None, :] * w[c0:c0 + chunk].t()[None, :, :]
                ).reshape(3 * W, -1)
-        rhs = (bins[c0:c0 + chunk].to(torch.int32)[:, :, None]
+        bc = unpack_bins_cols(bins[c0:c0 + chunk], num_groups=G,
+                              packed_groups=packed_groups)
+        rhs = (bc.to(torch.int32)[:, :, None]
                == bin_iota).reshape(-1, G * B).to(torch.float32)
         acc += lhs @ rhs
     return acc.reshape(W, 3, G, B).permute(0, 2, 3, 1).contiguous()

@@ -39,14 +39,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 
-# the f32 histograms take a launch plan as their last argument before
-# the stream: an int64 array from ops/histogram.py HistPlan.as_args
+# the f32 histograms take a launch plan (an int64 array from
+# ops/histogram.py HistPlan.as_args); the streamed one-hot's entry point
+# then the pack spec of its routing's bins (packing.py pack_spec, 0:
+# byte-wide) before the stream
 _ONEHOT_ARGS = [_P, _I64, _I, _P, _P, _I64, _I64, _I, _P, _P, _P, _P, _P,
-                _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+                _I64, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]
 _BINS_F64_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P]
 # the int32 histograms G and I: inputs, hist, n, G, B, W, then the plan
 # of ops/histogram.py frontier_hist_plan and its scratch before the
-# stream
+# stream; the transposed ones (A, G) and J and the routes B and H also
+# take the pack spec of their bins (packing.py pack_spec, 0: byte-wide)
+# before the stream
 _I32_ARGS = [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _P]
 # kernel name -> (source file, C entry point, argtypes)
 KERNELS: Dict[str, tuple] = {
@@ -54,16 +58,17 @@ KERNELS: Dict[str, tuple] = {
     "fused_route_hist": (
         "fused_route_hist.cu", "ltt_fused_route_hist",
         [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
-         _P]),
+         _I, _P]),
     # kernel G: kernel A's histogram without the routing
-    "tiled_hist": ("fused_route_hist.cu", "ltt_tiled_hist", _I32_ARGS),
+    "tiled_hist": ("fused_route_hist.cu", "ltt_tiled_hist",
+                   _I32_ARGS[:-1] + [_I, _P]),
     # kernel B: the pending route table, the leaf values and the SMs
     "route_apply": (
         "route_apply.cu", "ltt_route_apply",
-        [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P]),
     # kernel H: kernel B's template without the row values
     "route_only": ("route_apply.cu", "ltt_route_only",
-                   [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P]),
+                   [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _P]),
     # kernel C's two tiers: the records in shared memory, chunk by chunk
     # (the main path's batches), and read from device memory (small
     # batches)
@@ -90,7 +95,7 @@ KERNELS: Dict[str, tuple] = {
     # kernel J: the int8 histogram of leaf-partitioned rows, then its
     # plan (ops/histogram.py SegPlan) and the run plan's scratch
     "seg_hist": ("seg_hist.cu", "ltt_seg_hist",
-                 [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P]),
+                 [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

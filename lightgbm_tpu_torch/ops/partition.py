@@ -18,10 +18,18 @@ The functions here are the plain versions behind the routing of the
 fused histogram kernel and the exit-route kernel (ops/histogram.py,
 csrc/route.cuh).  They follow the Pallas kernels' table lookup: a row
 whose leaf is negative or has no table row is left untouched.
+
+Sub-byte bin storage (packing.py): a ``packed_groups`` pack spec
+(``pack_spec(P, C)``, 0 for the byte-wide matrix) marks ``bins`` as the
+(N, cols) storage matrix of the logical groups; the routers gather the
+chosen group's storage byte and widen it, ``(byte >> shift) & mask``
+(:func:`packed_select_params`), and never widen the matrix.
 """
 from __future__ import annotations
 
 import torch
+
+from ..packing import logical_groups, packed_bytes, spec_crumb, spec_packed
 
 MISSING_NONE = 0
 MISSING_ZERO = 1
@@ -76,16 +84,19 @@ def build_route_table(split_mask, feat_group, fb_lo, fb_hi, fb_shift,
 def apply_splits(bins: torch.Tensor, leaf_id: torch.Tensor, split_mask,
                  feat_group, fb_lo, fb_hi, fb_shift, fb_oor, is_cat,
                  threshold, default_left, missing_type, default_bin,
-                 num_bin, cat_mask, right_slot) -> torch.Tensor:
+                 num_bin, cat_mask, right_slot,
+                 packed_groups: int = 0) -> torch.Tensor:
     """Re-label the rows of the leaves splitting this round (left
     children keep the parent slot): the route table of the splits
-    applied at once to the (N, G) bins, as lightgbm_tpu/ops/partition.py
+    applied at once to the (N, G) bins (or their (N, cols) sub-byte
+    storage under ``packed_groups``), as lightgbm_tpu/ops/partition.py
     apply_splits does on the plans without a fused route."""
     table = build_route_table(
         split_mask, feat_group, fb_lo, fb_hi, fb_shift, fb_oor, is_cat,
         threshold, default_left, missing_type, default_bin, num_bin,
         cat_mask, right_slot)
-    return apply_route_table(bins, leaf_id, table)
+    return apply_route_table(bins, leaf_id, table,
+                             packed_groups=packed_groups)
 
 
 def route_rows(rows: torch.Tensor, leaf_id: torch.Tensor,
@@ -177,14 +188,44 @@ def gather_route_rows(table: torch.Tensor,
     return torch.where(ok[:, None], rows, torch.zeros((), device=rows.device))
 
 
-def chosen_group_bins(bins: torch.Tensor, rows: torch.Tensor
-                      ) -> torch.Tensor:
+def packed_select_params(grp: torch.Tensor, packed_groups: int):
+    """Storage byte, crumb/nibble shift and width mask of the logical
+    groups ``grp`` (an int32 tensor of groups in [0, G)) under the pack
+    spec ``packed_groups``: the one torch form of packing.py
+    ``BinLayout.byte_of/shift_of/width_mask`` (lightgbm_tpu/ops/
+    partition.py packed_select_params), shared by every gather of the
+    storage (``chosen_group_bins`` here, ops/predict.py
+    ``predict_binned``); csrc/pack.cuh is its CUDA form.  The bin is
+    ``(byte >> shift) & mask``."""
+    P, C = spec_packed(packed_groups), spec_crumb(packed_groups)
+    cb, pb = (C + 3) // 4, packed_bytes(packed_groups)
+    is_c = grp < C
+    is_n = (grp >= C) & (grp < P)
+    byte_idx = torch.where(is_c, grp // 4, torch.where(
+        is_n, cb + (grp - C) // 2, pb + grp - P))
+    shift = torch.where(is_c, (grp % 4) * 2,
+                        torch.where(is_n, ((grp - C) % 2) * 4, 0))
+    mask = torch.where(is_c, 3, torch.where(is_n, 15, 255))
+    return byte_idx, shift, mask
+
+
+def chosen_group_bins(bins: torch.Tensor, rows: torch.Tensor,
+                      packed_groups: int = 0) -> torch.Tensor:
     """Per-row bin of the route table's chosen group (0 where the group
-    index is out of range).  ``bins`` is (N, G) uint8."""
-    G = bins.shape[1]
+    index is out of range).  ``bins`` is (N, G) uint8, or under
+    ``packed_groups`` the (N, cols) storage of G logical groups, whose
+    chosen storage byte is gathered and widened."""
+    cols = bins.shape[1]
+    G = logical_groups(cols, packed_groups) if packed_groups else cols
     grp = rows[:, 0].to(torch.int32) * 256 + rows[:, 1].to(torch.int32)
     ok = (grp >= 0) & (grp < G)
-    gb = torch.gather(bins, 1, grp.clamp(0, G - 1).long()[:, None])[:, 0]
+    grp = grp.clamp(0, G - 1)
+    if packed_groups:
+        byte_idx, shift, mask = packed_select_params(grp, packed_groups)
+        byte = torch.gather(bins, 1, byte_idx.long()[:, None])[:, 0]
+        gb = (byte.to(torch.int32) >> shift) & mask
+    else:
+        gb = torch.gather(bins, 1, grp.long()[:, None])[:, 0]
     return torch.where(ok, gb.to(torch.int32), torch.zeros(
         (), dtype=torch.int32, device=bins.device))
 
@@ -203,6 +244,10 @@ def build_leaf_partition(leaf_id: torch.Tensor, *, num_slots: int,
     sorted by leaf (negative leaf ids go to a trailing invalid bucket),
     each leaf's segment start aligned up to a ``block`` multiple, so
     every block of ``block`` partitioned rows belongs to one leaf.
+
+    The permutation moves whole rows, so :func:`apply_partition` of a
+    sub-byte storage matrix's columns (its (cols, N) transpose) keeps
+    every storage byte, and with it every packed group, intact.
 
     Returns (perm, blk_leaf, seg_count), all int32:
       perm: (partition_capacity(N),) source row of each partitioned
@@ -261,7 +306,10 @@ def block_slots(blk_leaf: torch.Tensor, slots: torch.Tensor,
 def apply_partition(arr: torch.Tensor, perm: torch.Tensor,
                     axis: int = 0) -> torch.Tensor:
     """Gather ``arr`` along ``axis`` into partitioned order; gap entries
-    (perm -1) are zero, masked explicitly as the JAX function does."""
+    (perm -1) are zero, masked explicitly as the JAX function does.  A
+    row of bins moves whole: the (cols, N) sub-byte storage permutes as
+    the (G, N) matrix does, its gap rows all-zero bytes (every packed
+    group's bin 0, at zero weight)."""
     taken = arr.index_select(axis, perm.clamp(0, arr.shape[axis] - 1).long())
     shape = [1] * arr.dim()
     shape[axis] = perm.shape[0]
@@ -270,18 +318,20 @@ def apply_partition(arr: torch.Tensor, perm: torch.Tensor,
 
 
 def apply_route_table(bins: torch.Tensor, leaf_id: torch.Tensor,
-                      table: torch.Tensor, values=None):
+                      table: torch.Tensor, values=None,
+                      packed_groups: int = 0):
     """Re-label rows from a packed (L, 15+nb) route table.  ``bins`` is
-    the (N, G) uint8 group-bin matrix.  With ``values`` ((L,) f32 leaf
-    values) also returns each row's POST-route leaf value, assembled
-    from the bf16-split columns in the TPU kernel's order (0.0 on rows
-    with a negative leaf)."""
+    the (N, G) uint8 group-bin matrix, or under ``packed_groups`` its
+    (N, cols) sub-byte storage.  With ``values`` ((L,) f32 leaf values)
+    also returns each row's POST-route leaf value, assembled from the
+    bf16-split columns in the TPU kernel's order (0.0 on rows with a
+    negative leaf)."""
     ncols = table.shape[1]
     if values is not None:
         table = extend_table_with_values(table, values)
     rows_all = gather_route_rows(table, leaf_id)
     rows = rows_all[:, :ncols]
-    gb = chosen_group_bins(bins, rows)
+    gb = chosen_group_bins(bins, rows, packed_groups)
     if values is None:
         return route_rows(rows, leaf_id, gb)
     new_leaf, went_right = route_rows(rows, leaf_id, gb,

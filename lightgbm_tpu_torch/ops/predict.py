@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .partition import packed_select_params
 
 MISSING_NONE = 0
 MISSING_ZERO = 1
@@ -801,12 +802,15 @@ def predict_raw_ensemble(stack: RawTreeStack, Xhi: torch.Tensor,
 
 def predict_binned(tree: dict, bins: torch.Tensor, f_group: torch.Tensor,
                    g2f_lut: torch.Tensor, f_missing: torch.Tensor,
-                   f_default_bin: torch.Tensor, f_num_bin: torch.Tensor
-                   ) -> torch.Tensor:
+                   f_default_bin: torch.Tensor, f_num_bin: torch.Tensor,
+                   packed_groups: int = 0) -> torch.Tensor:
     """Evaluate one grown tree (bin-space TreeArrays dict of tensors) on
-    a binned (N, G) uint8 matrix; returns (N,) f32 leaf values
-    (unshrunk).  Plain torch: the walk is depth-synchronous and ends
-    when every row has settled."""
+    a binned (N, G) uint8 matrix, or under the pack spec
+    ``packed_groups`` its (N, cols) sub-byte storage (each row's chosen
+    storage byte gathered and widened, lightgbm_tpu/ops/predict.py
+    :100-107); returns (N,) f32 leaf values (unshrunk).  Plain torch:
+    the walk is depth-synchronous and ends when every row has
+    settled."""
     n = bins.shape[0]
     b_dim = tree["node_cat_mask"].shape[1]
     cat_flat = tree["node_cat_mask"].reshape(-1)
@@ -818,8 +822,14 @@ def predict_binned(tree: dict, bins: torch.Tensor, f_group: torch.Tensor,
         is_internal = node >= 0
         nid = node.clamp(min=0).long()
         feat = tree["node_feature"][nid].long()
-        grp = f_group[feat].long()
-        gb = torch.gather(bins, 1, grp[:, None])[:, 0].long()
+        grp = f_group[feat]
+        if packed_groups:
+            byte_idx, shift, mask = packed_select_params(
+                grp.to(torch.int32), packed_groups)
+            byte = torch.gather(bins, 1, byte_idx.long()[:, None])[:, 0]
+            gb = ((byte.to(torch.int32) >> shift) & mask).long()
+        else:
+            gb = torch.gather(bins, 1, grp.long()[:, None])[:, 0].long()
         fb = g2f_lut[feat, gb]
         thr = tree["node_threshold"][nid]
         dleft = tree["node_default_left"][nid]

@@ -205,6 +205,8 @@ def _route_apply_launch(binsT, leaf, table, values):
     else:
         tab = (table.data_ptr(), values.data_ptr())
         sms = (_num_sms(leaf.device.index or 0),)
+        if len(kernels.KERNELS["route_apply"][2]) == 13:
+            sms += (0,)             # the pack spec: byte-wide bins
     ptrs = (binsT.data_ptr(), leaf.data_ptr(), *tab, bufs[0].data_ptr(),
             bufs[1].data_ptr(), n, binsT.shape[0], L, K, *sms)
 
@@ -216,14 +218,16 @@ def _route_apply_launch(binsT, leaf, table, values):
 
 def _route_only_launch(binsT, leaf, table):
     """Kernel H's one launch on a preallocated output, with the
-    arguments of the tree's own C entry point (the card's SMs last since
-    H became B's template; an earlier tree takes none)."""
+    arguments of the tree's own C entry point (the card's SMs since H
+    became B's template, then the pack spec since the sub-byte storage;
+    an earlier tree takes neither)."""
     import torch
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.ops.histogram import _num_sms
     out = torch.empty_like(leaf)
-    sms = ((_num_sms(leaf.device.index or 0),)
-           if len(kernels.KERNELS["route_only"][2]) == 10 else ())
+    nargs = len(kernels.KERNELS["route_only"][2])
+    sms = (((_num_sms(leaf.device.index or 0),) if nargs >= 10 else ())
+           + ((0,) if nargs == 11 else ()))
     ptrs = (binsT.data_ptr(), leaf.data_ptr(), table.data_ptr(),
             out.data_ptr(), leaf.shape[0], binsT.shape[0], *table.shape,
             *sms)

@@ -443,7 +443,7 @@ def _seg_launch(binsT_p, wT_p, blk_slot, W, B, fill=0):
                       device=dev)
     kernels.launch("seg_hist", binsT_p.data_ptr(), wT_p.data_ptr(),
                    blk_slot.data_ptr(), hist.data_ptr(), n_cap, G, B, W,
-                   H.SEG_BLOCK, args, meta.data_ptr())
+                   H.SEG_BLOCK, args, meta.data_ptr(), 0)
     boff = meta[2 * nblk:2 * nblk + W + 1]
     return hist, (meta[nblk:nblk + int(boff[-1])], boff)
 
@@ -1196,3 +1196,204 @@ def test_lambdarank_gradients_on_the_card_as_on_the_cpu(dev):
             out[d.type] = [t.cpu() for t in obj.get_gradients(score.to(d))]
         for a, b in zip(out["cuda"], out["cpu"]):
             assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# sub-byte bin storage: kernels A, G, J, B, H and D's routing on the
+# packed (cols, N) matrix, each launch against its plain version on the
+# same storage and against the plain version on the logical matrix
+# ---------------------------------------------------------------------------
+#: layout -> (G, P, C, B) of tests/test_torch_packed_bins.py: 4bit, 2bit,
+#: and auto with C % 4 != 0 and P - C odd (B = 63: 2 groups a CTA at
+#: W=126, so group chunks start inside a crumb byte)
+PACKED_LAYOUTS = {"4bit": (7, 7, 0, 15), "2bit": (6, 6, 6, 4),
+                  "auto": (8, 6, 3, 63)}
+
+
+def _packed_inputs(dev, name, case, N=20000, L=160, seed=31):
+    """(storageT, logicalT, wT, leaf, tab, slots, B, spec) of one layout
+    and case: bins some of which are >= B, 5% padded rows, a route table
+    with categorical and every missing type over L (or, case "table",
+    2000) leaves, 126 slots (case "first round": every row in slot 0 and
+    nothing routed; "slots past the table": half the rows' leaf ids past
+    SLOT_TABLE; "odd rows": N + 3 rows, one a thread)."""
+    from lightgbm_tpu_torch.packing import BinLayout
+    G, P, C, B = PACKED_LAYOUTS[name]
+    lay = BinLayout(name, G, P, C)
+    if case == "odd rows":
+        N += 3
+    if case == "table":
+        L = 2000
+    rng = np.random.RandomState(seed + G)
+    top = np.array([4] * C + [16] * (P - C) + [B + 2] * (G - P))
+    logical = (rng.rand(N, G) * top).astype(np.uint8)
+    leaf = rng.randint(0, L - 4, N).astype(np.int32)
+    leaf[rng.rand(N) < 0.05] = -1
+    cnt = (leaf >= 0).astype(np.float32)
+    wq, _ = H.quantize_gradients(
+        torch.from_numpy(rng.randn(N).astype(np.float32) * cnt),
+        torch.from_numpy(rng.rand(N).astype(np.float32) * cnt),
+        torch.from_numpy(cnt))
+    sm = torch.from_numpy(rng.rand(L) < 0.6)
+    tab = build_route_table(
+        sm, torch.from_numpy(rng.randint(0, G, L)), torch.zeros(L),
+        torch.full((L,), B), torch.zeros(L), torch.full((L,), B - 1),
+        torch.from_numpy(rng.rand(L) < 0.25),
+        torch.from_numpy(rng.randint(0, 3, L)),
+        torch.from_numpy(rng.rand(L) < 0.5),
+        torch.from_numpy(rng.randint(0, 3, L)),
+        torch.from_numpy(rng.randint(0, 4, L)), torch.full((L,), B),
+        torch.from_numpy(rng.rand(L, B) < 0.5),
+        torch.arange(L, 2 * L))
+    slots = torch.from_numpy(rng.permutation(2 * L)[:126].astype(np.int32))
+    leaf = torch.from_numpy(leaf)
+    if case == "first round":
+        leaf = torch.where(leaf >= 0, 0, -1).to(torch.int32)
+        tab = torch.zeros_like(tab)
+        slots = torch.zeros(1, dtype=torch.int32)
+    elif case == "slots past the table":
+        far = H.SLOT_TABLE + 1000
+        move = torch.from_numpy(rng.rand(N) < 0.5)
+        leaf = torch.where(move & (leaf >= 0), leaf + far, leaf).to(
+            torch.int32)
+        slots = torch.cat([slots[:20], slots[:12] + far, slots[:1] + far])
+    storageT = torch.from_numpy(lay.pack_rows(logical).T.copy())
+    logicalT = torch.from_numpy(logical.T.copy())
+    return ([t.to(dev) for t in (storageT, logicalT, wq.t().contiguous(),
+                                 leaf, tab, slots)]
+            + [B, lay.device_spec])
+
+
+@pytest.mark.parametrize("case", ["W=126", "first round", "odd rows",
+                                  "slots past the table"])
+@pytest.mark.parametrize("name", sorted(PACKED_LAYOUTS))
+@pytest.mark.parametrize("entry", ["fused_route_hist", "tiled_hist"])
+def test_packed_i32_kernel_matches_plain(dev, entry, name, case):
+    sT, lT, wT, leaf, tab, slots, B, spec = _packed_inputs(dev, name, case)
+    n0 = kernels.LAUNCHES[entry]
+    if entry == "fused_route_hist":
+        hk, lk = H.fused_route_hist(sT, wT, leaf, tab, slots, B, spec)
+        hp, lp = H.fused_route_hist_plain(sT, wT, leaf, tab, slots, B, spec)
+        hl, ll = H.fused_route_hist_plain(lT, wT, leaf, tab, slots, B)
+        assert torch.equal(lk, lp) and torch.equal(ll, lp)
+    else:
+        hk = H.tiled_hist(sT, wT, leaf, slots, B, spec)
+        hp = H.tiled_hist_plain(sT, wT, leaf, slots, B, spec)
+        hl = H.tiled_hist_plain(lT, wT, leaf, slots, B)
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    assert torch.equal(hk, hp) and torch.equal(hp, hl)
+    assert hk[..., 2].sum() > 0
+
+
+@pytest.mark.parametrize("case", ["records", "table", "odd rows"])
+@pytest.mark.parametrize("name", sorted(PACKED_LAYOUTS))
+@pytest.mark.parametrize("entry", ["route_apply", "route_only"])
+def test_packed_route_kernel_matches_plain(dev, entry, name, case):
+    """B and H on the storage: route records in shared memory (up to
+    1,228 leaves for B), each row selecting from the table past them,
+    and one row a thread."""
+    sT, lT, wT, leaf, tab, slots, B, spec = _packed_inputs(dev, name, case)
+    n0 = kernels.LAUNCHES[entry]
+    if entry == "route_apply":
+        values = torch.randn(tab.shape[0], generator=torch.Generator(
+        ).manual_seed(3)).to(dev)
+        lk, vk = H.route_apply_tiled(sT, leaf, tab, values, spec)
+        lp, vp = H.route_apply_plain(sT, leaf, tab, values, spec)
+        ll, vl = H.route_apply_plain(lT, leaf, tab, values)
+        assert torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+        assert torch.equal(vl, vp)
+    else:
+        lk = H.route_only_tiled(sT, leaf, tab, spec)
+        lp = H.route_only_plain(sT, leaf, tab, spec)
+        ll = H.route_only_plain(lT, leaf, tab)
+    assert kernels.LAUNCHES[entry] == n0 + 1
+    assert torch.equal(lk, lp) and torch.equal(ll, lp)
+    assert bool((lk != leaf).any())
+
+
+@pytest.mark.parametrize("name", sorted(PACKED_LAYOUTS))
+def test_packed_seg_hist_matches_plain(dev, name):
+    sT, lT, wT, leaf, _, slots, B, spec = _packed_inputs(dev, name, "W=126")
+    N = sT.shape[1]
+    pad = -N % H.SEG_BLOCK
+    leaf_x = torch.nn.functional.pad(leaf, (0, pad), value=-1)
+    perm, blk_leaf, _ = build_leaf_partition(leaf_x, num_slots=320,
+                                             block=H.SEG_BLOCK)
+    sT_p, lT_p, wT_p = (apply_partition(
+        torch.nn.functional.pad(t, (0, pad)), perm, axis=1)
+        for t in (sT, lT, wT))
+    blk = block_slots(blk_leaf, slots, 320)
+    n0 = kernels.LAUNCHES["seg_hist"]
+    hk = H.seg_hist(sT_p, wT_p, blk, slots.shape[0], B, packed_groups=spec)
+    assert kernels.LAUNCHES["seg_hist"] == n0 + 1
+    hp = H.seg_hist_plain(sT_p, wT_p, blk, slots.shape[0], B,
+                          packed_groups=spec)
+    assert torch.equal(hk, hp)
+    assert torch.equal(hp, H.seg_hist_plain(lT_p, wT_p, blk, slots.shape[0],
+                                            B))
+    assert hk[..., 2].sum() > 0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("name", sorted(PACKED_LAYOUTS))
+def test_packed_fused_onehot_hist_matches_plain(dev, name, quant):
+    """Kernel D: its routing over the storage (the f32 weights' routing
+    launch, the int8 weights' inline routing) and the histogram of the
+    one-hot built from the storage."""
+    sT, lT, wq, leaf, tab, slots, B, spec = _packed_inputs(dev, name,
+                                                          "W=126")
+    G = lT.shape[0]
+    ohb = H.precompute_bin_onehot(sT.t(), max_group_bin=B,
+                                  packed_groups=spec)
+    assert torch.equal(ohb, H.precompute_bin_onehot(lT.t().contiguous(),
+                                                    max_group_bin=B))
+    cnt = (leaf >= 0).float()
+    g = torch.Generator().manual_seed(2)
+    N = leaf.shape[0]
+    wT = wq if quant else torch.stack([
+        torch.randn(N, generator=g).to(dev) * cnt,
+        torch.rand(N, generator=g).to(dev) * cnt, cnt]).contiguous()
+    kw = dict(max_group_bin=B, pack=1, num_groups=G)
+    n0 = kernels.LAUNCHES["fused_onehot_hist"]
+    hk, lk = H.fused_onehot_hist(ohb, sT, wT, leaf, tab, slots,
+                                 packed_groups=spec, **kw)
+    assert kernels.LAUNCHES["fused_onehot_hist"] == n0 + 1
+    hp, lp = H.fused_onehot_hist_plain(ohb, sT, wT, leaf, tab, slots,
+                                       packed_groups=spec, **kw)
+    _, ll = H.fused_onehot_hist_plain(ohb, lT, wT, leaf, tab, slots, **kw)
+    assert torch.equal(lk, lp) and torch.equal(ll, lp)
+    S = None if quant else H.onehot_hist_plain(ohb, wT.t().abs(), lp, slots,
+                                               **kw)
+    _assert_close(hk, hp, S)
+
+
+def test_packed_first_round_repeats_bit_identical(dev):
+    """Kernel A on 1,000,000 rows of 28 nibble groups (4bit, 15 bins) in
+    one slot, the first round of phase 10 (a): twenty launches leave the
+    same bits, equal to the plain version (the barrier hazard of ROADMAP
+    queue 2)."""
+    from lightgbm_tpu_torch.packing import BinLayout
+    N, G, B = 1_000_000, 28, 15
+    lay = BinLayout("4bit", G, G)
+    rng = np.random.RandomState(8)
+    sT = torch.from_numpy(lay.pack_rows(rng.randint(0, B, (N, G)).astype(
+        np.uint8)).T.copy()).to(dev)
+    assert sT.shape == (14, N)
+    leaf = torch.zeros(N, dtype=torch.int32, device=dev)
+    grad = torch.from_numpy(rng.randn(N).astype(np.float32)).to(dev)
+    hess = torch.full((N,), 0.25, device=dev)
+    wq, _ = H.quantize_gradients(grad, hess, torch.ones_like(grad))
+    wT = wq.t().contiguous()
+    slots = torch.zeros(1, dtype=torch.int32, device=dev)
+    tab = torch.zeros((4, 16), dtype=torch.float32, device=dev)
+    spec = lay.device_spec
+
+    def run():
+        return H.fused_route_hist(sT, wT, leaf, tab, slots, B, spec)[0]
+    first = run()
+    for _ in range(20):
+        assert torch.equal(run(), first)
+    assert torch.equal(first, H.tiled_hist_plain(sT, wT, leaf, slots, B,
+                                                 spec))
+    assert int(first[..., 2].sum()) == N * G
+

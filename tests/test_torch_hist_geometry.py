@@ -659,3 +659,14 @@ def test_seg_hist_on_the_cpu_takes_any_slot_count():
                                              4))
     assert int(got[num_out - 1, ..., 2].sum()) == int(
         (wT[2, :H.SEG_BLOCK] * (binsT[:, :H.SEG_BLOCK] < 4)).sum())
+
+
+def test_packed_chunk_boundaries_on_pack_units():
+    """The plan rounds A's and G's group chunks to whole storage bytes
+    where it can (28 nibble groups of 15 bins at W=126: 4 chunks of 8,
+    not of 7) and leaves the byte-wide plan as it was."""
+    plain = H.frontier_hist_plan(1_000_000, 126, 28, 15)
+    nib = H.frontier_hist_plan(1_000_000, 126, 28, 15, unit=2)
+    assert plain.groups_per_cta == 7 and nib.groups_per_cta == 8
+    assert plain.grid[1] == nib.grid[1] == 4
+    assert H.pack_unit(0) == 1 and H.pack_unit(28) == 2
