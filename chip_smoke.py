@@ -183,6 +183,33 @@ Phases, in order; any failure exits nonzero:
      B, H and D call held against its plain version on the storage; (c)
      (a)'s validation scores and the in-session binned scan of the
      held-out rows equal to the 8bit run's bit for bit;
+ 11. the file entry point, every run's launches counted on their own
+     and added to the kernels' counts, in a temporary directory the
+     phase removes: (a) the bench's training and held-out rows written
+     as TSV, label first, in %.17g (bytes and seconds printed); (b)
+     data_loader.load_file of both files through the native parser (the
+     library must have loaded), and np.loadtxt of the held-out file,
+     each bit for bit the rows written, with their seconds; (c) cli.run
+     of a conf written from BENCH_PARAMS (10 trees, the held-out file
+     as valid_data, is_save_binary_file): its bins phase 2's byte for
+     byte, its model text phase 3's main-path text, and A and B launched
+     as often as on phase 3's main path (90 and 10), with the training's
+     ms/tree beside phase 3's; (d) the .bin cache (c) wrote loaded as a
+     memmap byte-equal to (c)'s bins, and 3 trees trained from it equal
+     to (c)'s first 3, with the load's seconds; (e) one-round and
+     two-round loading (every row sampled, 65,536-row chunks) byte for
+     byte, and construction and the binning pass alone with
+     native_binning on and off, with their seconds; (f) task=predict on
+     the held-out file (kernel C must launch): each line the %g of
+     Booster.predict of the in-memory rows; (g) task=convert_model
+     compiled with g++ -O2 -shared and run on 10,000 held-out rows,
+     within 1e-10 of the f64 host walk and TOL_PREDICT of kernel C; (h)
+     LGBMClassifier with the bench parameters, 3 trees (A and B must
+     launch), predict_proba[:, 1] bit for bit booster_.predict; the C
+     API's LGBM_DatasetCreateFromFile -> LGBM_BoosterCreate -> 3
+     LGBM_BoosterUpdateOneIter equal to lgb.train on the file, and
+     LGBM_DatasetCreateByReference + LGBM_DatasetPushRows in 65,536-row
+     chunks byte-identical to (c)'s bins; the phase's wall printed;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -3393,6 +3420,340 @@ def check_packed(lgb, kernels, params, X, y, Xv, yv, dev, card, rehearse,
     return extra
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the file entry point (text files, binary caches, two-round
+# streaming, PushRows, the CLI, codegen, the sklearn wrapper, the C API)
+# ---------------------------------------------------------------------------
+def _bench_conf(params) -> list:
+    """BENCH_PARAMS (with the run's device and metric) as CLI key=value
+    pairs."""
+    out = []
+    for k, v in params.items():
+        if isinstance(v, bool):
+            v = "true" if v else "false"
+        elif isinstance(v, (list, tuple)):
+            v = ",".join(str(x) for x in v)
+        out.append(f"{k}={v}")
+    return out
+
+
+def _launched(kernels) -> dict:
+    return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.synchronize()
+
+
+def check_file_entry(lgb, kernels, params, X, y, Xv, yv, core, main_text,
+                     main_launches, main_ms, dev, card, rehearse):
+    """Phase 11.  ``core`` is phase 2's binned training rows,
+    ``main_text`` phase 3's main-path model text, ``main_launches`` its
+    launches and ``main_ms`` its ms/tree.  Returns {kernel: launches}
+    of the phase's runs."""
+    import ctypes
+    import os
+    import shutil
+    import tempfile
+
+    import lightgbm_tpu_torch.capi as capi
+    import lightgbm_tpu_torch.cli as cli
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.data_loader import load_file
+    from lightgbm_tpu_torch.dataset import Dataset as CoreDataset
+    t_phase = time.perf_counter()
+    total = {}
+
+    def count(label, launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"[phase 11] {label}: launches {launches}")
+
+    tmp = tempfile.mkdtemp(prefix="ltt_phase11_")
+    try:
+        # (a) the training and held-out rows as TSV, label first, %.17g
+        train_p, valid_p = (os.path.join(tmp, "train.tsv"),
+                            os.path.join(tmp, "valid.tsv"))
+        t0 = time.perf_counter()
+        for p, A, lab in ((train_p, X, y), (valid_p, Xv, yv)):
+            np.savetxt(p, np.column_stack([lab, A]), fmt="%.17g",
+                       delimiter="\t")
+        write_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(train_p) + os.path.getsize(valid_p)
+        print(f"[phase 11] (a) wrote {len(y)} + {len(yv)} rows as TSV, "
+              f"{nbytes} bytes, in {write_s:.2f} s (host CPU)")
+
+        # (b) the native loader on both files; np.loadtxt on the
+        # held-out file; each bit for bit the rows written
+        if not native.loaded():
+            raise AssertionError("the native host library did not load: "
+                                 f"{native.LOAD_ERROR}")
+        cfg = lgb.Config.from_params(params)
+        parse = {}
+        for name, p, A, lab in (("train", train_p, X, y),
+                                ("held-out", valid_p, Xv, yv)):
+            t0 = time.perf_counter()
+            got, glab, _ = load_file(p, cfg)
+            parse[name] = time.perf_counter() - t0
+            if got.tobytes() != A.tobytes() or glab.tobytes() != \
+                    lab.astype(np.float64).tobytes():
+                raise AssertionError(f"(b) the native parse of the {name} "
+                                     "file is not the rows written")
+        t0 = time.perf_counter()
+        ref = np.loadtxt(valid_p, delimiter="\t")
+        loadtxt_s = time.perf_counter() - t0
+        if ref[:, 1:].tobytes() != Xv.tobytes():
+            raise AssertionError("(b) np.loadtxt of the held-out file is not "
+                                 "the rows written")
+        mb = os.path.getsize(train_p) / 1e8
+        vmb = os.path.getsize(valid_p) / 1e8
+        print(f"[phase 11] (b) native parse: training file "
+              f"{parse['train']:.2f} s ({parse['train'] / mb:.2f} s per 100 "
+              f"MB), held-out {parse['held-out']:.2f} s; np.loadtxt of the "
+              f"held-out file {loadtxt_s:.2f} s ({loadtxt_s / vmb:.2f} s per "
+              "100 MB); both bit for bit the rows written (host CPU)")
+
+        # (c) the CLI trains 10 trees on the card from the files
+        model_p = os.path.join(tmp, "model.txt")
+        conf_p = os.path.join(tmp, "train.conf")
+        with open(conf_p, "w") as f:
+            f.write("\n".join(_bench_conf(params) + [
+                "task=train", f"data={train_p}", f"valid_data={valid_p}",
+                "num_trees=10", "is_save_binary_file=true",
+                f"output_model={model_p}"]) + "\n")
+        seen = {}
+        orig_train = cli._train
+
+        def timed_train(p, train_set, *a, **k):
+            # the training set and the held-out file loaded first, so
+            # the timed part is lgb.train's trees
+            seen["core"] = train_set.construct()
+            for v in k.get("valid_sets") or []:
+                v.construct()
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = orig_train(p, train_set, *a, **k)
+            _sync(dev)
+            seen["train_s"] = time.perf_counter() - t0
+            return out
+        cli._train = timed_train
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            cli.run([f"config={conf_p}"])
+            _sync(dev)
+            cli_s = time.perf_counter() - t0
+            c_launches = _launched(kernels)
+        finally:
+            cli._train = orig_train
+        count("(c) cli train", c_launches)
+        core_c = seen["core"]
+        if np.asarray(core_c.group_bins).tobytes() != \
+                np.asarray(core.group_bins).tobytes():
+            raise AssertionError("(c) the CLI's bins differ from phase 2's")
+        text_c = open(model_p).read()
+        if text_c != main_text:
+            raise AssertionError("(c) the CLI's model text differs from "
+                                 "phase 3's main-path text")
+        for name in ("fused_route_hist", "route_apply"):
+            if not rehearse and c_launches.get(name, 0) \
+                    != main_launches.get(name, 0):
+                raise AssertionError(
+                    f"(c) {name} launched {c_launches.get(name, 0)} times, "
+                    f"phase 3's main path {main_launches.get(name, 0)}")
+        cli_ms = 1e3 * seen["train_s"] / 10
+        print(f"[phase 11] (c) cli.run: {cli_s:.2f} s in all (parse, "
+              f"binning, the cache written, 10 trees, the model saved); the "
+              f"training itself {cli_ms:.1f} ms/tree against phase 3's "
+              f"{main_ms:.1f} ms/tree; the model text equals phase 3's "
+              f"main-path text; {card}")
+
+        # (d) the binary cache (c) wrote: a memmap, byte-equal to (c)'s
+        # core; 3 trees from it are (c)'s first 3
+        cache_p = train_p + ".bin"
+        t0 = time.perf_counter()
+        cache_core = lgb.Dataset(cache_p, params=params).construct()
+        cache_s = time.perf_counter() - t0
+        if not isinstance(cache_core.group_bins, np.memmap) or \
+                np.asarray(cache_core.group_bins).tobytes() != \
+                np.asarray(core_c.group_bins).tobytes():
+            raise AssertionError("(d) the cache is not a memmap of (c)'s "
+                                 "bins")
+        kernels.reset_launches()
+        b3 = lgb.train(params, lgb.Dataset(cache_p, params=params), 3,
+                       verbose_eval=False)
+        _sync(dev)
+        count("(d) 3 trees from the cache", _launched(kernels))
+        first3 = lgb.Booster(model_str=text_c, params={"device": dev.type}
+                             ).model_to_string(num_iteration=3)
+        if b3.model_to_string() != first3:
+            raise AssertionError("(d) 3 trees from the cache differ from "
+                                 "(c)'s first 3")
+        cache_bytes = os.path.getsize(cache_p)
+        print(f"[phase 11] (d) cache load {cache_s:.3f} s ({cache_bytes} "
+              f"bytes, memmapped) against the parse's "
+              f"{parse['train']:.2f} s and binning below; 3 trees from it "
+              "equal (c)'s first 3 (host CPU)")
+
+        # (e) two-round streaming against one-round loading, every row
+        # sampled
+        full = dict(params, bin_construct_sample_cnt=max(len(y), 1000000))
+        t0 = time.perf_counter()
+        one = lgb.Dataset(train_p, params=full).construct()
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = lgb.Dataset(train_p, params=dict(
+            full, use_two_round_loading=True,
+            streaming_chunk_rows=65536)).construct()
+        two_s = time.perf_counter() - t0
+        if np.asarray(one.group_bins).tobytes() != \
+                np.asarray(two.group_bins).tobytes():
+            raise AssertionError("(e) two-round bins differ from one-round")
+        build_s, bin_s = {}, {}
+        for on in (True, False):
+            c = lgb.Config.from_params(dict(params, native_binning=on))
+            t0 = time.perf_counter()
+            b = CoreDataset.from_matrix(X, label=y, config=c)
+            build_s[on] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b._bin_data(X)              # the value -> bin pass alone
+            bin_s[on] = time.perf_counter() - t0
+            if np.asarray(b.group_bins).tobytes() != \
+                    np.asarray(core.group_bins).tobytes():
+                raise AssertionError(f"(e) native_binning={on} bins differ")
+        print(f"[phase 11] (e) one-round {one_s:.2f} s, two-round "
+              f"{two_s:.2f} s (65,536-row chunks), the bins byte-identical; "
+              f"construction of {len(y)} x {X.shape[1]} in RAM (200,000-row "
+              f"sample, mapper fit, binning): native {build_s[True]:.2f} s, "
+              f"numpy {build_s[False]:.2f} s; the binning pass alone: native "
+              f"{bin_s[True]:.3f} s, numpy {bin_s[False]:.3f} s "
+              f"({bin_s[False] / max(bin_s[True], 1e-9):.2f}x; host CPU)")
+
+        # (f) task=predict on the held-out file: kernel C; each line the
+        # %g of Booster.predict of the in-memory rows
+        pred_p = os.path.join(tmp, "pred.txt")
+        kernels.reset_launches()
+        cli.run(["task=predict", f"data={valid_p}", f"input_model={model_p}",
+                 f"output_result={pred_p}", f"device={dev.type}",
+                 "verbose=-1"])
+        f_launches = _launched(kernels)
+        count("(f) cli predict", f_launches)
+        if not rehearse and not f_launches.get("predict_level", 0) \
+                + f_launches.get("predict_level_global", 0):
+            raise AssertionError("(f) task=predict did not launch kernel C")
+        loaded = lgb.Booster(model_file=model_p, params={"device": dev.type})
+        want = [f"{v:g}" for v in loaded.predict(Xv)]
+        if open(pred_p).read().splitlines() != want:
+            raise AssertionError("(f) the predict file differs from "
+                                 "Booster.predict")
+        print(f"[phase 11] (f) task=predict: {len(want)} lines, each the %g "
+              "of Booster.predict of the held-out rows")
+
+        # (g) task=convert_model, compiled and run on 10,000 rows
+        cpp_p, so_p = (os.path.join(tmp, "model.cpp"),
+                       os.path.join(tmp, "model.so"))
+        cli.run(["task=convert_model", f"input_model={model_p}",
+                 f"convert_model={cpp_p}", f"device={dev.type}",
+                 "verbose=-1"])
+        t0 = time.perf_counter()
+        subprocess.run(["g++", "-O2", "-shared", "-fPIC", cpp_p, "-o", so_p],
+                       check=True, timeout=300)
+        gxx_s = time.perf_counter() - t0
+        lib = ctypes.CDLL(so_p)
+        lib.PredictRaw.argtypes = [ctypes.POINTER(ctypes.c_double)] * 2
+        m = min(10_000, len(yv))
+        rows = np.ascontiguousarray(Xv[:m])
+        got = np.zeros(m)
+        out = np.zeros(1)
+        dp = ctypes.POINTER(ctypes.c_double)
+        for i in range(m):
+            lib.PredictRaw(rows[i].ctypes.data_as(dp), out.ctypes.data_as(dp))
+            got[i] = out[0]
+        host = sum(t.predict(rows) for t in loaded.models)
+        kernel_c = loaded.predict(rows, raw_score=True)
+        err_host = float(np.abs(got - host).max())
+        err_c = float(np.abs(got - kernel_c).max())
+        if err_host > 1e-10:
+            raise AssertionError(f"(g) the C++ is {err_host} from the host "
+                                 "walk")
+        if err_c > TOL_PREDICT * (1 + np.abs(host).max()):
+            raise AssertionError(f"(g) the C++ is {err_c} from kernel C")
+        print(f"[phase 11] (g) convert_model: g++ -O2 in {gxx_s:.1f} s; on "
+              f"{m} held-out rows max |d| {err_host:.3g} from the f64 host "
+              f"walk, {err_c:.3g} from kernel C")
+
+        # (h) the sklearn wrapper and the C API
+        sk = {"max_bin": params["max_bin"],
+              "quantized_grad": params["quantized_grad"],
+              "hist_compute_dtype": params["hist_compute_dtype"],
+              "device": dev.type}
+        kernels.reset_launches()
+        clf = lgb.LGBMClassifier(
+            n_estimators=3, num_leaves=params["num_leaves"],
+            learning_rate=params["learning_rate"],
+            min_child_weight=params["min_sum_hessian_in_leaf"],
+            min_child_samples=params["min_data_in_leaf"], **sk)
+        clf.fit(X, y)
+        _sync(dev)
+        h_launches = _launched(kernels)
+        count("(h) LGBMClassifier.fit", h_launches)
+        if not rehearse and not (h_launches.get("fused_route_hist")
+                                 and h_launches.get("route_apply")):
+            raise AssertionError("(h) LGBMClassifier.fit did not launch A "
+                                 "and B")
+        proba = clf.predict_proba(Xv)[:, 1]
+        if proba.tobytes() != clf.booster_.predict(Xv).tobytes():
+            raise AssertionError("(h) predict_proba[:, 1] is not "
+                                 "booster_.predict")
+        pstr = " ".join(_bench_conf(params))
+        dh, bh, text = [None], [None], [None]
+        kernels.reset_launches()
+        for rc in (capi.LGBM_DatasetCreateFromFile(train_p, pstr, None, dh),
+                   capi.LGBM_BoosterCreate(dh[0], pstr, bh),
+                   *(capi.LGBM_BoosterUpdateOneIter(bh[0], [0])
+                     for _ in range(3)),
+                   capi.LGBM_BoosterSaveModelToString(bh[0], -1, text)):
+            if rc != 0:
+                raise AssertionError(f"(h) C API: {capi.LGBM_GetLastError()}")
+        count("(h) C API from the file", _launched(kernels))
+        kernels.reset_launches()
+        want_text = lgb.train(params, lgb.Dataset(train_p, params=params), 3,
+                              verbose_eval=False).model_to_string()
+        count("(h) lgb.train on the file", _launched(kernels))
+        if text[0] != want_text:
+            raise AssertionError("(h) the C API's 3-tree text differs from "
+                                 "lgb.train's")
+        ph = [None]
+        if capi.LGBM_DatasetCreateByReference(dh[0], len(y), ph) != 0:
+            raise AssertionError(f"(h) {capi.LGBM_GetLastError()}")
+        t0 = time.perf_counter()
+        for s in range(0, len(y), 65536):
+            chunk = X[s:s + 65536]
+            if capi.LGBM_DatasetPushRows(ph[0], chunk, len(chunk),
+                                         X.shape[1], s) != 0:
+                raise AssertionError(f"(h) {capi.LGBM_GetLastError()}")
+        push_s = time.perf_counter() - t0
+        pushed = capi._get(ph[0]).construct()
+        if np.asarray(pushed.group_bins).tobytes() != \
+                np.asarray(core_c.group_bins).tobytes():
+            raise AssertionError("(h) the pushed rows' bins differ from (c)'s")
+        for h_ in (bh[0],):
+            capi.LGBM_BoosterFree(h_)
+        for h_ in (dh[0], ph[0]):
+            capi.LGBM_DatasetFree(h_)
+        print(f"[phase 11] (h) LGBMClassifier: predict_proba[:, 1] bit for "
+              "bit booster_.predict; the C API's file -> booster -> 3 "
+              "iterations text equals lgb.train's; "
+              f"LGBM_DatasetCreateByReference + PushRows in 65,536-row "
+              f"chunks ({push_s:.2f} s) byte-identical to (c)'s bins")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[phase 11] wall {time.perf_counter() - t_phase:.1f} s ({card})")
+    return total
+
+
 def main(argv) -> int:
     t_start = time.perf_counter()
     rehearse = "--rehearse" in argv
@@ -3585,6 +3946,7 @@ def main(argv) -> int:
     for name, count in q_launches.items():
         if count:
             plan_runs.setdefault(name, {})["int8 fused_tiled"] = count
+    main_text = bst.model_to_string()      # phase 11 (c) holds the CLI's
 
     # ---- phase 4: predict through Booster.predict on the card: the
     # held-out rows (kernel C's shared tier; the first call also
@@ -3697,6 +4059,12 @@ def main(argv) -> int:
     for name, extra in check_packed(lgb, kernels, params, X, y, Xv, yv,
                                     dev, card, rehearse, plan_runs).items():
         numbers[name].update(extra)
+
+    # ---- phase 11: the file entry point (text files, the binary cache,
+    # two-round streaming, the CLI, codegen, sklearn and the C API)
+    file_launches = check_file_entry(lgb, kernels, params, X, y, Xv, yv,
+                                     core, main_text, q_launches, q_ms, dev,
+                                     card, rehearse)
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")
         return 3
@@ -3742,10 +4110,13 @@ def main(argv) -> int:
         runs = plan_runs.get(name, {})
         if serving_launches.get(name):
             runs["phase 9"] = serving_launches[name]
+        if file_launches.get(name):
+            runs["phase 11"] = file_launches[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep,
                      "launches": (launches[name] + serving_launches.get(
-                         name, 0)) or sum(runs.values()),
+                         name, 0) + file_launches.get(name, 0))
+                     or sum(runs.values()),
                      "launches_by_run": runs,
                      "bound_by": "bytes", "library_ms": None,
                      **numbers[name]})

@@ -27,7 +27,7 @@ from .ops.predict import (PREDICT_TELEMETRY, level_ensemble_from_numpy,
                           pack_level_records, predict_level_ensemble,
                           split_hi_lo_device)
 from .tree import Tree, flatten_ensemble
-from .utils.device import resolve_device
+from .utils.device import resolve_device, rows_to_device
 from .utils.log import Log
 
 MODEL_VERSION = "v2"
@@ -375,6 +375,40 @@ class Booster:
     def feature_name(self) -> List[str]:
         return list(self.feature_names)
 
+    def reset_training_data(self, train_set: Dataset) -> None:
+        """Swap the training dataset, keeping the trained model
+        (lightgbm_tpu/booster.py reset_training_data; reference c_api.cpp
+        ResetTrainingData): the new data must have the same feature
+        count, and the trees so far seed its scores as in continued
+        training (so it needs its raw rows: ``free_raw_data=False``).
+        The iteration count carries over."""
+        from .boosting import create_boosting
+        if hasattr(train_set, "construct") and callable(train_set.construct):
+            train_set = train_set.construct(self.config)
+        self._sync_models()
+        old = None
+        if self.models:
+            old = Booster.__new__(Booster)
+            old.__dict__.update(self.__dict__)
+            old.gbdt = None
+            old.models = list(self.models)
+            old._drop_predictors()
+        nf = train_set.num_total_features
+        if self.models and nf != self.max_feature_idx + 1:
+            Log.fatal("reset_training_data: feature count mismatch "
+                      f"({nf} vs model's {self.max_feature_idx + 1})")
+        old_iter = self.current_iteration
+        self.gbdt = create_boosting(self.config, train_set)
+        self.models = self.gbdt.models
+        self.feature_names = train_set.feature_names
+        self.feature_infos = train_set.feature_infos()
+        self.max_feature_idx = nf - 1
+        self._drop_predictors()
+        if old is not None:
+            self._continue_from(old, train_set)
+            self.gbdt.iter_ = old_iter
+        self._device_stale = False
+
     # ------------------------------------------------------------------
     def eval(self) -> List:
         if self.gbdt is None:
@@ -664,8 +698,7 @@ class Booster:
         g = self.gbdt
         vcore = Dataset.from_matrix(np.asarray(data, dtype=np.float64),
                                     config=g.config, reference=g.train_set)
-        vbins = torch.from_numpy(np.ascontiguousarray(
-            vcore.group_bins)).to(g.device)
+        vbins = rows_to_device(vcore.group_bins, g.device)
         n_trees = self._n_used_trees(num_iteration)
         total = torch.full((vbins.shape[0],), float(g.init_score),
                            dtype=torch.float32, device=g.device)

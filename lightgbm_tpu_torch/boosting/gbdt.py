@@ -33,7 +33,7 @@ from ..ops.percentile import leaf_percentiles
 from ..ops.predict import predict_binned
 from ..tree import Tree
 from ..utils import prng
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, rows_to_device
 from ..utils.log import Log
 
 
@@ -57,8 +57,7 @@ class _ValidSet:
 
     def __init__(self, dataset: Dataset, num_class: int, init_score: float,
                  metrics: List[Metric], device: torch.device):
-        self.bins = torch.from_numpy(np.ascontiguousarray(
-            dataset.group_bins)).to(device)
+        self.bins = rows_to_device(dataset.group_bins, device)
         self.scores = torch.from_numpy(_score_rows(
             dataset.metadata, num_class, dataset.num_data,
             init_score)).to(device)

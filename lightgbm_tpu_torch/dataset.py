@@ -19,8 +19,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .binning import (BIN_CATEGORICAL, BinMapper, find_bin_mappers,
-                      resolve_construct_threads)
+from .binning import (BIN_CATEGORICAL, MISSING_NAN, BinMapper,
+                      find_bin_mappers, resolve_construct_threads)
 from .config import Config
 from .packing import (CRUMB_MAX_BIN, NIBBLE_MAX_BIN, BinLayout,
                       build_layout, resolve_bin_packing)
@@ -273,6 +273,149 @@ class Dataset:
         self._resolve_monotone(config)
         return self
 
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_sampled_columns(cls, sample_vals: List[np.ndarray],
+                             sample_rows: List[np.ndarray],
+                             total_sample: int, num_data: int,
+                             config: Optional[Config] = None,
+                             categorical_features=None,
+                             feature_names=None) -> "Dataset":
+        """Streaming construction, step 1: fit bin mappers from sampled
+        per-column values, allocate the packed (N, G) uint8 matrix, and
+        return a dataset awaiting ``push_rows`` chunks + ``finish_load``
+        — the two-round / LGBM_DatasetCreateFromSampledColumn +
+        PushRows protocol (reference c_api.h:68-145,
+        dataset_loader.cpp:180-265).  The float matrix never exists:
+        peak host memory is samples + one chunk + the uint8 matrix.
+
+        Args:
+          sample_vals: per-feature sampled non-zero (or NaN) values.
+          sample_rows: per-feature row indices of those values within
+            the sample (feeds EFB conflict counting).
+          total_sample: number of sampled rows (zeros implicit).
+          num_data: full row count being pushed.
+        """
+        config = config or Config()
+        self = cls()
+        self.config = config
+        self.num_data = num_data
+        self.num_total_features = len(sample_vals)
+        self.max_bin = config.max_bin
+        self.feature_names = list(feature_names) if feature_names else [
+            f"Column_{i}" for i in range(len(sample_vals))]
+        cat_set = set(categorical_features or [])
+        self.mappers = self._fit_mappers(sample_vals, total_sample,
+                                         config, cat_set)
+        self.used_features = [i for i, m in enumerate(self.mappers)
+                              if not m.is_trivial]
+        self._build_groups(reference=None, sample_nonzero=sample_rows,
+                           sample_cnt=total_sample)
+        self._init_push_storage(list(categorical_features or []))
+        return self
+
+    @classmethod
+    def from_reference_for_push(cls, ref: "Dataset",
+                                num_data: int) -> "Dataset":
+        """Streaming construction aligned to an existing dataset's bin
+        mappers (reference LGBM_DatasetCreateByReference, c_api.h —
+        the distributed/streaming analog of validation-set alignment):
+        allocates the packed matrix for ``num_data`` rows and awaits
+        ``push_rows`` chunks + ``finish_load``."""
+        self = cls()
+        self.config = ref.config
+        self.num_data = int(num_data)
+        self.num_total_features = ref.num_total_features
+        self.max_bin = ref.max_bin
+        self.feature_names = list(ref.feature_names)
+        self.mappers = ref.mappers
+        self.used_features = list(ref.used_features)
+        self._build_groups(reference=ref)
+        self._init_push_storage(list(
+            getattr(ref, "_categorical_features", [])))
+        return self
+
+    def _init_push_storage(self, categorical_features) -> None:
+        """Shared streaming-construction tail (from_sampled_columns /
+        from_reference_for_push): allocate the packed matrix, prefill
+        implicit-zero bins so sparse (CSR) pushes only write stored
+        entries, and arm the pushed-row counter."""
+        self.group_bins = np.zeros(
+            (self.num_data, self._storage_cols()), dtype=np.uint8)
+        for f in self.features:
+            if not f.collapsed_default:
+                zb = int(np.asarray(
+                    self.mappers[f.feature_idx].value_to_bin(
+                        np.zeros(1)))[0])
+                if zb != 0:
+                    if self.bin_layout is not None:
+                        self.bin_layout.fill_group(self.group_bins,
+                                                   f.group, zb)
+                    else:
+                        self.group_bins[:, f.group] = zb
+        self.metadata = Metadata(self.num_data)
+        self._categorical_features = categorical_features
+        self._resolve_monotone(self.config)
+        self._pushed_rows = 0
+
+    def push_rows(self, chunk: np.ndarray, row_start: int) -> None:
+        """Streaming construction, step 2: bin one dense float chunk
+        (reference LGBM_DatasetPushRows, c_api.h:100-120)."""
+        chunk = np.asarray(chunk, dtype=np.float64)
+        if chunk.ndim == 1:
+            chunk = chunk[None, :]
+        self._bin_rows_dense(chunk, row_start)
+        # actual pushed-row COUNT (not a high-water mark): chunks may
+        # arrive in any order (reference allows thread-partitioned
+        # arbitrary start_row), so only the sum of chunk sizes can tell
+        # when every row has arrived
+        self._pushed_rows = getattr(self, "_pushed_rows", 0) \
+            + chunk.shape[0]
+
+    def push_rows_csr(self, indptr, indices, values,
+                      row_start: int) -> None:
+        """Streaming CSR chunk push (reference LGBM_DatasetPushRowsByCSR,
+        c_api.h:122-145): only stored entries are written; implicit
+        zeros were prefilled at creation."""
+        indptr = np.asarray(indptr, dtype=np.int64)
+        indices = np.asarray(indices, dtype=np.int32)
+        values = np.asarray(values, dtype=np.float64)
+        nrows = len(indptr) - 1
+        row_of = np.repeat(np.arange(nrows, dtype=np.int64),
+                           np.diff(indptr)) + row_start
+        order = np.argsort(indices, kind="stable")
+        cols_s, rows_s, vals_s = indices[order], row_of[order], values[order]
+        bounds = np.searchsorted(cols_s, np.arange(
+            self.num_total_features + 1))
+        for f in self.features:
+            j = f.feature_idx
+            lo, hi = bounds[j], bounds[j + 1]
+            if lo == hi:
+                continue
+            m = self.mappers[j]
+            col = m.value_to_bin(vals_s[lo:hi])
+            rr = rows_s[lo:hi]
+            if not f.collapsed_default:
+                self._write_group_rows(f.group, rr,
+                                       col.astype(np.uint8))
+            else:
+                gb = col + f.offset
+                if m.default_bin == 0:
+                    gb -= 1
+                keep = col != m.default_bin
+                self._write_group_rows(f.group, rr[keep],
+                                       gb[keep].astype(np.uint8))
+        self._pushed_rows = getattr(self, "_pushed_rows", 0) + nrows
+
+    def _write_group_rows(self, group: int, rows, vals) -> None:
+        """Scattered per-group bin write, storage-layout aware (nibble
+        read-modify-write when the group is packed)."""
+        if self.bin_layout is None:
+            self.group_bins[rows, group] = vals
+        else:
+            self.bin_layout.write_group(self.group_bins, group, vals,
+                                        rows=rows)
+
     def _storage_cols(self) -> int:
         """Byte columns of the storage bin matrix."""
         return (self.bin_layout.cols if self.bin_layout is not None
@@ -286,6 +429,14 @@ class Dataset:
         if self.group_bins is None or self.bin_layout is None:
             return self.group_bins
         return self.bin_layout.unpack_rows(np.asarray(self.group_bins))
+
+    def finish_load(self) -> "Dataset":
+        """End of streaming pushes (reference FinishLoad)."""
+        pushed = getattr(self, "_pushed_rows", self.num_data)
+        if pushed < self.num_data:
+            Log.warning(f"finish_load: only {pushed} of {self.num_data} "
+                        "rows were pushed")
+        return self
 
     # ------------------------------------------------------------------
     def _fit_mappers(self, sample_vals: List[np.ndarray],
@@ -398,15 +549,24 @@ class Dataset:
         """Bin a dense float chunk into group_bins[row_start:...] —
         shared by whole-matrix construction and the PushRows streaming
         path (reference Dataset::PushOneRow via FeatureGroup::PushData,
-        feature_group.h:128-136).  Nibble-packed datasets bin through a
-        bounded logical scratch chunk and pack it into the storage
-        matrix.  (The port bins with the numpy mappers only; the JAX
-        package's native binner is bit-identical to them.)"""
+        feature_group.h:128-136).  Native fast paths now cover ALL
+        three feature classes — numerical (``ltpu_bin_dense[_mt]``),
+        categorical lookup (``ltpu_bin_cat``) and EFB bundle
+        offset/default-collapse writes (``ltpu_bin_bundle``) — with the
+        per-feature Python mapper as the fallback for any feature the
+        library can't take.
+
+        Nibble-packed datasets bin through a bounded LOGICAL scratch
+        chunk and pack it straight into the storage matrix
+        (``ltpu_pack_nibbles`` / the numpy fallback): the full-width
+        8-bit matrix never exists — peak extra memory is one scratch
+        chunk, regardless of N."""
         out = self.group_bins[row_start:row_start + data.shape[0]]
         if self.bin_layout is None:
             self._bin_rows_dense_into(data, out)
             return
         lay = self.bin_layout
+        lib = self._native_lib()
         step = max(1, int(getattr(self.config, "streaming_chunk_rows",
                                   65536) or 65536))
         for i in range(0, data.shape[0], step):
@@ -414,10 +574,25 @@ class Dataset:
             scratch = np.zeros((chunk.shape[0], self.num_groups),
                                dtype=np.uint8)
             self._bin_rows_dense_into(chunk, scratch)
-            lay.pack_rows(scratch, out=out[i:i + chunk.shape[0]])
+            lay.pack_rows(scratch, out=out[i:i + chunk.shape[0]], lib=lib)
 
     def _bin_rows_dense_into(self, data: np.ndarray, out) -> None:
-        for f in self.features:
+        native_feats = [f for f in self.features
+                        if not f.is_categorical and not f.collapsed_default]
+        rest = [f for f in self.features if f not in native_feats]
+        lib = self._native_lib()
+        xc = None
+        if lib is not None and data.shape[0]:
+            xc = np.ascontiguousarray(data, dtype=np.float64)
+        if native_feats and xc is not None \
+                and self._try_native_bin_dense(xc, out, native_feats, lib):
+            pass
+        else:
+            rest = self.features
+        for f in rest:
+            if xc is not None \
+                    and self._try_native_bin_rest(xc, out, f, lib):
+                continue
             col = self.mappers[f.feature_idx].value_to_bin(
                 data[:, f.feature_idx])
             if not f.collapsed_default:
@@ -432,6 +607,146 @@ class Dataset:
                 is_default = col == f.mapper.default_bin
                 keep = ~is_default
                 out[keep, f.group] = gb[keep].astype(np.uint8)
+
+    # ------------------------------------------------------------------
+    def _native_lib(self):
+        """libltpu handle, or None when ``native_binning=false`` or the
+        library is unavailable (build failure, missing g++ — the Python
+        mapper path then serves every feature, byte for byte alike)."""
+        cfg = self.config
+        if cfg is not None and not getattr(cfg, "native_binning", True):
+            return None
+        from .native import get_lib
+        return get_lib()
+
+    def _try_native_bin_dense(self, xc: np.ndarray, out, feats,
+                              lib) -> bool:
+        """Numerical value->bin through the native library: the
+        compare-count loop of native/src/bin_dense.cpp takes the same
+        float64 'left'-side search as the mappers' ``value_to_bin``
+        (reference ValueToBin, bin.h:450-486), so the bytes are the
+        same, and ``ltpu_bin_dense_mt`` fans the row blocks over
+        ``construct_threads`` host threads.  ``feats`` is the
+        numerical non-bundled subset of features this call handles.
+        Disable with ``native_binning=false``."""
+        import ctypes
+        if self.group_bins is None or xc.shape[0] == 0:
+            return False
+        n, f_total = xc.shape
+        nfu = len(feats)
+        bounds_parts = []
+        off = [0]
+        use_nan = np.zeros(nfu, np.uint8)
+        nan_bin = np.zeros(nfu, np.int64)
+        fidx = np.zeros(nfu, np.int64)
+        for j, f in enumerate(feats):
+            m = self.mappers[f.feature_idx]
+            n_search = m.num_bin - (1 if m.missing_type == MISSING_NAN
+                                    else 0)
+            bounds_parts.append(np.asarray(
+                m.bin_upper_bound[:n_search - 1], np.float64))
+            off.append(off[-1] + len(bounds_parts[-1]))
+            use_nan[j] = 1 if m.missing_type == MISSING_NAN else 0
+            nan_bin[j] = m.num_bin - 1
+            fidx[j] = f.feature_idx
+        bounds_flat = (np.concatenate(bounds_parts) if off[-1]
+                       else np.zeros(1, np.float64))
+        boff = np.asarray(off, np.int64)
+        res = np.empty((nfu, n), np.uint8)
+
+        def p(a, t):
+            return a.ctypes.data_as(ctypes.POINTER(t))
+
+        # threaded over disjoint row ranges — byte-identical to the
+        # serial walk at every thread count (no accumulation)
+        lib.ltpu_bin_dense_mt(
+            p(xc, ctypes.c_double), n, f_total, p(fidx, ctypes.c_long), nfu,
+            p(bounds_flat, ctypes.c_double), p(boff, ctypes.c_long),
+            p(use_nan, ctypes.c_ubyte), p(nan_bin, ctypes.c_long),
+            p(res, ctypes.c_ubyte), resolve_construct_threads(self.config))
+        cols = np.asarray([f.group for f in feats], np.int64)
+        if out.flags.c_contiguous and out.dtype == np.uint8 \
+                and out.shape[0] == n:
+            # out.shape[0] == n guards the raw-pointer write: a clamped
+            # group_bins slice (out-of-range push_rows row_start) must
+            # fall through to the numpy path, which raises a broadcast
+            # error instead of writing past the buffer
+            # blocked-transpose write: numpy's strided per-column
+            # assignment dominated wide-matrix prep (see bin_dense.cpp)
+            lib.ltpu_scatter_cols(p(res, ctypes.c_ubyte), nfu, n,
+                                  p(cols, ctypes.c_long),
+                                  p(out, ctypes.c_ubyte), out.shape[1])
+        else:
+            for j, f in enumerate(feats):
+                out[:, f.group] = res[j]
+        return True
+
+    def _try_native_bin_rest(self, xc: np.ndarray, out, f, lib) -> bool:
+        """Native value->bin for the features ``ltpu_bin_dense`` does
+        not cover: categorical lookup (``ltpu_bin_cat``) and EFB bundle
+        offset/default-collapse writes (``ltpu_bin_bundle``).  Returns
+        False (leaving the Python fallback to run) when the output slice
+        can't take a raw strided write or a categorical mapper has no
+        categories."""
+        import ctypes
+        n = xc.shape[0]
+        if n == 0:
+            return True
+        if not (out.flags.c_contiguous and out.dtype == np.uint8
+                and out.shape[0] == n):
+            # same clamped-slice guard as the scatter path above
+            return False
+        m = self.mappers[f.feature_idx]
+        stride = out.shape[1]
+        out_col = ctypes.cast(out.ctypes.data + f.group,
+                              ctypes.POINTER(ctypes.c_ubyte))
+
+        def p(a, t):
+            return a.ctypes.data_as(ctypes.POINTER(t))
+
+        if f.is_categorical:
+            fn_cat = lib.ltpu_bin_cat
+            if not m.categorical_2_bin:
+                return False
+            if getattr(m, "_cat_lut", None) is None:
+                m._build_cat_cache()
+            lut = np.ascontiguousarray(m._cat_lut, dtype=np.int32)
+            if not f.collapsed_default:
+                fn_cat(p(xc, ctypes.c_double), n, xc.shape[1],
+                       f.feature_idx, p(lut, ctypes.c_int32), len(lut),
+                       m.num_bin - 1, out_col, stride)
+                return True
+            tmp = np.empty(n, np.uint8)
+            fn_cat(p(xc, ctypes.c_double), n, xc.shape[1],
+                   f.feature_idx, p(lut, ctypes.c_int32), len(lut),
+                   m.num_bin - 1, p(tmp, ctypes.c_ubyte), 1)
+            lib.ltpu_bin_bundle(p(tmp, ctypes.c_ubyte), n, f.offset,
+                                m.default_bin, out_col, stride)
+            return True
+        # numerical feature inside a multi-feature bundle: bin through
+        # the shared dense kernel into a scratch row, then apply the
+        # bundle write
+        n_search = m.num_bin - (1 if m.missing_type == MISSING_NAN else 0)
+        bounds = np.ascontiguousarray(
+            m.bin_upper_bound[:n_search - 1], np.float64)
+        if not len(bounds):
+            bounds = np.zeros(1, np.float64)
+            boff = np.asarray([0, 0], np.int64)
+        else:
+            boff = np.asarray([0, len(bounds)], np.int64)
+        use_nan = np.asarray(
+            [1 if m.missing_type == MISSING_NAN else 0], np.uint8)
+        nan_bin = np.asarray([m.num_bin - 1], np.int64)
+        fidx = np.asarray([f.feature_idx], np.int64)
+        tmp = np.empty(n, np.uint8)
+        lib.ltpu_bin_dense(p(xc, ctypes.c_double), n, xc.shape[1],
+                           p(fidx, ctypes.c_long), 1,
+                           p(bounds, ctypes.c_double), p(boff, ctypes.c_long),
+                           p(use_nan, ctypes.c_ubyte),
+                           p(nan_bin, ctypes.c_long), p(tmp, ctypes.c_ubyte))
+        lib.ltpu_bin_bundle(p(tmp, ctypes.c_ubyte), n, f.offset,
+                            m.default_bin, out_col, stride)
+        return True
 
     # ------------------------------------------------------------------
     def _bin_data_sparse(self, csc) -> None:

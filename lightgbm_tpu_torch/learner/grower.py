@@ -110,6 +110,7 @@ from ..ops.split import (CAND_COLS, CAND_DEFAULT_LEFT, CAND_FEATURE,
                          FORCED_LOUT, FORCED_LSC, FORCED_LSG, FORCED_LSH,
                          FORCED_ROUT, FORCED_THRESHOLD,
                          find_best_split_block, forced_split_block)
+from ..utils.device import rows_to_device
 from ..utils.log import Log
 
 #: plans that route the pending splits in their own pass (kernel H)
@@ -343,12 +344,7 @@ class TreeGrower:
 
         # the (N, cols) storage matrix as the dataset holds it: under a
         # pack spec, sub-byte; zero padding rows are bin 0 of every group
-        bins = np.asarray(dataset.group_bins)
-        pad = self.n_padded - n
-        if pad:
-            bins = np.concatenate(
-                [bins, np.zeros((pad, bins.shape[1]), np.uint8)])
-        bins_d = torch.from_numpy(np.ascontiguousarray(bins)).to(device)
+        bins_d = rows_to_device(dataset.group_bins, device, self.n_padded)
         # transposed for the fused and tiled kernels (routing, kernel
         # G); row-major for the bin-matrix kernels and apply_splits
         self.binsT = (bins_d.t().contiguous()

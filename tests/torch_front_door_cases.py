@@ -1,7 +1,8 @@
 """Shared inputs of the front-door tests (tests/test_torch_engine.py,
 test_torch_continue.py, test_torch_cv.py): tests/test_torch_train.py's
 main-path parameters and data, both packages' datasets built from them,
-and the tree comparison with that file's tolerances."""
+the tree comparison with that file's tolerances, and where two trees
+part."""
 import numpy as np
 
 #: tests/test_torch_train.py's main path: int8 gradients, fused_tiled
@@ -44,6 +45,26 @@ def datasets(pkg, free_raw_data=True):
     d = pkg.Dataset(X, label=y, free_raw_data=free_raw_data)
     return d, [pkg.Dataset(Xv, label=yv, reference=d),
                pkg.Dataset(Xv, label=noise, reference=d)]
+
+
+def parting_node(jt, tt):
+    """The first node at which two trees split on another feature or
+    threshold, and the rows of ``X`` that reach it (the path to it, which
+    both trees share, read from ``jt``): (node, function X -> mask)."""
+    node = int(np.nonzero((jt.split_feature != tt.split_feature)
+                          | (jt.threshold != tt.threshold))[0][0])
+
+    def rows(X):
+        mask = np.ones(len(X), bool)
+        child = node
+        while child:
+            parent = np.nonzero((jt.left_child == child)
+                                | (jt.right_child == child))[0][0]
+            left = X[:, jt.split_feature[parent]] <= jt.threshold[parent]
+            mask &= left if jt.left_child[parent] == child else ~left
+            child = parent
+        return mask
+    return node, rows
 
 
 def assert_same_trees(jmodels, tmodels, of_largest=False):
