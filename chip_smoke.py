@@ -343,6 +343,23 @@ Phases, in order; any failure exits nonzero:
      shard-cache manifest and the captured state: ranks 0, 1 and 3
      finish the single-process 8-tree text on a world of 3, each
      launching A and B;
+ 17. the row-sharded multi-process plane (collective_transport=xla,
+     torch.distributed): (a) two ``--plane-child`` ranks on the one card
+     over gloo (gloo stages the CUDA tensors through the host: the
+     plane's logic on the card, not NCCL's speed) train the data learner
+     on the first bench rows that fill a whole number of xla chunks a
+     rank (bin_construct_sample_cnt = those rows), 10 trees at the bench
+     params: both ranks' texts byte for byte each other's and the
+     parent's single-process 2-shard mesh run on the same rows, each
+     rank's resident bin bytes half of that run's; rendezvous s,
+     construction s, ms/tree a rank, histogram wire bytes a tree, the
+     straggler ratio; (b) one exchange_histograms_ranks of a
+     (126, 28, 64, 3) f32 histogram a rank under f32, q16 and q8 across
+     the two ranks, bit for bit exchange_histograms over the same two
+     histograms on the card, its ms and wire bytes; (c) with two or more
+     visible cards the same run as (a) over NCCL, one card a rank, its
+     text byte for byte (a)'s; with one card it prints why (c) did not
+     run;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -6622,7 +6639,311 @@ def check_sharded_learners(lgb, kernels, params, X, y, Xv, yv, dev, card,
     return total, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the row-sharded multi-process plane (collective_transport=xla)
+# ---------------------------------------------------------------------------
+#: phase 17's trees a run
+PLANE_TREES = 10
+
+
+def plane_rows(n, num_groups, max_group_bin, world):
+    """(rows, chunk): the first of ``n`` rows that fill a whole number of
+    xla chunks on each of ``world`` ranks (the grower's chunk of the
+    global count, ops/histogram.py _pick_chunk, bf16 weights), so no
+    rank pads and the ranks' layout is the single-process mesh's."""
+    from lightgbm_tpu_torch.ops.histogram import _pick_chunk
+    chunk = _pick_chunk(n, num_groups, max_group_bin, 2, min_chunk=1024)
+    rows = n // (world * chunk) * world * chunk
+    if not rows or _pick_chunk(rows, num_groups, max_group_bin, 2,
+                               min_chunk=1024) != chunk:
+        raise AssertionError(f"phase 17: {n} rows hold no whole chunks of "
+                             f"{chunk} on {world} ranks")
+    return rows, chunk
+
+
+def _plane_params(params, rows, device):
+    return dict(params, device=device, tree_learner="data",
+                collective_transport="xla", bin_construct_sample_cnt=rows,
+                verbose=-1)
+
+
+def plane_child(argv) -> int:
+    """``--plane-child SPEC``: one rank of phase 17.  SPEC is a JSON file:
+    the coordinator address, the world, this rank, the backend, the
+    rows of make_data(n_make) to train on, the params and the trees.
+    Joins the plane, constructs its rows (construct_sharded,
+    finalize_global), trains the data learner through
+    GBDT.train_one_iter and runs one exchange_histograms_ranks a codec;
+    prints one JSON line."""
+    import hashlib
+
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    import torch
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops import kernels
+    from lightgbm_tpu_torch.parallel import collectives as C
+    from lightgbm_tpu_torch.parallel import distributed as D
+    from lightgbm_tpu_torch.telemetry import TELEMETRY
+
+    rank, world, rows = spec["rank"], spec["world"], spec["rows"]
+    cfg = Config.from_params(spec["params"])
+    TELEMETRY.configure("counters", fence=True)
+    X, y, _ = make_data(spec["n_make"], 28, seed=7)
+    per = rows // world
+    Xl, yl = X[rank * per:(rank + 1) * per], y[rank * per:(rank + 1) * per]
+    del X, y
+    t0 = time.perf_counter()
+    D.initialize(spec["coord"], world, rank, config=cfg,
+                 backend=spec["backend"])
+    pl = D.plane()
+    dev = pl.device
+    out = {"rank": rank, "rendezvous_s": time.perf_counter() - t0,
+           "backend": pl.backend, "device": str(dev)}
+    t0 = time.perf_counter()
+    ds = D.finalize_global(D.construct_sharded(Xl, label=yl, config=cfg))
+    out["construct_s"] = time.perf_counter() - t0
+    g = GBDT(cfg, ds)
+    out["resident"] = g.grower.resident_bin_bytes()
+    out["shard_rows"] = int(g.grower.shard_bins[0].shape[0])
+    out["plan"] = g.grower.plan.name
+    TELEMETRY.reset()
+    kernels.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(spec["trees"]):
+        g.train_one_iter()
+    _sync(dev)
+    out["ms_tree"] = (time.perf_counter() - t0) * 1e3 / spec["trees"]
+    out["launches"] = _launched(kernels)
+    c = TELEMETRY.counters()
+    out["wire_bytes_tree"] = c.get("collective_hist_exchange_bytes",
+                                   0) / spec["trees"]
+    out["straggler_ratio"] = TELEMETRY.gauges().get("straggler_ratio")
+    g.flush_models()
+    text = "".join(t.to_string() for t in g.models)
+    out["model_sha"] = hashlib.sha256(text.encode()).hexdigest()
+    # (b) one exchange a codec: every rank's histogram from its seed, so
+    # each rank holds the cross-rank result against the in-process codec
+    # over all of them on its card
+    hists = [torch.from_numpy((np.random.RandomState(100 + r).randn(
+        *EXCHANGE_SHAPE) * 40).astype(np.float32)).to(dev)
+        for r in range(world)]
+    coll = C.ProcessGroupCollectives(pl)
+    out["exchange"] = {}
+    for mode in C.HIST_EXCHANGE_MODES:
+        want = C.exchange_histograms(hists, mode=mode)
+        TELEMETRY.reset()
+        dist.barrier()
+        _sync(dev)
+        t = time.perf_counter()
+        got = C.exchange_histograms_ranks(hists[rank], mode, coll)
+        _sync(dev)
+        ms = (time.perf_counter() - t) * 1e3
+        c = TELEMETRY.counters()
+        out["exchange"][mode] = {
+            "ms": ms, "wire_bytes": c["collective_hist_exchange_bytes"],
+            "scale_bytes": c.get("collective_hist_exchange_scale_bytes", 0),
+            "bit_for_bit": bool(torch.equal(
+                got.view(torch.int32), want.view(torch.int32)))}
+    TELEMETRY.configure("off")
+    D.shutdown()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_plane_children(world, backend, rows, n_make, params, trees, env_extra,
+                       tmp, timeout=600):
+    """Start ``world`` ``--plane-child`` ranks and return their JSON
+    lines (rank order); fails naming the rank that exited nonzero.  Every
+    child still running at the end is killed."""
+    import os
+    import socket
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, **env_extra)
+    env.pop("LTPU_FAULT_PLAN", None)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    procs = []
+    try:
+        for r in range(world):
+            path = os.path.join(tmp, f"plane{world}_{backend}_{r}.json")
+            with open(path, "w") as f:
+                json.dump({"coord": coord, "rank": r, "world": world,
+                           "backend": backend, "rows": rows,
+                           "n_make": n_make, "params": params,
+                           "trees": trees}, f)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--plane-child",
+                 path], cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith("{")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"phase 17: {backend} rank {r} of {world} "
+                                 f"exited {p.returncode}: {err[-3000:]}")
+        ranks.append(lines[-1])
+    return ranks
+
+
+def _plane_reference(lgb, params, X, y, rows, world, dev, trees):
+    """The single-process ``world``-shard mesh on the same rows, every
+    shard on ``dev``: (text sha, resident bin bytes, ms/tree, the serial
+    matrix's bytes)."""
+    import hashlib
+    cfg = lgb.Config.from_params(params)
+    core = lgb.Dataset(X[:rows], label=y[:rows]).construct(cfg)
+    text, g, ms = _timed_texts(lgb, cfg, core, trees, dev,
+                               policy=_mesh_policy(cfg, [dev] * world,
+                                                   "data"))
+    if not g.grower.sharded or g.grower.n_padded != rows:
+        raise AssertionError(f"phase 17: the {world}-shard reference pads "
+                             f"{rows} rows to {g.grower.n_padded}")
+    return (hashlib.sha256(text.encode()).hexdigest(),
+            g.grower.resident_bin_bytes(), ms,
+            int(core.group_bins.nbytes))
+
+
+def check_plane(lgb, kernels, params, X, y, core, dev, card, rehearse,
+                worlds=(2,)):
+    """Phase 17 (see the module docstring).  ``worlds``: the NCCL worlds
+    (c) runs where there are as many cards (chip_smoke.py: 2;
+    scripts/torch_dist_check.py: 2 and 4).  Returns the numbers."""
+    import os
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    trees = 2 if rehearse else PLANE_TREES
+    numbers = {}
+    if rehearse:
+        # the rehearsal's rows hold no whole chunk: two chunks' worth
+        from lightgbm_tpu_torch.ops.histogram import _pick_chunk
+        X, y, _ = make_data(2 * _pick_chunk(
+            1 << 30, core.num_groups, core.max_group_bin, 2,
+            min_chunk=1024), 28, seed=7)
+    rows, chunk = plane_rows(X.shape[0], core.num_groups,
+                             core.max_group_bin, 2)
+    pparams = _plane_params(params, rows, dev.type)
+    pparams.pop("metric", None)
+    t0 = time.perf_counter()
+    ref_sha, ref_resident, ref_ms, serial_bytes = _plane_reference(
+        lgb, pparams, X, y, rows, 2, dev, trees)
+    ref_s = time.perf_counter() - t0
+    print(f"[phase 17] (a) {rows} of {X.shape[0]} rows: {rows // 2} a rank, "
+          f"{rows // 2 // chunk} chunks of {chunk}; the single-process "
+          f"2-shard mesh on {dev.type}: {trees} trees, {ref_ms:.1f} ms/tree, "
+          f"resident bins {ref_resident} B ({ref_s:.1f} s with its "
+          f"construction) ({card})")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    # (a) on one card: the children see only the first visible card
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    one_card = {"CUDA_VISIBLE_DEVICES": first} if cards else {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_plane_children(2, "gloo", rows, X.shape[0], pparams,
+                                   trees, one_card, tmp)
+        children_s = time.perf_counter() - t0
+        for r in ranks:
+            tag = f"phase 17 (a) rank {r['rank']}"
+            if r["model_sha"] != ref_sha:
+                raise AssertionError(f"{tag}: the {trees}-tree text is not "
+                                     "the single-process 2-shard mesh's")
+            if r["resident"] * 2 != ref_resident or \
+                    r["shard_rows"] * 2 != rows:
+                raise AssertionError(
+                    f"{tag}: resident bins {r['resident']} B on "
+                    f"{r['shard_rows']} rows, the 2-shard run's "
+                    f"{ref_resident} B on {rows}")
+            if r["plan"] != "xla" or r["launches"]:
+                raise AssertionError(f"{tag}: plan {r['plan']}, launches "
+                                     f"{r['launches']}")
+            print(f"[phase 17] (a) rank {r['rank']} ({r['backend']} on "
+                  f"{r['device']}): rendezvous {r['rendezvous_s']:.3f} s; "
+                  f"construct {r['construct_s']:.2f} s; {r['ms_tree']:.1f} "
+                  f"ms/tree; histogram wire {r['wire_bytes_tree']:.0f} B a "
+                  f"tree; resident bins {r['resident']} B (the serial "
+                  f"matrix {serial_bytes} B); straggler ratio "
+                  f"{r['straggler_ratio']} ({card})")
+            for mode, e in r["exchange"].items():
+                if not e["bit_for_bit"]:
+                    raise AssertionError(f"{tag}: the cross-rank {mode} "
+                                         "exchange is not the in-process "
+                                         "codec's")
+                print(f"[phase 17] (b) rank {r['rank']}: "
+                      f"exchange_histograms_ranks {EXCHANGE_SHAPE} {mode} "
+                      f"over {r['backend']}: {e['ms']:.2f} ms, "
+                      f"{e['wire_bytes']} wire bytes + {e['scale_bytes']} "
+                      f"scale bytes, bit for bit the in-process codec "
+                      f"({card})")
+        print(f"[phase 17] (a) both ranks: the {trees}-tree text "
+              f"{ref_sha[:16]} is the single-process 2-shard mesh's; each "
+              f"rank holds half its bins (the two ranks {children_s:.1f} s)")
+        numbers["gloo"] = {"ranks": ranks, "rows": rows, "chunk": chunk,
+                           "reference_ms_tree": ref_ms,
+                           "reference_resident": ref_resident,
+                           "children_s": children_s}
+        # (c) NCCL, one card a rank
+        for world in worlds:
+            if rehearse or cards < world:
+                why = ("the CPU rehearsal has no NCCL" if rehearse else
+                       f"{cards} visible card(s): NCCL needs one card a "
+                       f"rank, {world} ranks need {world}")
+                print(f"[phase 17] (c) NCCL with {world} ranks did not run: "
+                      f"{why}")
+                continue
+            w_rows, w_chunk = plane_rows(X.shape[0], core.num_groups,
+                                         core.max_group_bin, world)
+            wparams = _plane_params(params, w_rows, "cuda")
+            wparams.pop("metric", None)
+            want = ref_sha
+            if w_rows != rows:
+                want = _plane_reference(lgb, wparams, X, y, w_rows, world,
+                                        dev, trees)[0]
+            t0 = time.perf_counter()
+            nccl = run_plane_children(world, "nccl", w_rows, X.shape[0],
+                                      wparams, trees, {}, tmp)
+            w_s = time.perf_counter() - t0
+            for r in nccl:
+                if r["model_sha"] != want:
+                    raise AssertionError(
+                        f"phase 17 (c) NCCL rank {r['rank']} of {world}: "
+                        "the text differs from the single-process mesh's")
+                print(f"[phase 17] (c) NCCL rank {r['rank']} of {world} on "
+                      f"{r['device']}: {r['ms_tree']:.1f} ms/tree; "
+                      f"construct {r['construct_s']:.2f} s; "
+                      + "; ".join(f"{m} exchange {e['ms']:.2f} ms"
+                                  for m, e in r["exchange"].items())
+                      + f" ({card})")
+            same = ("(a)'s" if w_rows == rows else
+                    f"the single-process {world}-shard mesh's")
+            print(f"[phase 17] (c) NCCL, {world} ranks on {world} cards, "
+                  f"{w_rows} rows: every rank's text {want[:16]} is "
+                  f"{same} ({w_s:.1f} s) ({card})")
+            numbers[f"nccl{world}"] = {"ranks": nccl, "rows": w_rows,
+                                       "children_s": w_s}
+    wall = time.perf_counter() - t_phase
+    numbers["wall_s"] = wall
+    print(f"[phase 17] wall {wall:.1f} s ({card})")
+    return numbers
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--plane-child"]:
+        return plane_child(argv[1:])
     if argv[:1] == ["--dist-child"]:
         return dist_child(argv[1:])
     if argv[:1] == ["--rejoin-child"]:
@@ -6976,6 +7297,12 @@ def main(argv) -> int:
     shard_launches, shard_numbers = check_sharded_learners(
         lgb, kernels, params, X, y, Xv, yv, dev, card, rehearse, dist_ref)
     numbers["fused_route_hist"]["phase16"] = shard_numbers
+
+    # ---- phase 17: the row-sharded multi-process plane (torch.distributed;
+    # the data learner on the xla plan, no kernel)
+    plane_numbers = check_plane(lgb, kernels, params, X, y, core, dev, card,
+                                rehearse)
+    numbers["fused_route_hist"]["phase17"] = plane_numbers
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")
         return 3

@@ -598,8 +598,9 @@ class Booster:
                     num_machines: int = 1) -> "Booster":
         """reference basic.py Booster.set_network: accepted for call
         compatibility; multi-process training goes through
-        parallel.distributed.initialize + collective_transport=tcp
-        (warns like LGBM_NetworkInit)."""
+        parallel.distributed.initialize with collective_transport=tcp
+        (the host-side plane) or xla (torch.distributed, each process
+        holding only its own rows) (warns like LGBM_NetworkInit)."""
         from .capi import LGBM_NetworkInit
         LGBM_NetworkInit(machines if isinstance(machines, str)
                          else ",".join(machines), local_listen_port,

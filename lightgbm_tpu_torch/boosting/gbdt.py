@@ -100,6 +100,18 @@ class GBDT:
         # (parallel/mesh.py ShardingPolicy); None builds it from config
         self.grower = TreeGrower(train_set, config, self.device,
                                  policy=policy)
+        # multi-host (the device plane's finalize_global; JAX
+        # gbdt.py:104-116): the row tensors below hold this rank's block
+        # of the per-rank-padded global layout
+        self._mh = self.grower._mh_local is not None
+        if self._mh and self.objective is not None:
+            if self.objective.is_renew_tree_output:
+                Log.fatal(
+                    "multi-host training does not support "
+                    "RenewTreeOutput objectives (l1/huber/quantile/"
+                    f"mape) yet — got {self.objective.name}; the "
+                    "percentile refit needs a global sort across hosts")
+            self.objective.repad_device_arrays(self._local_padded)
         self.models: List[Tree] = []
         # this session's trees as the grower built them (bin space, on
         # the device) and the shrinkage each was added with: what
@@ -128,10 +140,9 @@ class GBDT:
             self.init_score = float(self.objective.boost_from_score())
         base = _score_rows(train_set.metadata, self.num_class,
                            self.num_data, self.init_score)
-        self.scores = torch.from_numpy(np.stack(
-            [self.grower.pad_rows(b) for b in base])).to(self.device)
-        self._full_counts = torch.from_numpy(self.grower.pad_rows(
-            np.ones(self.num_data, dtype=np.float32))).to(self.device)
+        self.scores = torch.stack([self._local_padded(b) for b in base])
+        self._full_counts = self._local_padded(
+            np.ones(self.num_data, dtype=np.float32))
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
         # the random streams (lightgbm_tpu/boosting/gbdt.py:146-148): one
         # iteration key a boosting iteration on the objective path (bag
@@ -153,8 +164,20 @@ class GBDT:
         self._unflushed = 0
         self._retry_policy = RetryPolicy.from_config(config)
 
+    def _local_padded(self, arr: np.ndarray) -> torch.Tensor:
+        """A global (N,) or (N, ...) row array as this process's padded
+        rows on the device: padded to n_padded (per rank, multi-host)
+        and, multi-host, cut to this rank's block."""
+        g = self.grower
+        return torch.from_numpy(np.ascontiguousarray(
+            g.local_rows(g.pad_rows(np.asarray(arr))))).to(self.device)
+
     # ------------------------------------------------------------------
     def add_valid(self, valid_set: Dataset, name: str) -> None:
+        if self._mh:
+            Log.fatal("multi-host training does not support validation "
+                      "sets yet (metric scores live sharded across "
+                      "hosts) — evaluate after training instead")
         if valid_set.feature_infos() != self.train_set.feature_infos():
             Log.fatal(f"validation set {name!r} is not bin-aligned to "
                       "the training data — create it with "
@@ -205,14 +228,19 @@ class GBDT:
         """(K, n_padded) gradients and hessians of ``scores`` (the
         current scores by default), zero on padded rows
         (lightgbm_tpu/boosting/gbdt.py:304-325)."""
-        s = (self.scores if scores is None else scores)[:, :self.num_data]
+        s = self.scores if scores is None else scores
+        if not self._mh:
+            s = s[:, :self.num_data]
+        # multi-host the objective's arrays follow the per-rank padded
+        # layout, so the gradients run full width (the padded rows'
+        # values are zeroed below)
         if self.num_class == 1:
             g, h = self.objective.get_gradients(s[0])
             g, h = g[None, :], h[None, :]
         else:
             g, h = self.objective.get_gradients(s.t())
             g, h = g.t(), h.t()
-        pad = self.grower.n_padded - self.num_data
+        pad = self.grower.local_padded - g.shape[1]
         if pad:
             g = torch.nn.functional.pad(g, (0, pad))
             h = torch.nn.functional.pad(h, (0, pad))
@@ -245,6 +273,10 @@ class GBDT:
         f32 on the device, zero on padded rows (lightgbm_tpu/boosting/
         gbdt.py _train_one_iter_custom: a flat buffer read class-major,
         as the reference's UpdateOneIterCustom reads it)."""
+        if self._mh:
+            Log.fatal("multi-host training does not support custom "
+                      "gradient functions yet (host gradients cannot "
+                      "follow the sharded row layout)")
         pad = self.grower.n_padded - self.num_data
 
         def dev(a):
@@ -272,7 +304,10 @@ class GBDT:
     def _draw_bag(self, key):
         """A bag from ``key``: the rows whose uniform falls below
         ``bagging_fraction``, padding rows left out."""
-        u = prng.uniform(key, (self.grower.n_padded,), self.device)
+        # drawn over the global padded rows, so every rank cuts its
+        # block of the one bag
+        u = self.grower.local_rows(
+            prng.uniform(key, (self.grower.n_padded,), self.device))
         return (u < self.config.bagging_fraction) & (self._full_counts > 0)
 
     def _use_bagging_fused(self) -> bool:
@@ -655,7 +690,7 @@ class GBDT:
         streams).  DART re-scales finished trees from host-side drop
         state and RF keeps running means of converted outputs; neither
         round-trips through capture_state, as in the JAX package."""
-        return type(self).__name__ in ("GBDT", "GOSS")
+        return type(self).__name__ in ("GBDT", "GOSS") and not self._mh
 
     def capture_state(self) -> Tuple[dict, bool]:
         """Snapshot the full training state for a checkpoint, as host
@@ -764,7 +799,7 @@ class GBDT:
     def _eval_metrics_impl(self, which: str):
         out = []
         if self.train_metrics and which in ("all", "train"):
-            s = self._scores_for_eval(self.scores[:, :self.num_data])
+            s = self._scores_for_eval(self._global_scores())
             for m in self.train_metrics:
                 for name, v in zip(m.names(), m.eval(s, self.objective)):
                     out.append(("training", name, v, m.bigger_is_better))
@@ -775,6 +810,18 @@ class GBDT:
                     for name, v in zip(m.names(), m.eval(s, self.objective)):
                         out.append((vname, name, v, m.bigger_is_better))
         return out
+
+    def _global_scores(self) -> torch.Tensor:
+        """The (K, N) training scores of every row: multi-host, the
+        ranks' rows gathered in rank order over the host group (the
+        metrics cover the global rows, as the JAX package's do)."""
+        if not self._mh:
+            return self.scores[:, :self.num_data]
+        from ..parallel.distributed import _allgather
+        local = self.scores[:, :self.grower._mh_local].cpu().numpy()
+        got = _allgather(np.ascontiguousarray(local))     # (P, K, n_l)
+        return torch.from_numpy(np.ascontiguousarray(np.concatenate(
+            list(got), axis=1))).to(self.device)
 
     def _scores_for_eval(self, scores: torch.Tensor) -> torch.Tensor:
         """(K, N) scores as the metrics take them: (N,), or (N, K)."""

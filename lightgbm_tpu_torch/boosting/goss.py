@@ -21,6 +21,13 @@ from .gbdt import GBDT
 class GOSS(GBDT):
     def __init__(self, config: Config, train_set: Dataset, **kwargs):
         super().__init__(config, train_set, **kwargs)
+        if self._mh:
+            raise NotImplementedError(
+                "boosting=goss on the device plane (a multi-process "
+                "row-sharded dataset): its top-rate cut needs a top-k "
+                "across the ranks' gradients, not ported yet "
+                "(ROADMAP.md queue 1); use boosting=gbdt or the tcp "
+                "plane")
         self._goss_key = prng.PRNGKey(config.bagging_seed + 1)
 
     def _bagging_counts(self, iteration: int):

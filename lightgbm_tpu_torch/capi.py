@@ -475,14 +475,19 @@ def LGBM_NetworkInit(machines: str, local_listen_port: int,
                      listen_time_out: int, num_machines: int) -> int:
     """The reference's socket rendezvous (JAX capi.py:468-480): kept
     for call compatibility, warns and succeeds.  Multi-process training
-    goes through ``parallel.distributed.initialize`` with
-    ``collective_transport=tcp`` (every process passes the
-    coordinator's address, the world size and its rank)."""
+    goes through ``parallel.distributed.initialize`` (every process
+    passes the coordinator's address, the world size and its rank) on
+    one of two planes: ``collective_transport=tcp`` (the host-side TCP
+    transport, every process holding the whole bin matrix) or
+    ``collective_transport=xla`` (torch.distributed over NCCL, or gloo
+    on the CPU; every process holding only its own rows, with
+    ``tree_learner=data``)."""
     if num_machines > 1:
         Log.warning("LGBM_NetworkInit: use "
                     "parallel.distributed.initialize + "
-                    "collective_transport=tcp instead; the machines "
-                    "list is not a rendezvous of the port")
+                    "collective_transport=tcp, or collective_transport=xla "
+                    "(torch.distributed) with tree_learner=data, instead; "
+                    "the machines list is not a rendezvous of the port")
     return 0
 
 
@@ -501,7 +506,8 @@ def LGBM_NetworkInitWithFunctions(num_machines: int, rank: int,
     installed callables only serve the host-side simulation API
     (parallel/collectives.py ExternalCollectives); warns so an
     embedder expecting the reference's transport injection knows to
-    use parallel.distributed.initialize + collective_transport=tcp."""
+    use parallel.distributed.initialize with collective_transport=tcp or
+    xla."""
     from .parallel import collectives
     if num_machines > 1:
         Log.warning(
@@ -509,7 +515,8 @@ def LGBM_NetworkInitWithFunctions(num_machines: int, rank: int,
             "NOT used by training (the port runs its own collectives); "
             "they are only reachable through the host-side simulation "
             "API. Use parallel.distributed.initialize + "
-            "collective_transport=tcp for real multi-process training.")
+            "collective_transport=tcp, or collective_transport=xla "
+            "(torch.distributed), for real multi-process training.")
     collectives.install_external(num_machines, rank,
                                  reduce_scatter_ext_fun,
                                  allgather_ext_fun)

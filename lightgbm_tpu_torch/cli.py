@@ -9,7 +9,7 @@ is given; without a CUDA device the run raises.  ``num_machines > 1``
 with ``machines=``/``machine_list_file=`` goes through the
 call-compatible ``LGBM_NetworkInit`` (which warns), as in the JAX CLI;
 multi-process training is ``parallel.distributed.initialize`` with
-``collective_transport=tcp``.
+``collective_transport=tcp`` or ``xla`` (torch.distributed).
 
 Usage:  python -m lightgbm_tpu_torch config=train.conf [key=value ...]
 """

@@ -86,7 +86,12 @@ found once, on the first shard's device, from that sum (every JAX shard
 finds the same splits from the same sum).  Each shard then applies the
 splits to its own rows; the leaf ids are gathered in row order only at
 the end of the tree, and the scores stay one tensor on the first
-shard's device.
+shard's device.  The root's sums are each shard's sum added in shard
+order.  Multi-host (the device plane, parallel/distributed.py), each
+process is one shard: it holds only its own rows, padded to whole
+chunks of the global row count, the histograms and root sums cross
+processes (rank order), every rank finds the same splits, and the leaf
+ids and scores stay local (no process gathers another's rows).
 
 The voting and feature learners (parallel/mesh.py) grow a tree in
 full-frontier rounds, as the JAX grower does on a mesh (grower.py
@@ -330,7 +335,32 @@ class TreeGrower:
         self.chunk = _pick_chunk(n, self.num_groups, self.max_group_bin,
                                  4 if config.hist_compute_dtype == "float32"
                                  else 2, min_chunk=1024)
-        self.n_padded = -(-n // self.chunk) * self.chunk
+        # multi-host (the device plane, parallel/distributed.py
+        # finalize_global; JAX grower.py:270-292): this process holds
+        # only ITS rows of the bin matrix, ``num_data`` is global and
+        # the chunk comes from the global count.  Every rank pads its
+        # rows to a whole chunk multiple, so the global layout
+        # interleaves per-rank padding blocks (rank 0's rows, rank 0's
+        # pad, rank 1's rows, ...); pad_rows() reproduces it for global
+        # metadata and local_rows() takes this rank's block
+        self._mh_local: Optional[int] = getattr(
+            dataset, "_mh_local_rows", None) if getattr(
+                dataset, "_multihost", False) else None
+        if self._mh_local is not None and not policy.multihost:
+            raise ValueError(
+                "a row-sharded multi-process dataset (finalize_global on "
+                "the device plane) trains on the plane's mesh: set "
+                "tree_learner=data or voting (the JAX grower cannot "
+                "place it on one device either)")
+        if policy.multihost and self._mh_local is None:
+            raise ValueError("the device plane's mesh trains a dataset "
+                             "from parallel.distributed.finalize_global")
+        if self._mh_local is not None:
+            self._mh_nproc = policy.nproc
+            self._mh_per_host = -(-self._mh_local // self.chunk) * self.chunk
+            self.n_padded = self._mh_per_host * self._mh_nproc
+        else:
+            self.n_padded = -(-n // self.chunk) * self.chunk
         policy.set_rows(self.n_padded)
         self.sharded = policy.row_ranges is not None
         # sub-byte storage (packing.py): the device matrix IS the storage
@@ -392,8 +422,7 @@ class TreeGrower:
         self.packed_dispatch = bool(getattr(config, "hist_packed_dispatch",
                                             True))
 
-        valid = np.zeros(self.n_padded, bool)
-        valid[:n] = True
+        valid = self.local_rows(self.pad_rows(np.ones(n, bool), False))
         self.row_valid = torch.from_numpy(valid).to(device)
         self.route_cols = ROUTE_FIXED_COLS + (self.max_feature_bin + 7) // 8
         self.binsT = self.bins = self.ohb = None
@@ -415,10 +444,16 @@ class TreeGrower:
         that divides the shard's rows and stays within the serial
         chunk's one-hot working set (JAX grower.py:832-838)."""
         pol = self.policy
-        # each device's rows straight onto it, from the single matrix or
-        # a sharded construction's row blocks (no padded host copy)
-        self.shard_bins = pol.place_row_shards(self._row_blocks(dataset),
-                                               self.n_padded)
+        if self._mh_local is not None:
+            # multi-host: this rank's rows, padded to its block
+            self.shard_bins = [pol.place_local_rows(dataset.group_bins,
+                                                    self._mh_per_host)]
+        else:
+            # each device's rows straight onto it, from the single
+            # matrix or a sharded construction's row blocks (no padded
+            # host copy)
+            self.shard_bins = pol.place_row_shards(
+                self._row_blocks(dataset), self.n_padded)
         self.shard_valid = pol.place_rows(valid)
         lo, hi = pol.row_ranges[0]
         local_n = hi - lo
@@ -632,10 +667,35 @@ class TreeGrower:
         return lo, hi, shift, oor, dense
 
     def pad_rows(self, arr: np.ndarray, fill=0.0) -> np.ndarray:
+        """Pad a global row array ((N,) or (N, ...)) to n_padded rows
+        (JAX grower.py pad_rows :731-745).  Multi-host: the padding is
+        interleaved per rank, the assembled shard layout."""
+        if self._mh_local is not None:
+            nl, ph = self._mh_local, self._mh_per_host
+            pad = np.full((ph - nl,) + tuple(arr.shape[1:]), fill,
+                          dtype=arr.dtype)
+            parts = []
+            for h in range(self._mh_nproc):
+                parts += [arr[h * nl:(h + 1) * nl], pad]
+            return np.concatenate(parts)
         pad = self.n_padded - self.num_data
         if pad == 0:
             return arr
-        return np.concatenate([arr, np.full(pad, fill, dtype=arr.dtype)])
+        return np.concatenate([arr, np.full((pad,) + tuple(arr.shape[1:]),
+                                            fill, dtype=arr.dtype)])
+
+    def local_rows(self, arr):
+        """This process's rows of a padded global row array or tensor
+        (its per-rank block multi-host; the whole array otherwise): the
+        rows the grower's tensors hold."""
+        return self.policy.local_slice(arr)
+
+    @property
+    def local_padded(self) -> int:
+        """Rows of this process's padded tensors (n_padded in a single
+        process, the per-rank block multi-host)."""
+        return (self.n_padded if self._mh_local is None
+                else self._mh_per_host)
 
     # ------------------------------------------------------------------
     def _init_tree(self) -> Dict[str, torch.Tensor]:
@@ -660,7 +720,7 @@ class TreeGrower:
         holds every valid row's sums."""
         L = self.num_leaves
         d = self.device
-        totals = compute_root_totals(grad, hess, counts, self.row_valid)
+        totals = self._root_totals(grad, hess, counts)
         st = dict(
             leaf_sum_grad=torch.zeros(L, device=d),
             leaf_sum_hess=torch.zeros(L, device=d),
@@ -681,13 +741,31 @@ class TreeGrower:
         tree["leaf_count"][0] = totals[2]
         return st, tree
 
+    def _root_totals(self, grad, hess, counts):
+        """The root's (sum_grad, sum_hess, count).  Rows sharded, each
+        shard sums its own rows and the shards' sums are added in shard
+        (then rank) order — the JAX mesh's local contraction and psum —
+        so a rank holds the same bits as the single-process mesh whose
+        shards are the ranks' rows."""
+        if not self.sharded:
+            return compute_root_totals(grad, hess, counts, self.row_valid)
+        if self.policy.multihost:
+            part = compute_root_totals(grad, hess, counts, self.row_valid)
+            return self.policy.collectives().allreduce_sum([part])[0]
+        from ..parallel.collectives import _sum_in_order
+        return _sum_in_order(
+            [compute_root_totals(grad[lo:hi], hess[lo:hi], counts[lo:hi],
+                                 self.row_valid[lo:hi])
+             for lo, hi in self.policy.row_ranges], self.device)
+
     def train_tree(self, grad: torch.Tensor, hess: torch.Tensor,
                    counts: torch.Tensor, feature_mask: torch.Tensor,
                    qkey: Optional[torch.Tensor] = None
                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                               Optional[torch.Tensor]]:
         """Grow one tree.  grad/hess/counts are (n_padded,) f32 with
-        zeros on padded rows; ``qkey`` (a ``utils/prng.py`` key) rounds
+        zeros on padded rows (multi-host: this rank's
+        ``local_padded`` rows); ``qkey`` (a ``utils/prng.py`` key) rounds
         the int8 weights stochastically.  Returns (tree arrays —
         bin-space, with ``num_leaves`` as a python int —, final leaf
         ids, each row's post-route leaf value on the fused plans, else
@@ -941,7 +1019,6 @@ class TreeGrower:
         features' histograms alone are summed across shards, and the
         finders run on that compact set.  ``top_k``'s ties go to the
         lower feature (``lax.top_k``), so ``sel`` is a stable sort."""
-        from ..parallel.collectives import Collectives, exchange_histograms
         F = self.num_features
         cfg = self.cfg_scalars
         d_mesh = self.policy.mesh.size
@@ -971,12 +1048,12 @@ class TreeGrower:
             votes.append(((gains >= kth) & torch.isfinite(gains)
                           ).to(torch.float32))
             feats.append(feat_hist)
-        total = Collectives(self.policy.row_axis).allreduce_sum(
+        total = self.policy.collectives().allreduce_sum(
             votes)[0].sum(dim=0)
         sel = torch.sort(total.to(self.device), descending=True,
                          stable=True).indices[:k2]
-        hist = exchange_histograms(
-            [fh[:, sel.to(fh.device)] for fh in feats], mode="f32")
+        hist = self._exchange([fh[:, sel.to(fh.device)] for fh in feats],
+                              "f32")
         is_cat = self.f_is_cat[sel]
         block = find_best_split_block(
             hist, st["leaf_sum_grad"], st["leaf_sum_hess"],
@@ -994,7 +1071,6 @@ class TreeGrower:
         _hist_xla_rowsharded :817-866): each shard's xla histogram of
         its own rows on its device, then the cross-shard sum under the
         ``hist_exchange`` codec, on the first shard's device."""
-        from ..parallel.collectives import exchange_histograms
         local = [compute_group_histograms(
             b, ws[:, 0], ws[:, 1], ws[:, 2], lid,
             num_leaves=self.num_leaves, max_group_bin=self.max_group_bin,
@@ -1002,9 +1078,19 @@ class TreeGrower:
             chunk=self.shard_chunk, slots=slots.to(b.device),
             packed_groups=self.pack_P)
             for b, ws, lid in zip(self.shard_bins, w, leaf_id)]
-        return exchange_histograms(
-            local, mode=str(getattr(self.config, "hist_exchange", "f32")
-                            ).lower(), world=len(local))
+        return self._exchange(local, str(getattr(
+            self.config, "hist_exchange", "f32")).lower())
+
+    def _exchange(self, local, mode: str):
+        """The shards' histograms summed under the ``hist_exchange``
+        codec: in this process, or multi-host across the device plane's
+        ranks (each holds one shard), the same bits."""
+        from ..parallel.collectives import (exchange_histograms,
+                                            exchange_histograms_ranks)
+        if self.policy.multihost:
+            return exchange_histograms_ranks(
+                local[0], mode, self.policy.collectives())
+        return exchange_histograms(local, mode=mode, world=len(local))
 
     def _use_packed(self, k: int) -> bool:
         """The JAX strip ladder (grower.py _packed_dispatch :870-901) for

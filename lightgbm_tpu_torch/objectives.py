@@ -101,6 +101,19 @@ class Objective:
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def repad_device_arrays(self, pad_place) -> None:
+        """Multi-host layout fixup (JAX objectives.py:117-129): every
+        device tensor with a leading dimension of ``num_data`` rows (the
+        label, the weights and each objective's own per-row arrays) is
+        re-laid as this rank's block of the per-rank-padded global
+        layout.  Host-side statistics (label means, class counts) were
+        computed from the unpadded global metadata in init().
+        ``pad_place(np_arr) -> tensor``."""
+        for name, val in list(self.__dict__.items()):
+            if isinstance(val, torch.Tensor) and val.dim() >= 1 \
+                    and val.shape[0] == self.num_data:
+                self.__dict__[name] = pad_place(val.cpu().numpy())
+
     @property
     def num_model_per_iteration(self) -> int:
         return 1

@@ -14,6 +14,12 @@ the result is the same bits on the CPU and on the card.  The host
 backend (numpy, single process) makes the distributed code paths
 unit-testable without any devices.
 
+Across processes (the ``collective_transport=xla`` device plane,
+parallel/distributed.py) :class:`ProcessGroupCollectives` runs the same
+calls over the torch.distributed process group, each rank passing its
+one shard, and :func:`exchange_histograms_ranks` the histogram codec:
+the bits of the in-process mesh's, since both sum in rank order.
+
 Each collective is counted when it is called (``collective_<kind>_calls``
 / ``_bytes``).  The JAX package also reads the collectives XLA inserts
 back from compiled module text (``scan_compiled_collectives``); torch
@@ -157,6 +163,91 @@ class Collectives:
         return len(xs) if xs is not None else 1
 
 
+class ProcessGroupCollectives(Collectives):
+    """The same collectives over the processes of the device plane
+    (parallel/distributed.py ``plane()``): each rank passes its shards
+    (one: a rank holds one device's rows) and gets one result per
+    shard, on the shard's device.  Float sums are in rank order, the
+    bits of :func:`_sum_in_order` over the ranks' tensors: with two
+    ranks a native all-reduce (a + b is b + a), from three on a gather
+    and the ordered sum, since NCCL's and gloo's rings do not add in
+    rank order.  Uses only ``all_reduce`` and ``all_gather``, the two
+    collectives gloo also runs on CUDA tensors."""
+
+    def __init__(self, plane):
+        super().__init__("data")
+        self.plane = plane
+
+    @staticmethod
+    def _one(xs) -> torch.Tensor:
+        if len(xs) != 1:
+            raise NotImplementedError(
+                f"a rank of the device plane holds one shard, got "
+                f"{len(xs)}: several local devices a rank are not "
+                "supported (ROADMAP.md queue 1)")
+        return xs[0]
+
+    def _gather(self, x: torch.Tensor) -> List[torch.Tensor]:
+        import torch.distributed as dist
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.plane.world)]
+        dist.all_gather(parts, x)
+        return parts
+
+    def sum_ranks(self, x: torch.Tensor, kind: str = "allreduce"
+                  ) -> torch.Tensor:
+        """The ranks' ``x`` summed in rank order (a float ``x``; integer
+        sums are exact in any order and take a native all-reduce)."""
+        import torch.distributed as dist
+        _note_collective(kind, x)
+        if self.plane.world == 2 or not x.is_floating_point():
+            out = x.clone()
+            dist.all_reduce(out)
+            return out
+        return _sum_in_order(self._gather(x), x.device)
+
+    def allreduce_sum(self, xs):
+        return [self.sum_ranks(self._one(xs))]
+
+    def reduce_scatter(self, xs, tiled_axis: int = 0):
+        x = self._one(xs)
+        total = self.sum_ranks(x, "reduce_scatter")
+        return [torch.chunk(total, self.plane.world,
+                            dim=tiled_axis)[self.plane.rank].clone()]
+
+    def all_gather(self, xs, axis: int = 0):
+        x = self._one(xs)
+        _note_collective("allgather", x)
+        return [torch.cat(self._gather(x), dim=axis)]
+
+    def _reduce(self, xs, op):
+        import torch.distributed as dist
+        out = self._one(xs).clone()
+        _note_collective("allreduce", out)
+        dist.all_reduce(out, op={torch.minimum: dist.ReduceOp.MIN,
+                                 torch.maximum: dist.ReduceOp.MAX}[op])
+        return [out]
+
+    def global_mean(self, xs):
+        return [s / self.plane.world for s in self.allreduce_sum(xs)]
+
+    def argmax_sync(self, values, payloads):
+        """Every rank ends with the payload of the best gain (the lowest
+        rank on a tie, as ``jnp.argmax``)."""
+        v = self._one(values).reshape(1).to(torch.float32)
+        p = self._one(payloads)
+        _note_collective("allgather", v)
+        best = int(torch.argmax(torch.cat(self._gather(v)).cpu()))
+        _note_collective("allgather", p)
+        return [self._gather(p)[best]]
+
+    def rank(self, shard: int = 0) -> int:
+        return self.plane.rank
+
+    def num_machines(self, xs=None) -> int:
+        return self.plane.world
+
+
 class HostCollectives(Collectives):
     """Single-process fake backend — the LGBM_NetworkInitWithFunctions
     analog for unit tests: simulates a k-way reduction by applying the
@@ -229,6 +320,50 @@ def _check_mode(mode: str) -> None:
                          f"{HIST_EXCHANGE_MODES}, got {mode!r}")
 
 
+def _deltas(h: torch.Tensor) -> torch.Tensor:
+    """The delta code along the bin axis (-2): bin 0, then each bin
+    minus the one before."""
+    return torch.cat([h[..., :1, :], torch.diff(h, dim=-2)], dim=-2)
+
+
+def _delta_stat(d: torch.Tensor) -> torch.Tensor:
+    """A shard's per-(leaf, group, channel) scale payload: the largest
+    |delta| at bin position 0 and the largest non-integrality residual
+    at position 1.  The shards' payloads are max'd."""
+    return torch.cat([d.abs().amax(dim=-2, keepdim=True),
+                      (d - torch.round(d)).abs().amax(dim=-2,
+                                                      keepdim=True)],
+                     dim=-2)
+
+
+def _grid(stat: torch.Tensor, qmax: int) -> torch.Tensor:
+    """The shared quantization grid from the max'd payload.  Channels
+    whose deltas are integral on EVERY shard and fit qmax (the count
+    channel always; grad/hess too under the unit-gradient objectives,
+    e.g. regression_l1) ship verbatim on the unit grid, and the
+    reconstruction is then exact."""
+    amax, frac = stat[..., :1, :], stat[..., 1:, :]
+    exact = (frac == 0) & (amax <= qmax)
+    return torch.where(exact, torch.full_like(amax, float(qmax)),
+                       torch.clamp_min(amax, 1e-30))
+
+
+def _quantize(d: torch.Tensor, denom: torch.Tensor, qmax: int, qdt):
+    return torch.clamp(torch.round(d / denom.to(d.device) * qmax),
+                       -qmax, qmax).to(qdt)
+
+
+def _dequantize(qsum: torch.Tensor, denom: torch.Tensor,
+                qmax: int) -> torch.Tensor:
+    """The f32 histogram from the int32 sum of the shards' integers, in
+    the JAX mesh program's arithmetic: ``qsum * (denom * f32(1/qmax))``
+    and the 16-wide blocked cumsum along the bins (``cumsum_f32``)."""
+    recip = torch.tensor(1.0 / qmax, dtype=torch.float32,
+                         device=qsum.device)
+    deq = qsum.to(torch.float32) * (denom * recip)
+    return cumsum_f32(deq.transpose(-1, -2)).transpose(-1, -2)
+
+
 def exchange_histograms(hists: Sequence[torch.Tensor], mode: str = "f32",
                         world: Optional[int] = None) -> torch.Tensor:
     """Cross-shard histogram sum under the ``hist_exchange`` codec.
@@ -259,38 +394,68 @@ def exchange_histograms(hists: Sequence[torch.Tensor], mode: str = "f32",
             _note_collective("hist_exchange", h)
         return _sum_in_order(hists, dev)
     qmax, qdt = _exchange_qparams(mode, world)
-    deltas = [torch.cat([h[..., :1, :], torch.diff(h, dim=-2)], dim=-2)
-              for h in hists]
+    deltas = [_deltas(h) for h in hists]
     # ONE scale per (leaf, group, channel), shared across shards via a
     # max of the shards' maxima, so every shard quantizes against the
-    # same grid and the integer sum dequantizes once.  The
-    # non-integrality residual rides the same payload (bin axis,
-    # position 1): channels whose deltas are integral on EVERY shard and
-    # fit qmax (the count channel always; grad/hess too under the
-    # unit-gradient objectives, e.g. regression_l1) ship verbatim on the
-    # unit grid, and the reconstruction is then exact
+    # same grid and the integer sum dequantizes once
     stat = None
     for d in deltas:
-        s = torch.cat([d.abs().amax(dim=-2, keepdim=True),
-                       (d - torch.round(d)).abs().amax(dim=-2,
-                                                       keepdim=True)],
-                      dim=-2).to(dev)
+        s = _delta_stat(d).to(dev)
         stat = s if stat is None else torch.maximum(stat, s)
-    amax, frac = stat[..., :1, :], stat[..., 1:, :]
-    exact = (frac == 0) & (amax <= qmax)
-    denom = torch.where(exact, torch.full_like(amax, float(qmax)),
-                        torch.clamp_min(amax, 1e-30))
+    denom = _grid(stat, qmax)
     qsum = None
     for d in deltas:
-        den = denom.to(d.device)
-        q = torch.clamp(torch.round(d / den * qmax), -qmax, qmax).to(qdt)
+        q = _quantize(d, denom, qmax, qdt)
         _note_collective("hist_exchange", q)
         _note_collective("hist_exchange_scale", stat)
         q = q.to(dev).to(torch.int32)
         qsum = q if qsum is None else qsum + q
-    recip = torch.tensor(1.0 / qmax, dtype=torch.float32, device=dev)
-    deq = qsum.to(torch.float32) * (denom * recip)
-    return cumsum_f32(deq.transpose(-1, -2)).transpose(-1, -2)
+    return _dequantize(qsum, denom, qmax)
+
+
+def exchange_histograms_ranks(hist: torch.Tensor, mode: str,
+                              coll: ProcessGroupCollectives
+                              ) -> torch.Tensor:
+    """:func:`exchange_histograms` across the device plane's ranks:
+    this rank's (L, G, B, 3) f32 histogram in, the reconstructed global
+    sum out, bit for bit the in-process codec over the ranks'
+    histograms (every rank gets the same bits).
+
+    "f32" sums in rank order (``ProcessGroupCollectives.sum_ranks``).
+    "q16"/"q8": the (L, G, 2, 3) scale payloads are all-reduced with
+    max, each rank quantizes against that shared grid, the integers
+    are summed exactly and dequantized as in-process.  q8 all-reduces
+    its int8 payload natively (``qmax = 127 // world`` leaves the
+    headroom).  Neither gloo nor NCCL has int16, so q16 all-gathers its
+    int16 payload viewed as bytes and each rank sums the ranks' int16
+    values in int32: the wire carries 2 bytes a value.  The counters
+    take what this rank puts on the wire, as the in-process codec's
+    take each shard's payload: ``collective_hist_exchange_bytes`` (the
+    f32 histogram, or the int payload) and, under q16/q8,
+    ``collective_hist_exchange_scale_bytes``."""
+    import torch.distributed as dist
+    _check_mode(mode)
+    if mode == "f32":
+        return coll.sum_ranks(hist, "hist_exchange")
+    world = coll.plane.world
+    qmax, qdt = _exchange_qparams(mode, world)
+    d = _deltas(hist)
+    stat = _delta_stat(d)
+    _note_collective("hist_exchange_scale", stat)
+    dist.all_reduce(stat, op=dist.ReduceOp.MAX)
+    denom = _grid(stat, qmax)
+    q = _quantize(d, denom, qmax, qdt).contiguous()
+    _note_collective("hist_exchange", q)
+    if mode == "q8":
+        dist.all_reduce(q)
+        qsum = q.to(torch.int32)
+    else:
+        parts = coll._gather(q.view(torch.int8))
+        qsum = None
+        for p in parts:
+            v = p.view(torch.int16).to(torch.int32)
+            qsum = v if qsum is None else qsum + v
+    return _dequantize(qsum, denom, qmax)
 
 
 def host_exchange_histograms(per_shard_hists, mode: str = "f32"):

@@ -35,7 +35,11 @@ mesh runs every shard's work in this process, one after the other.
 
 Multi-process training on the tcp plane (parallel/transport.py) needs
 no mesh: every process runs the single-device program on the
-replicated bins (parallel/distributed.py finalize_global).
+replicated bins (parallel/distributed.py finalize_global).  On the
+device plane (``collective_transport=xla``, torch.distributed) the mesh
+spans the world, one device a rank on the row axis (JAX mesh.py:69-81,
+``multihost``): each process holds only its own row shard, and its
+policy knows only its own device and row range.
 """
 from __future__ import annotations
 
@@ -92,6 +96,10 @@ def build_mesh(config: Config, device=None) -> Optional[Mesh]:
     run.  Like the JAX package: a ``mesh_shape`` needing more devices
     than there are warns and trains serial, and a parallel learner on
     one device trains serial (config.py:1106-1108)."""
+    from .distributed import plane
+    pl = plane()
+    if pl is not None and pl.world > 1:
+        return _world_mesh(config, pl)
     if config.tree_learner == "serial" and not config.mesh_shape:
         return None
     devices = mesh_devices(device if device is not None
@@ -116,6 +124,40 @@ def build_mesh(config: Config, device=None) -> Optional[Mesh]:
     return Mesh(devices, (len(devices),), (axis,))
 
 
+def _world_mesh(config: Config, pl) -> Optional[Mesh]:
+    """The device plane's mesh: one device a rank, every rank on the
+    row axis (a JAX mesh over ``jax.devices()``, one device a process).
+    None for the serial learner with no ``mesh_shape``, as in the JAX
+    package (whose grower then cannot place a multi-host dataset: the
+    grower raises).  The feature learner's vertical partition has no
+    multi-host placement in the JAX package (JAX mesh.py place_bins
+    :115-126), and a rank with several local devices is not supported:
+    both raise."""
+    if config.tree_learner == "feature":
+        raise NotImplementedError(
+            "tree_learner=feature on the device plane "
+            "(collective_transport=xla): its vertical partition has no "
+            "multi-process placement (the JAX package's place_bins has "
+            "no multi-host branch either); use tree_learner=data or "
+            "voting")
+    if config.tree_learner == "serial" and not config.mesh_shape:
+        return None
+    shape = tuple(int(s) for s in config.mesh_shape) or (pl.world,)
+    axes = tuple(config.mesh_axes) or (DATA_AXIS,)
+    if len(axes) != len(shape):
+        raise ValueError(f"mesh_axes {axes} must name each of the "
+                         f"{len(shape)} axes of mesh_shape {shape}")
+    row = DATA_AXIS if DATA_AXIS in axes else axes[0]
+    if int(np.prod(shape)) != pl.world or \
+            shape[axes.index(row)] != pl.world:
+        raise NotImplementedError(
+            f"mesh_shape {shape} over a device plane of {pl.world} "
+            "processes: the plane's mesh is one device a rank on the "
+            f"row axis ({pl.world},); a rank with several local devices "
+            "is not supported (ROADMAP.md queue 1)")
+    return Mesh([pl.device] * pl.world, shape, axes)
+
+
 class ShardingPolicy:
     """Per-learner sharding decisions, consumed by the grower (JAX
     mesh.py ShardingPolicy).  The JAX ``row_spec`` is ``row_axis`` and,
@@ -126,13 +168,18 @@ class ShardingPolicy:
 
     def __init__(self, config: Config, mesh: Optional[Mesh]):
         from ..telemetry import TELEMETRY
-        from .distributed import _num_processes
+        from .distributed import _num_processes, _process_index, plane
         self.mesh = mesh
         self.learner = config.tree_learner
-        # processes of the active world (the tcp plane's, else 1); the
-        # row-sharded multi-process plane is item 5b (iii), so a mesh
-        # is always one process's
+        # processes of the active world (the tcp plane's or the device
+        # plane's, else 1); on the device plane the mesh spans the
+        # processes (JAX mesh.py:69-81): ``multihost``, each process
+        # holding only its own row shard.  A tcp mesh is one process's
         self.nproc = _num_processes()
+        self.rank = _process_index()
+        self.plane = plane()
+        self.multihost = (mesh is not None and self.plane is not None
+                          and self.nproc > 1)
         self.row_ranges: Optional[List[Tuple[int, int]]] = None
         self.row_axis: Optional[str] = None
         self.feature_axis: Optional[str] = None
@@ -154,7 +201,8 @@ class ShardingPolicy:
 
     def set_rows(self, n_padded: int) -> None:
         """Lay ``n_padded`` rows over the row axis: shard s of d holds
-        rows [s * n_padded / d, (s + 1) * n_padded / d)."""
+        rows [s * n_padded / d, (s + 1) * n_padded / d).  Multi-host,
+        ``row_ranges`` holds this rank's range only (its shard)."""
         if self.row_axis is None:
             return
         d = self.mesh.shape[self.row_axis]
@@ -163,6 +211,8 @@ class ShardingPolicy:
                              f"{d} mesh devices")
         per = n_padded // d
         self.row_ranges = [(s * per, (s + 1) * per) for s in range(d)]
+        if self.multihost:
+            self.row_ranges = self.row_ranges[self.rank:self.rank + 1]
 
     @property
     def devices(self) -> List[torch.device]:
@@ -171,17 +221,53 @@ class ShardingPolicy:
     @property
     def row_devices(self) -> List[torch.device]:
         """The row shards' devices: along the row axis, at index 0 of
-        every other axis (the replicas there would repeat the work)."""
+        every other axis (the replicas there would repeat the work).
+        Multi-host, this rank's device."""
+        if self.multihost:
+            return [self.plane.device]
         k = self.mesh.axis_names.index(self.row_axis)
         arr = np.moveaxis(self.mesh.devices, k, 0)
         return list(arr.reshape(arr.shape[0], -1)[:, 0])
 
     def place_rows(self, arr) -> List[torch.Tensor]:
         """Split a row-indexed tensor or array ((N,) or (N, ...)) into
-        the shards' row ranges, each on its device."""
+        the shards' row ranges, each on its device.  Multi-host, ``arr``
+        holds this rank's rows already (the layout the grower and the
+        booster keep): one shard, on this rank's device."""
         t = torch.as_tensor(arr)
+        if self.multihost:
+            return [t.to(self.plane.device)]
         return [t[lo:hi].to(dev) for (lo, hi), dev
                 in zip(self.row_ranges, self.row_devices)]
+
+    def local_slice(self, arr, axis: int = 0):
+        """This rank's rows of an ASSEMBLED global row array (rank r's
+        rows at [r * N / nproc, (r + 1) * N / nproc) along ``axis``;
+        JAX mesh.py _local_slice :234-241); the array itself in a
+        single process."""
+        if not self.multihost:
+            return arr
+        per = arr.shape[axis] // self.nproc
+        idx = [slice(None)] * arr.ndim
+        idx[axis] = slice(self.rank * per, (self.rank + 1) * per)
+        return arr[tuple(idx)]
+
+    def place_local_rows(self, local_arr, n_rows: Optional[int] = None
+                         ) -> torch.Tensor:
+        """Multi-host: this rank's rows (an array or read-only memmap),
+        zero-padded to ``n_rows``, on its device (JAX mesh.py
+        place_local_rows :122-135, the seam pre-partitioned loading
+        feeds)."""
+        from ..utils.device import rows_to_device
+        return rows_to_device(local_arr, self.plane.device, n_rows)
+
+    def collectives(self):
+        """The row axis's collectives: over the device plane's processes
+        multi-host, else over the in-process shards."""
+        from .collectives import Collectives, ProcessGroupCollectives
+        if self.multihost:
+            return ProcessGroupCollectives(self.plane)
+        return Collectives(self.row_axis)
 
     def place_row_shards(self, shard_arrays, n_padded: int, device=None):
         """A sharded construction's bins (JAX mesh.py:144-215):
@@ -224,7 +310,11 @@ class ShardingPolicy:
 
     def gather_rows(self, parts: Sequence[torch.Tensor],
                     device) -> torch.Tensor:
-        """The shards' row ranges concatenated in order on ``device``."""
+        """The shards' row ranges concatenated in order on ``device``.
+        Multi-host, this rank's shard alone: no process gathers
+        another's rows."""
+        if self.multihost:
+            return parts[0]
         return torch.cat([p.to(device) for p in parts])
 
     @property

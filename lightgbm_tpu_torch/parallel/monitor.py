@@ -60,11 +60,12 @@ def _default_gather(seconds: float) -> Optional[List[float]]:
     exchange directly — the straggler monitor then works on the
     host-side data plane with no other distributed runtime, and the
     round is traced/accounted as a ``transport_round`` like every
-    other transport collective.  Otherwise the exchange routes through
-    ``distributed._allgather`` so it passes the
-    ``collectives.allgather`` fault seam and shows up in the
-    ``collective_host_allgather_*`` accounting like every other host
-    collective."""
+    other transport collective.  Otherwise (the device plane,
+    ``collective_transport=xla``) the exchange routes through
+    ``distributed._allgather``, over the plane's gloo host group (never
+    through a card), so it passes the ``collectives.allgather`` fault
+    seam and shows up in the ``collective_host_allgather_*`` accounting
+    like every other host collective."""
     import numpy as np
 
     from . import transport as _transport

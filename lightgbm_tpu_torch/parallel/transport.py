@@ -28,10 +28,12 @@ Selection rides ``Config.collective_transport``:
 
 * ``tcp``  — this transport (host-side numpy collectives); every
   process runs the single-device program on the replicated bins,
-* ``auto`` — TCP for any world above one process,
-* ``xla``  — the cross-process device plane; in the port that is
-  ``torch.distributed`` over NCCL, which is not ported yet
-  (ROADMAP.md queue 1, item 5b (iii)) and raises.
+* ``auto`` — TCP for a world above one process where the device
+  plane cannot run (``device=cpu``, or no NCCL), else ``xla``,
+* ``xla``  — the cross-process device plane: in the port
+  ``torch.distributed`` (NCCL across cards, gloo on the CPU), each
+  process holding only its own rows of the bin matrix
+  (parallel/distributed.py).
 
 Reliability contract: every communication round fires the
 ``transport.round`` fault seam (``peer_drop``/``peer_slow`` chaos
@@ -1700,34 +1702,40 @@ def active() -> Optional[TcpTransport]:
     return _active
 
 
-def xla_multiprocess_available() -> bool:
-    """Whether a cross-process device plane can run here.  The port's
-    counterpart of JAX's cross-process XLA collectives is a
-    ``torch.distributed`` plane, which is not ported yet (ROADMAP.md
-    queue 1, item 5b (iii)): always False, so ``auto`` resolves to tcp."""
-    return False
+def xla_multiprocess_available(device=None) -> bool:
+    """Whether the cross-process device plane can run for ``device``
+    (a config's ``device``, "cuda" by default).  The JAX package's rule
+    is "a non-CPU backend" (its CPU client runs no multiprocess
+    computations); the port's counterpart is ``torch.distributed`` over
+    NCCL on CUDA cards.  gloo runs the plane on the CPU too, but only
+    when asked for explicitly (``collective_transport=xla``), so
+    ``auto`` on the CPU stays tcp, as in the JAX package."""
+    if str(device if device is not None else "cuda").lower() != "cuda":
+        return False
+    try:
+        import torch
+        import torch.distributed as dist
+        return bool(torch.cuda.is_available() and dist.is_available()
+                    and dist.is_nccl_available())
+    except Exception:  # pragma: no cover - no torch.distributed at all
+        return False
 
 
 def resolve_transport_mode(config=None,
                            num_processes: Optional[int] = None) -> str:
-    """``collective_transport`` resolution: ``tcp`` wins; ``auto``
-    picks tcp exactly when a multi-process world is requested (and
-    "xla", meaning no plane at all, for one process); an explicit
-    ``xla`` raises until the torch.distributed plane is ported."""
+    """``collective_transport`` resolution (JAX transport.py:1713-1731):
+    explicit ``xla``/``tcp`` win; ``auto`` picks tcp exactly when a
+    multi-process world is requested and the device plane is
+    unavailable for the config's ``device``."""
     mode = str(getattr(config, "collective_transport", "auto")
                or "auto").lower()
     if mode not in TRANSPORT_MODES:
         raise ValueError(f"collective_transport must be one of "
                          f"{TRANSPORT_MODES}, got {mode!r}")
-    if mode == "xla":
-        raise NotImplementedError(
-            "collective_transport=xla is not ported yet: the port's "
-            "cross-process device plane (torch.distributed over NCCL) is "
-            "ROADMAP.md queue 1, item 5b (iii); use "
-            "collective_transport=tcp")
     if mode != "auto":
         return mode
     world = int(num_processes or 1)
-    if world > 1 and not xla_multiprocess_available():
+    if world > 1 and not xla_multiprocess_available(
+            getattr(config, "device", "cuda")):
         return "tcp"
     return "xla"

@@ -97,16 +97,15 @@ def test_unported_plans_raise():
     X, y = _xy()
     # the data learner trains (on the CPU: a mesh of the CPU's virtual
     # shards, on the xla plan), as do the feature and voting learners
-    # and sharded construction; the cross-process device plane is
-    # item 5b (iii)
+    # and sharded construction; the cross-process device plane resolves
+    # (tests/test_torch_distributed.py trains on it)
     bst = tlgb.train(dict(_MAIN, device="cpu", tree_learner="data"),
                      tlgb.Dataset(X, label=y), 1, verbose_eval=False,
                      keep_training_booster=True)
     assert bst.gbdt.grower.sharded and bst.gbdt.grower.plan.name == "xla"
-    from lightgbm_tpu_torch.parallel import distributed
-    with pytest.raises(NotImplementedError, match=r"item 5b \(iii\)"):
-        distributed.initialize("localhost:1", 2, 0, config=tlgb.Config(
-            collective_transport="xla"))
+    from lightgbm_tpu_torch.parallel import transport
+    assert transport.resolve_transport_mode(
+        tlgb.Config(collective_transport="xla"), 2) == "xla"
     with pytest.raises(ValueError, match="device"):
         tlgb.Config.from_params({"device": "tpu"})
 

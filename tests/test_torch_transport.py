@@ -758,14 +758,16 @@ def test_resolve_transport_mode_matrix():
     # explicit tcp wins
     assert T.resolve_transport_mode(
         Config(collective_transport="tcp"), 1) == "tcp"
-    # the cross-process device plane is item 5b
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        T.resolve_transport_mode(Config(collective_transport="xla"), 8)
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    # explicit xla wins: the cross-process device plane, which on
+    # device=cuda needs a card (none here) and says so
+    assert T.resolve_transport_mode(
+        Config(collective_transport="xla"), 8) == "xla"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         D.initialize("localhost:1", 2, 0,
                      config=Config(collective_transport="xla"))
+    assert D.plane() is None
     # auto: single process never needs a plane; more than one process
-    # takes the TCP plane (the port has no other yet)
+    # takes the TCP plane where the device plane cannot run (no card)
     assert T.resolve_transport_mode(Config(), 1) == "xla"
     assert not T.xla_multiprocess_available()
     assert T.resolve_transport_mode(Config(), 2) == "tcp"
