@@ -374,6 +374,31 @@ Phases, in order; any failure exits nonzero:
      warnings.showwarning hook); the warnings outside it printed by line;
      (c) the same counts for a warm Booster.predict of the held-out rows
      (kernel C must launch);
+ 19. the C embedding of the C API and the plane's last two learners:
+     (a) liblgbm_tpu_torch.so (lightgbm_tpu_torch/native/capi.py
+     build_capi: g++ over the embed and Python's headers) loaded into
+     this process with ctypes.PyDLL drives the bench rows through
+     LGBM_DatasetCreateFromMat -> LGBM_BoosterCreate -> 10 x
+     LGBM_BoosterUpdateOneIter with phase 3's params: every Tree= block
+     of LGBM_BoosterSaveModelToString is phase 3's main-path text byte
+     for byte, and A and B launch as often as in phase 3 (ms/tree);
+     the text loaded back through LGBM_BoosterLoadModelFromString,
+     LGBM_BoosterResetParameter(device=cuda) and
+     LGBM_BoosterPredictForMat on the held-out rows equals phase 4's
+     Booster.predict bit for bit, kernel C launched (ms, the first call
+     and a warm one); (b) the port's C host
+     (tests/torch_native_capi_driver.c) in a subprocess with no Python
+     on its stack prints NATIVE_CAPI_OK on cuda; (c) the JNI binding
+     and the R shim, compiled unchanged against the library, print
+     JNI-HOST OK and R-HOST OK on cuda ((b) and (c) side by side, the
+     wall of each); (d) boosting=goss (learning_rate 0.5: sampling from
+     the third tree) on two ``--plane-child`` ranks on the one card over
+     gloo: both texts byte for byte the single-process 2-shard mesh's
+     (ms/tree a rank); (e) with four or more visible cards, two NCCL
+     ranks holding two cards each (mesh_shape=(4,)): under f32, q16 and
+     q8 both texts byte for byte the single-process 4-shard mesh's,
+     each rank's resident bins half of it (resident bins and ms/tree a
+     rank); with fewer cards it prints why (e) did not run;
 then print one JSON line with every kernel's numbers and, last, the
 result line.  Without a CUDA device (or with --rehearse, which runs the
 same phases on the CPU at a tiny size with the plain versions) it
@@ -6208,9 +6233,12 @@ def _shard_devices(dev, k):
 
 
 def _timed_texts(lgb, cfg, core, rounds, dev, policy=None):
-    """(model text, GBDT, ms a tree) of ``rounds`` trees."""
+    """(model text, GBDT, ms a tree) of ``rounds`` trees (GOSS's for
+    ``boosting=goss``)."""
     from lightgbm_tpu_torch.boosting.gbdt import GBDT
-    g = GBDT(cfg, core, policy=policy)
+    from lightgbm_tpu_torch.boosting.goss import GOSS
+    cls = GOSS if cfg.boosting_type == "goss" else GBDT
+    g = cls(cfg, core, policy=policy)
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(rounds):
@@ -6696,7 +6724,7 @@ def plane_child(argv) -> int:
     import torch
     import torch.distributed as dist
 
-    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.boosting import create_boosting
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.ops import kernels
     from lightgbm_tpu_torch.parallel import collectives as C
@@ -6720,10 +6748,13 @@ def plane_child(argv) -> int:
     t0 = time.perf_counter()
     ds = D.finalize_global(D.construct_sharded(Xl, label=yl, config=cfg))
     out["construct_s"] = time.perf_counter() - t0
-    g = GBDT(cfg, ds)
+    g = create_boosting(cfg, ds)
     out["resident"] = g.grower.resident_bin_bytes()
     out["shard_rows"] = int(g.grower.shard_bins[0].shape[0])
+    out["shards"] = len(g.grower.shard_bins)
+    out["shard_devices"] = [str(b.device) for b in g.grower.shard_bins]
     out["plan"] = g.grower.plan.name
+    out["boosting"] = type(g).__name__
     TELEMETRY.reset()
     kernels.reset_launches()
     _sync(dev)
@@ -6740,6 +6771,11 @@ def plane_child(argv) -> int:
     g.flush_models()
     text = "".join(t.to_string() for t in g.models)
     out["model_sha"] = hashlib.sha256(text.encode()).hexdigest()
+    if not spec.get("exchange", True):
+        TELEMETRY.configure("off")
+        D.shutdown()
+        print(json.dumps(out), flush=True)
+        return 0
     # (b) one exchange a codec: every rank's histogram from its seed, so
     # each rank holds the cross-rank result against the in-process codec
     # over all of them on its card
@@ -6754,7 +6790,7 @@ def plane_child(argv) -> int:
         dist.barrier()
         _sync(dev)
         t = time.perf_counter()
-        got = C.exchange_histograms_ranks(hists[rank], mode, coll)
+        got = C.exchange_histograms_ranks([hists[rank]], mode, coll)
         _sync(dev)
         ms = (time.perf_counter() - t) * 1e3
         c = TELEMETRY.counters()
@@ -6770,10 +6806,11 @@ def plane_child(argv) -> int:
 
 
 def run_plane_children(world, backend, rows, n_make, params, trees, env_extra,
-                       tmp, timeout=600):
+                       tmp, timeout=600, exchange=True, phase=17):
     """Start ``world`` ``--plane-child`` ranks and return their JSON
     lines (rank order); fails naming the rank that exited nonzero.  Every
-    child still running at the end is killed."""
+    child still running at the end is killed.  ``exchange``: each rank
+    also runs phase 17 (b)'s codec exchanges after training."""
     import os
     import socket
     root = os.path.dirname(os.path.abspath(__file__))
@@ -6791,7 +6828,7 @@ def run_plane_children(world, backend, rows, n_make, params, trees, env_extra,
                 json.dump({"coord": coord, "rank": r, "world": world,
                            "backend": backend, "rows": rows,
                            "n_make": n_make, "params": params,
-                           "trees": trees}, f)
+                           "trees": trees, "exchange": exchange}, f)
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--plane-child",
                  path], cwd=root, env=env, stdout=subprocess.PIPE,
@@ -6807,8 +6844,9 @@ def run_plane_children(world, backend, rows, n_make, params, trees, env_extra,
         lines = [json.loads(ln) for ln in out.splitlines()
                  if ln.startswith("{")]
         if p.returncode != 0 or not lines:
-            raise AssertionError(f"phase 17: {backend} rank {r} of {world} "
-                                 f"exited {p.returncode}: {err[-3000:]}")
+            raise AssertionError(f"phase {phase}: {backend} rank {r} of "
+                                 f"{world} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
         ranks.append(lines[-1])
     return ranks
 
@@ -7135,6 +7173,332 @@ def check_analysis(lgb, kernels, params, train_ds, Xv, main_text,
     res["c"] = c
     del bst
     return res
+
+# ---------------------------------------------------------------------------
+# phase 19: the C embedding of the C API (liblgbm_tpu_torch.so) and its
+# hosts, GOSS on the plane and ranks of several cards
+# ---------------------------------------------------------------------------
+#: phase 19 (b) and (c)'s host drivers: (sources, compiler, flags, OK line)
+CAPI_HOSTS = {
+    "c": (["tests/torch_native_capi_driver.c"], "gcc", [], "NATIVE_CAPI_OK"),
+    "jni": (["jni/lightgbm_jni.c", "tests/torch_jni_host_driver.c"], "gcc",
+            [], "JNI-HOST OK"),
+    "r": (["R-package/src/lightgbm_R.cpp", "R-package/src/rstub/rstub.c",
+           "tests/torch_r_host_driver.c"], "g++",
+          ["-std=c++17", "-I", "R-package/src/rstub"], "R-HOST OK"),
+}
+#: phase 19 (d)'s GOSS over the plane params: sampling from the third tree
+GOSS_PLANE = {"boosting": "goss", "learning_rate": 0.5, "top_rate": 0.2,
+              "other_rate": 0.1}
+
+
+def capi_params(params) -> str:
+    """A params dict as a C API parameter string (lists comma-joined,
+    booleans lower case)."""
+    def one(v):
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, (list, tuple)):
+            return ",".join(one(x) for x in v)
+        return str(v)
+    return " ".join(f"{k}={one(v)}" for k, v in params.items())
+
+
+def tree_blocks(text: str) -> list:
+    """A model text's ``Tree=`` blocks."""
+    body = text.split("end of trees")[0]
+    return ["Tree=" + b for b in body.split("\nTree=")[1:]]
+
+
+def _bind_capi(lib):
+    import ctypes
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    ci, cs = ctypes.c_int, ctypes.c_char_p
+    lib.LGBM_GetLastError.restype = cs
+    lib.LGBM_DatasetCreateFromMat.argtypes = [
+        vp, ci, i32, i32, ci, cs, vp, ctypes.POINTER(vp)]
+    lib.LGBM_DatasetSetField.argtypes = [vp, cs, vp, ci, ci]
+    lib.LGBM_BoosterCreate.argtypes = [vp, cs, ctypes.POINTER(vp)]
+    lib.LGBM_BoosterUpdateOneIter.argtypes = [vp, ctypes.POINTER(ci)]
+    lib.LGBM_BoosterSaveModelToString.argtypes = [
+        vp, ci, i64, ctypes.POINTER(i64), cs]
+    lib.LGBM_BoosterLoadModelFromString.argtypes = [
+        cs, ctypes.POINTER(ci), ctypes.POINTER(vp)]
+    lib.LGBM_BoosterResetParameter.argtypes = [vp, cs]
+    lib.LGBM_BoosterPredictForMat.argtypes = [
+        vp, vp, ci, i32, i32, ci, ci, ci, cs, ctypes.POINTER(i64), vp]
+    lib.LGBM_BoosterFree.argtypes = [vp]
+    lib.LGBM_DatasetFree.argtypes = [vp]
+    return lib
+
+
+def _capi_ok(lib, rc, what):
+    if rc != 0:
+        raise AssertionError(f"phase 19 (a): {what} returned {rc}: "
+                             f"{lib.LGBM_GetLastError().decode()}")
+
+
+def _capi_text(lib, bst) -> str:
+    import ctypes
+    size = ctypes.c_int64()
+    _capi_ok(lib, lib.LGBM_BoosterSaveModelToString(
+        bst, -1, 0, ctypes.byref(size), None), "SaveModelToString")
+    buf = ctypes.create_string_buffer(size.value)
+    _capi_ok(lib, lib.LGBM_BoosterSaveModelToString(
+        bst, -1, size.value, ctypes.byref(size), buf), "SaveModelToString")
+    return buf.value.decode()
+
+
+def run_capi_hosts(lib_path, device, tmp, timeout=600):
+    """Build phase 19 (b) and (c)'s three hosts against ``lib_path`` and
+    run them side by side on ``device``: {host: (wall s, its OK line)};
+    fails naming a host that did not build, exited nonzero or printed
+    no OK line."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    from lightgbm_tpu_torch.native.capi import include_dir
+    libdir = os.path.dirname(lib_path)
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("LTPU_FAULT_PLAN", None)
+    procs = {}
+    try:
+        for name, (srcs, cc, flags, _) in CAPI_HOSTS.items():
+            exe = os.path.join(tmp, f"host_{name}")
+            build = subprocess.run(
+                [cc, "-O1", "-I", include_dir(), *flags, *srcs, "-o", exe,
+                 "-L", libdir, "-llgbm_tpu_torch", "-lm",
+                 f"-Wl,-rpath,{libdir}"], cwd=root, capture_output=True,
+                text=True)
+            if build.returncode != 0:
+                raise AssertionError(f"phase 19: the {name} host did not "
+                                     f"build: {build.stderr[-2000:]}")
+            arg = root if name == "c" else os.path.join(tmp, f"{name}.txt")
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [exe, device, arg], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        out = {}
+        for name, (t0, p) in procs.items():
+            text = p.communicate(timeout=timeout)[0]
+            wall = time.perf_counter() - t0
+            ok = [ln for ln in text.splitlines()
+                  if ln.startswith(CAPI_HOSTS[name][3])]
+            if p.returncode != 0 or not ok:
+                raise AssertionError(f"phase 19: the {name} host exited "
+                                     f"{p.returncode}: {text[-3000:]}")
+            out[name] = (wall, ok[-1])
+        return out
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def check_capi(lgb, kernels, params, X, y, Xv, main_text, q_launches, prob,
+               dev, card, rehearse):
+    """Phase 19 (a)-(c) (see the module docstring).  Returns ({kernel
+    name: launches}, numbers)."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from lightgbm_tpu_torch.native.capi import build_capi
+    t_phase = time.perf_counter()
+    numbers = {}
+    t0 = time.perf_counter()
+    path = build_capi()
+    numbers["build_s"] = time.perf_counter() - t0
+    lib = _bind_capi(ctypes.PyDLL(path))
+    if lib.LTPU_EnsureInitialized() != 0:
+        raise AssertionError("phase 19 (a): LTPU_EnsureInitialized failed: "
+                             f"{lib.LGBM_GetLastError().decode()}")
+    print(f"[phase 19] (a) {path} built in {numbers['build_s']:.1f} s and "
+          "loaded into this process (ctypes.PyDLL)")
+    pstr = capi_params(params).encode()
+    Xc = np.ascontiguousarray(X, dtype=np.float64)
+    yc = np.ascontiguousarray(y, dtype=np.float32)
+    n, f = Xc.shape
+    ds, bst = ctypes.c_void_p(), ctypes.c_void_p()
+    t0 = time.perf_counter()
+    _capi_ok(lib, lib.LGBM_DatasetCreateFromMat(
+        Xc.ctypes.data, 1, n, f, 1, pstr, None, ctypes.byref(ds)),
+        "DatasetCreateFromMat")
+    _capi_ok(lib, lib.LGBM_DatasetSetField(ds, b"label", yc.ctypes.data, n,
+                                           0), "DatasetSetField")
+    _capi_ok(lib, lib.LGBM_BoosterCreate(ds, pstr, ctypes.byref(bst)),
+             "BoosterCreate")
+    numbers["create_s"] = time.perf_counter() - t0
+    fin = ctypes.c_int()
+    kernels.reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        _capi_ok(lib, lib.LGBM_BoosterUpdateOneIter(bst, ctypes.byref(fin)),
+                 "UpdateOneIter")
+    _sync(dev)
+    numbers["ms_tree"] = (time.perf_counter() - t0) * 1e2
+    train_launches = dict(kernels.LAUNCHES)
+    text = _capi_text(lib, bst)
+    got, want = tree_blocks(text), tree_blocks(main_text)
+    if len(got) != 10 or got != want:
+        raise AssertionError(f"phase 19 (a): the C API's {len(got)} Tree= "
+                             "blocks are not phase 3's main-path blocks")
+    for name in ("fused_route_hist", "route_apply"):
+        if not rehearse and train_launches[name] != q_launches[name]:
+            raise AssertionError(
+                f"phase 19 (a): {name} launched {train_launches[name]} "
+                f"times, phase 3 {q_launches[name]}")
+    print(f"[phase 19] (a) LGBM_DatasetCreateFromMat + BoosterCreate of "
+          f"{n} x {f} in {numbers['create_s']:.2f} s; 10 x "
+          f"LGBM_BoosterUpdateOneIter: {numbers['ms_tree']:.1f} ms/tree; "
+          f"every Tree= block is phase 3's byte for byte; A "
+          f"{train_launches['fused_route_hist']}, B "
+          f"{train_launches['route_apply']} launches (phase 3: "
+          f"{q_launches['fused_route_hist']}, {q_launches['route_apply']}) "
+          f"({card})")
+    # the text loaded back, on the card, through the serving predictor
+    loaded, iters = ctypes.c_void_p(), ctypes.c_int()
+    _capi_ok(lib, lib.LGBM_BoosterLoadModelFromString(
+        text.encode(), ctypes.byref(iters), ctypes.byref(loaded)),
+        "LoadModelFromString")
+    _capi_ok(lib, lib.LGBM_BoosterResetParameter(
+        loaded, f"device={dev.type}".encode()), "ResetParameter")
+    Xvc = np.ascontiguousarray(Xv, dtype=np.float64)
+    out = np.zeros(Xvc.shape[0], dtype=np.float64)
+    got_len = ctypes.c_int64()
+
+    def predict():
+        _capi_ok(lib, lib.LGBM_BoosterPredictForMat(
+            loaded, Xvc.ctypes.data, 1, Xvc.shape[0], f, 1, 0, -1, b"",
+            ctypes.byref(got_len), out.ctypes.data), "PredictForMat")
+        _sync(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    predict()
+    numbers["predict_first_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    predict()
+    numbers["predict_ms"] = (time.perf_counter() - t0) * 1e3
+    pred_launches = dict(kernels.LAUNCHES)
+    if got_len.value != Xvc.shape[0] or out.tobytes() != \
+            np.asarray(prob, dtype=np.float64).tobytes():
+        raise AssertionError("phase 19 (a): LGBM_BoosterPredictForMat is not "
+                             "phase 4's Booster.predict bit for bit")
+    c_count = pred_launches["predict_level"] + \
+        pred_launches["predict_level_global"]
+    if not rehearse and c_count <= 0:
+        raise AssertionError("phase 19 (a): LGBM_BoosterPredictForMat did not "
+                             "launch kernel C")
+    print(f"[phase 19] (a) LGBM_BoosterPredictForMat of {Xvc.shape[0]} rows "
+          f"(the text loaded back, device={dev.type}): "
+          f"{numbers['predict_first_ms']:.1f} ms the first call, "
+          f"{numbers['predict_ms']:.1f} ms a warm one; bit for bit phase 4's "
+          f"Booster.predict; C launched {c_count} times ({card})")
+    for h in (loaded, bst):
+        _capi_ok(lib, lib.LGBM_BoosterFree(h), "BoosterFree")
+    _capi_ok(lib, lib.LGBM_DatasetFree(ds), "DatasetFree")
+    del Xc
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = {k: train_launches.get(k, 0) + pred_launches.get(k, 0)
+                for k in ("fused_route_hist", "route_apply", "predict_level",
+                          "predict_level_global")}
+    # (b), (c): the C, JNI and R hosts, no Python on their stacks
+    with tempfile.TemporaryDirectory() as tmp:
+        hosts = run_capi_hosts(path, dev.type, tmp)
+    for name, (wall, line) in hosts.items():
+        numbers[f"host_{name}_s"] = wall
+        print(f"[phase 19] ({'b' if name == 'c' else 'c'}) the {name} host "
+              f"on {dev.type}: {line!r} in {wall:.1f} s (its process, "
+              f"interpreter start and embedded import included) ({card})")
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    print(f"[phase 19] (a)-(c) wall {numbers['wall_s']:.1f} s ({card})")
+    return launches, numbers
+
+
+def check_plane_learners(lgb, params, X, y, core, dev, card, rehearse):
+    """Phase 19 (d) and (e) (see the module docstring).  Returns the
+    numbers."""
+    import os
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    trees = 3 if rehearse else PLANE_TREES
+    numbers = {}
+    if rehearse:
+        from lightgbm_tpu_torch.ops.histogram import _pick_chunk
+        X, y, _ = make_data(2 * _pick_chunk(
+            1 << 30, core.num_groups, core.max_group_bin, 2,
+            min_chunk=1024), 28, seed=7)
+    rows, chunk = plane_rows(X.shape[0], core.num_groups,
+                             core.max_group_bin, 2)
+    base = _plane_params(params, rows, dev.type)
+    base.pop("metric", None)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    one_card = {"CUDA_VISIBLE_DEVICES": first} if cards else {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d) GOSS on two gloo ranks on the one card
+        gparams = dict(base, **GOSS_PLANE)
+        ref_sha, _, ref_ms, _ = _plane_reference(lgb, gparams, X, y, rows,
+                                                 2, dev, trees)
+        t0 = time.perf_counter()
+        ranks = run_plane_children(2, "gloo", rows, X.shape[0], gparams,
+                                   trees, one_card, tmp, exchange=False,
+                                   phase=19)
+        d_s = time.perf_counter() - t0
+        for r in ranks:
+            if r["model_sha"] != ref_sha or r["boosting"] != "GOSS":
+                raise AssertionError(
+                    f"phase 19 (d) rank {r['rank']}: the {r['boosting']} "
+                    "text is not the single-process 2-shard GOSS mesh's")
+            print(f"[phase 19] (d) GOSS rank {r['rank']} (gloo on "
+                  f"{r['device']}): {r['ms_tree']:.1f} ms/tree, {trees} "
+                  f"trees on {rows // 2} rows; the text {ref_sha[:16]} is "
+                  f"the single-process 2-shard mesh's ({ref_ms:.1f} ms/tree) "
+                  f"({card})")
+        numbers["goss"] = {"ranks": ranks, "reference_ms_tree": ref_ms,
+                           "children_s": d_s}
+        # (e) two NCCL ranks with two cards each
+        if rehearse or cards < 4:
+            why = ("the CPU rehearsal has no NCCL" if rehearse else
+                   f"{cards} visible card(s): two ranks of two cards need "
+                   "four")
+            print(f"[phase 19] (e) two ranks of two cards each did not run: "
+                  f"{why}")
+        else:
+            for mode in ("f32", "q16", "q8"):
+                eparams = dict(base, mesh_shape=[4], hist_exchange=mode)
+                sha, resident, ms, _ = _plane_reference(
+                    lgb, eparams, X, y, rows, 4, dev, trees)
+                t0 = time.perf_counter()
+                got = run_plane_children(2, "nccl", rows, X.shape[0],
+                                         eparams, trees, {}, tmp,
+                                         exchange=False, phase=19)
+                e_s = time.perf_counter() - t0
+                for r in got:
+                    if r["model_sha"] != sha or r["shards"] != 2 or \
+                            r["resident"] * 2 != resident:
+                        raise AssertionError(
+                            f"phase 19 (e) {mode} rank {r['rank']}: "
+                            f"{r['shards']} shards, resident "
+                            f"{r['resident']} B; the text or the bins are "
+                            "not the single-process 4-shard mesh's")
+                    print(f"[phase 19] (e) {mode} rank {r['rank']} (nccl, "
+                          f"shards on {', '.join(r['shard_devices'])}): "
+                          f"{r['ms_tree']:.1f} ms/tree; resident bins "
+                          f"{r['resident']} B, half the 4-shard mesh's "
+                          f"{resident} B; the text {sha[:16]} is the "
+                          f"4-shard mesh's ({ms:.1f} ms/tree on one card) "
+                          f"({card})")
+                numbers[f"local2_{mode}"] = {"ranks": got,
+                                             "reference_ms_tree": ms,
+                                             "children_s": e_s}
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    print(f"[phase 19] (d)-(e) wall {numbers['wall_s']:.1f} s ({card})")
+    return numbers
 
 
 def main(argv) -> int:
@@ -7505,6 +7869,16 @@ def main(argv) -> int:
     numbers["fused_route_hist"]["phase18"] = check_analysis(
         lgb, kernels, params, train_ds, Xv, main_text, q_launches, 10, dev,
         card, rehearse)
+
+    # ---- phase 19: the C embedding of the C API (kernels A, B, C through
+    # the C ABI) and its C, JNI and R hosts; GOSS on the plane and ranks
+    # of several cards
+    capi_launches, capi_numbers = check_capi(
+        lgb, kernels, params, X, y, Xv, main_text, q_launches, prob, dev,
+        card, rehearse)
+    capi_numbers["plane"] = check_plane_learners(lgb, params, X, y, core,
+                                                 dev, card, rehearse)
+    numbers["fused_route_hist"]["phase19"] = capi_numbers
     if rehearse:
         print("chip_smoke: rehearsal finished on the CPU; no result")
         return 3
@@ -7562,6 +7936,8 @@ def main(argv) -> int:
             runs["phase 15"] = dist_launches[name]
         if shard_launches.get(name):
             runs["phase 16"] = shard_launches[name]
+        if capi_launches.get(name):
+            runs["phase 19"] = capi_launches[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep,
                      "launches": (launches[name] + serving_launches.get(
@@ -7570,7 +7946,8 @@ def main(argv) -> int:
                          + crash_launches.get(name, 0)
                          + prod_launches.get(name, 0)
                          + dist_launches.get(name, 0)
-                         + shard_launches.get(name, 0))
+                         + shard_launches.get(name, 0)
+                         + capi_launches.get(name, 0))
                      or sum(runs.values()),
                      "launches_by_run": runs,
                      "bound_by": "bytes", "library_ms": None,

@@ -36,8 +36,8 @@ class Program:
     rule metadata."""
 
     def __init__(self, name: str, source: str, ops: List[OpRecord],
-                 launches: Optional[Dict[str, int]] = None,
-                 device: str = "cpu", meta: Optional[Dict] = None):
+                 launches: Optional[Dict[str, int]], device: str,
+                 meta: Optional[Dict] = None):
         self.name = name
         self.source = source            # repo-relative defining file
         self.ops = list(ops)
@@ -50,7 +50,7 @@ class Program:
 
 
 def record(name: str, source: str, setup: Callable, fn: Callable,
-           device: str = "cpu", cpu_ranges=None, **meta) -> Program:
+           device: str, cpu_ranges=None, **meta) -> Program:
     """Make the inputs, ``args = setup()``, with the recorder paused,
     then record ``fn(*args)``: its Program."""
     with Recorder(device, cpu_ranges) as rec:
@@ -62,7 +62,7 @@ def record(name: str, source: str, setup: Callable, fn: Callable,
 
 # -- probe models (the JAX package's probe shapes) ---------------------------
 
-def build_probe_gbdt(device: str = "cpu", **params):
+def build_probe_gbdt(device: str, **params):
     """The main-path probe GBDT: 512x6 binary, 7 leaves, int8 gradients
     on the fused_tiled plan."""
     import numpy as np
@@ -83,7 +83,7 @@ def build_probe_gbdt(device: str = "cpu", **params):
     return GBDT(cfg, core)
 
 
-def train_probe_booster(device: str = "cpu", f: int = 9, leaves: int = 13,
+def train_probe_booster(device: str, f: int = 9, leaves: int = 13,
                         iters: int = 12, n: int = 220, seed: int = 0):
     """The predict probe: 220x9 regression, 13 leaves, 12 trees."""
     import numpy as np

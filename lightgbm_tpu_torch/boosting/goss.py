@@ -7,6 +7,12 @@ amplify the kept rest by (n - top_k) / other_k.  No sampling for the
 first 1/learning_rate iterations.  The objective path draws from the
 iteration key, the custom-gradient path from its own stream seeded
 ``bagging_seed + 1``.
+
+On the device plane (a multi-process row-sharded dataset) the sample is
+the one the JAX package draws over its global row-sharded array: the
+k-th score is the k-th of every rank's local top k (which hold the
+global top k), the rest count is summed across the ranks, and each
+rank cuts its block of the uniform draw over the global padded rows.
 """
 from __future__ import annotations
 
@@ -21,13 +27,6 @@ from .gbdt import GBDT
 class GOSS(GBDT):
     def __init__(self, config: Config, train_set: Dataset, **kwargs):
         super().__init__(config, train_set, **kwargs)
-        if self._mh:
-            raise NotImplementedError(
-                "boosting=goss on the device plane (a multi-process "
-                "row-sharded dataset): its top-rate cut needs a top-k "
-                "across the ranks' gradients, not ported yet "
-                "(ROADMAP.md queue 1); use boosting=gbdt or the tcp "
-                "plane")
         self._goss_key = prng.PRNGKey(config.bagging_seed + 1)
 
     def _bagging_counts(self, iteration: int):
@@ -61,13 +60,23 @@ class GOSS(GBDT):
                             torch.full_like(score, float("-inf")))
         top_k = max(1, int(n_real * self.config.top_rate))
         other_k = max(1, int(n_real * self.config.other_rate))
-        kth = torch.topk(score, top_k, sorted=True).values[-1]
+        coll = self.grower.policy.collectives() if self._mh else None
+        top = torch.topk(score, min(top_k, score.numel()), sorted=True).values
+        if coll is not None:
+            top = torch.topk(coll.all_gather([top])[0], top_k,
+                             sorted=True).values
+        kth = top[-1]
         is_top = score >= kth
         rest = in_bag & ~is_top
-        rest_cnt = rest.sum().clamp(min=1).to(torch.float32)
+        rest_cnt = rest.sum()
+        if coll is not None:
+            rest_cnt = coll.allreduce_sum([rest_cnt])[0]
+        rest_cnt = rest_cnt.clamp(min=1).to(torch.float32)
         prob = torch.tensor(float(other_k), dtype=torch.float32,
                             device=score.device) / rest_cnt
-        u = prng.uniform(key, score.shape, score.device)
+        # drawn over the global padded rows: each rank cuts its block
+        u = self.grower.local_rows(prng.uniform(
+            key, (self.grower.n_padded,), score.device))
         sampled = rest & (u < prob)
         multiply = (n_real - top_k) / other_k
         scale = torch.where(sampled, torch.full_like(score, multiply),

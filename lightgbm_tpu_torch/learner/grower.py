@@ -88,10 +88,11 @@ splits to its own rows; the leaf ids are gathered in row order only at
 the end of the tree, and the scores stay one tensor on the first
 shard's device.  The root's sums are each shard's sum added in shard
 order.  Multi-host (the device plane, parallel/distributed.py), each
-process is one shard: it holds only its own rows, padded to whole
-chunks of the global row count, the histograms and root sums cross
-processes (rank order), every rank finds the same splits, and the leaf
-ids and scores stay local (no process gathers another's rows).
+process holds L consecutive shards: only its own rows, padded to whole
+chunks of the global row count and split evenly over its L devices,
+the histograms and root sums cross processes (global shard order),
+every rank finds the same splits, and the leaf ids and scores stay
+local (no process gathers another's rows).
 
 The voting and feature learners (parallel/mesh.py) grow a tree in
 full-frontier rounds, as the JAX grower does on a mesh (grower.py
@@ -445,9 +446,10 @@ class TreeGrower:
         chunk's one-hot working set (JAX grower.py:832-838)."""
         pol = self.policy
         if self._mh_local is not None:
-            # multi-host: this rank's rows, padded to its block
-            self.shard_bins = [pol.place_local_rows(dataset.group_bins,
-                                                    self._mh_per_host)]
+            # multi-host: this rank's rows, padded to its block and
+            # split evenly over its shards
+            self.shard_bins = pol.place_row_shards([dataset.group_bins],
+                                                   self._mh_per_host)
         else:
             # each device's rows straight onto it, from the single
             # matrix or a sharded construction's row blocks (no padded
@@ -743,15 +745,17 @@ class TreeGrower:
 
     def _root_totals(self, grad, hess, counts):
         """The root's (sum_grad, sum_hess, count).  Rows sharded, each
-        shard sums its own rows and the shards' sums are added in shard
-        (then rank) order — the JAX mesh's local contraction and psum —
-        so a rank holds the same bits as the single-process mesh whose
-        shards are the ranks' rows."""
+        shard sums its own rows and the shards' sums are added in global
+        shard order — the JAX mesh's local contraction and psum — so a
+        rank holds the same bits as the single-process mesh whose shards
+        are the ranks' shards."""
         if not self.sharded:
             return compute_root_totals(grad, hess, counts, self.row_valid)
         if self.policy.multihost:
-            part = compute_root_totals(grad, hess, counts, self.row_valid)
-            return self.policy.collectives().allreduce_sum([part])[0]
+            parts = [compute_root_totals(grad[lo:hi], hess[lo:hi],
+                                         counts[lo:hi], self.row_valid[lo:hi])
+                     for lo, hi in self.policy.row_ranges]
+            return self.policy.collectives().allreduce_sum(parts)[0]
         from ..parallel.collectives import _sum_in_order
         return _sum_in_order(
             [compute_root_totals(grad[lo:hi], hess[lo:hi], counts[lo:hi],
@@ -1084,12 +1088,12 @@ class TreeGrower:
     def _exchange(self, local, mode: str):
         """The shards' histograms summed under the ``hist_exchange``
         codec: in this process, or multi-host across the device plane's
-        ranks (each holds one shard), the same bits."""
+        ranks (each passing its own shards), the same bits."""
         from ..parallel.collectives import (exchange_histograms,
                                             exchange_histograms_ranks)
         if self.policy.multihost:
             return exchange_histograms_ranks(
-                local[0], mode, self.policy.collectives())
+                local, mode, self.policy.collectives())
         return exchange_histograms(local, mode=mode, world=len(local))
 
     def _use_packed(self, k: int) -> bool:

@@ -17,8 +17,9 @@ unit-testable without any devices.
 Across processes (the ``collective_transport=xla`` device plane,
 parallel/distributed.py) :class:`ProcessGroupCollectives` runs the same
 calls over the torch.distributed process group, each rank passing its
-one shard, and :func:`exchange_histograms_ranks` the histogram codec:
-the bits of the in-process mesh's, since both sum in rank order.
+local shards, and :func:`exchange_histograms_ranks` the histogram codec:
+the bits of the in-process mesh's, since both sum in global shard
+order.
 
 Each collective is counted when it is called (``collective_<kind>_calls``
 / ``_bytes``).  The JAX package also reads the collectives XLA inserts
@@ -165,87 +166,108 @@ class Collectives:
 
 class ProcessGroupCollectives(Collectives):
     """The same collectives over the processes of the device plane
-    (parallel/distributed.py ``plane()``): each rank passes its shards
-    (one: a rank holds one device's rows) and gets one result per
-    shard, on the shard's device.  Float sums are in rank order, the
-    bits of :func:`_sum_in_order` over the ranks' tensors: with two
-    ranks a native all-reduce (a + b is b + a), from three on a gather
-    and the ordered sum, since NCCL's and gloo's rings do not add in
-    rank order.  Uses only ``all_reduce`` and ``all_gather``, the two
-    collectives gloo also runs on CUDA tensors."""
+    (parallel/distributed.py ``plane()``): each rank passes its
+    ``local`` shards (rank r's are the global shards r*local ...
+    r*local+local-1) and gets one result per shard, on the shard's
+    device.  Float sums are in global shard order, the bits of
+    :func:`_sum_in_order` over every rank's shards: with two ranks of
+    one shard a native all-reduce (a + b is b + a), else a gather of
+    every shard and the ordered sum, since NCCL's and gloo's rings do
+    not add in rank order (and a rank's partial sum would group the
+    terms otherwise).  Integer sums are exact in any order: each rank
+    adds its shards, then a native all-reduce.  Uses only
+    ``all_reduce`` and ``all_gather``, the two collectives gloo also
+    runs on CUDA tensors."""
 
-    def __init__(self, plane):
+    def __init__(self, plane, local: int = 1):
         super().__init__("data")
         self.plane = plane
-
-    @staticmethod
-    def _one(xs) -> torch.Tensor:
-        if len(xs) != 1:
-            raise NotImplementedError(
-                f"a rank of the device plane holds one shard, got "
-                f"{len(xs)}: several local devices a rank are not "
-                "supported (ROADMAP.md queue 1)")
-        return xs[0]
+        self.local = int(local)
 
     def _gather(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """``x`` of every rank, in rank order."""
         import torch.distributed as dist
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.plane.world)]
         dist.all_gather(parts, x)
         return parts
 
-    def sum_ranks(self, x: torch.Tensor, kind: str = "allreduce"
-                  ) -> torch.Tensor:
-        """The ranks' ``x`` summed in rank order (a float ``x``; integer
-        sums are exact in any order and take a native all-reduce)."""
+    def _gather_shards(self, xs) -> List[torch.Tensor]:
+        """Every rank's shards in global shard order, on the device of
+        this rank's first."""
+        if len(xs) == 1:
+            return self._gather(xs[0])
+        dev = xs[0].device
+        stacked = torch.stack([x.to(dev) for x in xs])
+        return [p for blk in self._gather(stacked) for p in blk.unbind(0)]
+
+    def sum_shards(self, xs, kind: str = "allreduce") -> torch.Tensor:
+        """Every rank's shards summed in global shard order, on the
+        device of this rank's first."""
         import torch.distributed as dist
-        _note_collective(kind, x)
-        if self.plane.world == 2 or not x.is_floating_point():
-            out = x.clone()
+        for x in xs:
+            _note_collective(kind, x)
+        if not xs[0].is_floating_point():
+            out = _sum_in_order(xs, xs[0].device)
             dist.all_reduce(out)
             return out
-        return _sum_in_order(self._gather(x), x.device)
+        if self.plane.world == 2 and len(xs) == 1:
+            out = xs[0].clone()
+            dist.all_reduce(out)
+            return out
+        return _sum_in_order(self._gather_shards(xs), xs[0].device)
 
     def allreduce_sum(self, xs):
-        return [self.sum_ranks(self._one(xs))]
+        return self._everywhere(xs, self.sum_shards(xs))
 
     def reduce_scatter(self, xs, tiled_axis: int = 0):
-        x = self._one(xs)
-        total = self.sum_ranks(x, "reduce_scatter")
-        return [torch.chunk(total, self.plane.world,
-                            dim=tiled_axis)[self.plane.rank].clone()]
+        total = self.sum_shards(xs, "reduce_scatter")
+        parts = torch.chunk(total, self.plane.world * len(xs),
+                            dim=tiled_axis)
+        first = self.plane.rank * len(xs)
+        return [parts[first + i].to(x.device, copy=True)
+                for i, x in enumerate(xs)]
 
     def all_gather(self, xs, axis: int = 0):
-        x = self._one(xs)
-        _note_collective("allgather", x)
-        return [torch.cat(self._gather(x), dim=axis)]
+        for x in xs:
+            _note_collective("allgather", x)
+        return self._everywhere(xs, torch.cat(self._gather_shards(xs),
+                                              dim=axis))
 
     def _reduce(self, xs, op):
         import torch.distributed as dist
-        out = self._one(xs).clone()
-        _note_collective("allreduce", out)
+        out = xs[0].clone()
+        for x in xs[1:]:
+            out = op(out, x.to(out.device))
+        for x in xs:
+            _note_collective("allreduce", x)
         dist.all_reduce(out, op={torch.minimum: dist.ReduceOp.MIN,
                                  torch.maximum: dist.ReduceOp.MAX}[op])
-        return [out]
+        return self._everywhere(xs, out)
 
     def global_mean(self, xs):
-        return [s / self.plane.world for s in self.allreduce_sum(xs)]
+        n = self.plane.world * len(xs)
+        return [s / n for s in self.allreduce_sum(xs)]
 
     def argmax_sync(self, values, payloads):
-        """Every rank ends with the payload of the best gain (the lowest
-        rank on a tie, as ``jnp.argmax``)."""
-        v = self._one(values).reshape(1).to(torch.float32)
-        p = self._one(payloads)
-        _note_collective("allgather", v)
+        """Every shard ends with the payload of the best gain (the lowest
+        global shard on a tie, as ``jnp.argmax``)."""
+        dev = values[0].device
+        v = torch.stack([torch.as_tensor(x).reshape(()).to(dev)
+                         for x in values]).to(torch.float32)
+        for x in values:
+            _note_collective("allgather", x)
         best = int(torch.argmax(torch.cat(self._gather(v)).cpu()))
-        _note_collective("allgather", p)
-        return [self._gather(p)[best]]
+        for p in payloads:
+            _note_collective("allgather", p)
+        return self._everywhere(payloads,
+                                self._gather_shards(payloads)[best])
 
     def rank(self, shard: int = 0) -> int:
-        return self.plane.rank
+        return self.plane.rank * self.local + int(shard)
 
     def num_machines(self, xs=None) -> int:
-        return self.plane.world
+        return self.plane.world * self.local
 
 
 class HostCollectives(Collectives):
@@ -413,38 +435,51 @@ def exchange_histograms(hists: Sequence[torch.Tensor], mode: str = "f32",
     return _dequantize(qsum, denom, qmax)
 
 
-def exchange_histograms_ranks(hist: torch.Tensor, mode: str,
+def exchange_histograms_ranks(hists: Sequence[torch.Tensor], mode: str,
                               coll: ProcessGroupCollectives
                               ) -> torch.Tensor:
     """:func:`exchange_histograms` across the device plane's ranks:
-    this rank's (L, G, B, 3) f32 histogram in, the reconstructed global
-    sum out, bit for bit the in-process codec over the ranks'
-    histograms (every rank gets the same bits).
+    this rank's shards' (L, G, B, 3) f32 histograms in, the
+    reconstructed global sum out on the device of the first, bit for bit the in-process codec over every
+    rank's shards in global shard order (every rank gets the same
+    bits).
 
-    "f32" sums in rank order (``ProcessGroupCollectives.sum_ranks``).
-    "q16"/"q8": the (L, G, 2, 3) scale payloads are all-reduced with
-    max, each rank quantizes against that shared grid, the integers
-    are summed exactly and dequantized as in-process.  q8 all-reduces
-    its int8 payload natively (``qmax = 127 // world`` leaves the
+    "f32" sums in global shard order
+    (``ProcessGroupCollectives.sum_shards``).  "q16"/"q8": ``qmax``
+    leaves headroom for every shard of the world, as in-process; the
+    (L, G, 2, 3) scale payloads are maxed over this rank's shards and
+    all-reduced with max, each shard quantizes against that shared
+    grid, the rank adds its shards' integers and the ranks' sums are
+    added exactly and dequantized as in-process.  q8 all-reduces its
+    int8 payload natively (``qmax = 127 // shards`` leaves the
     headroom).  Neither gloo nor NCCL has int16, so q16 all-gathers its
     int16 payload viewed as bytes and each rank sums the ranks' int16
     values in int32: the wire carries 2 bytes a value.  The counters
-    take what this rank puts on the wire, as the in-process codec's
-    take each shard's payload: ``collective_hist_exchange_bytes`` (the
-    f32 histogram, or the int payload) and, under q16/q8,
+    take what this rank puts on the wire:
+    ``collective_hist_exchange_bytes`` (each shard's f32 histogram, or
+    the rank's int payload) and, under q16/q8,
     ``collective_hist_exchange_scale_bytes``."""
     import torch.distributed as dist
     _check_mode(mode)
+    hists = list(hists)
     if mode == "f32":
-        return coll.sum_ranks(hist, "hist_exchange")
-    world = coll.plane.world
-    qmax, qdt = _exchange_qparams(mode, world)
-    d = _deltas(hist)
-    stat = _delta_stat(d)
+        return coll.sum_shards(hists, "hist_exchange")
+    qmax, qdt = _exchange_qparams(mode, coll.plane.world * len(hists))
+    dev = hists[0].device
+    deltas = [_deltas(h) for h in hists]
+    stat = None
+    for d in deltas:
+        s = _delta_stat(d).to(dev)
+        stat = s if stat is None else torch.maximum(stat, s)
     _note_collective("hist_exchange_scale", stat)
     dist.all_reduce(stat, op=dist.ReduceOp.MAX)
     denom = _grid(stat, qmax)
-    q = _quantize(d, denom, qmax, qdt).contiguous()
+    qloc = None
+    for d in deltas:
+        q = _quantize(d, denom, qmax, qdt).to(dev).to(torch.int32)
+        qloc = q if qloc is None else qloc + q
+    # the rank's shards add within the wire dtype: qmax leaves the room
+    q = qloc.to(qdt).contiguous()
     _note_collective("hist_exchange", q)
     if mode == "q8":
         dist.all_reduce(q)

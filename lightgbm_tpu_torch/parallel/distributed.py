@@ -26,7 +26,7 @@ src/io/dataset_loader.cpp:424-456 row partitioning, :523-605 +
     weights and init scores in rank order.  tcp: the bin rows too, so
     every process holds the global matrix and runs the identical
     single-device program.  xla: the bins stay local — each process
-    keeps only its own rows on its own device, the grower's data
+    keeps only its own rows on its own devices, the grower's data
     learner histograms them there and the histograms cross processes
     under the ``hist_exchange`` codec (parallel/collectives.py).
 """
@@ -44,7 +44,8 @@ from ..utils.log import Log
 class DevicePlane:
     """The ``collective_transport=xla`` plane of this process: the
     torch.distributed process group :func:`initialize` joined, its
-    backend, this rank's device, and the gloo group that carries host
+    backend, this rank's device (the first of its local devices, the
+    one its collectives run on), and the gloo group that carries host
     arrays (the default group itself when that is gloo)."""
 
     def __init__(self, backend: str, rank: int, world: int, device,
@@ -54,6 +55,17 @@ class DevicePlane:
         self.world = world
         self.device = device
         self.host_group = host_group
+
+    def local_devices(self, n: int) -> list:
+        """This rank's ``n`` local devices, from its own: ``n`` CPU
+        shards on the CPU, else the cards that follow its own (modulo
+        the visible cards)."""
+        import torch
+        if self.device.type != "cuda":
+            return [self.device] * n
+        count = torch.cuda.device_count()
+        return [torch.device("cuda", (self.device.index + i) % count)
+                for i in range(n)]
 
     def close(self) -> None:
         import torch.distributed as dist
@@ -92,10 +104,11 @@ def _launcher_env(coordinator_address, num_processes, process_id):
     return coordinator_address, num_processes, process_id
 
 
-def _bind_device(device_name: str, rank: int):
-    """This rank's device: ``cuda:(local rank % visible cards)`` for
-    ``device=cuda`` (LOCAL_RANK from a launcher, else the rank), the CPU
-    for ``device=cpu``."""
+def _bind_device(device_name: str, rank: int, n_local: int = 1):
+    """This rank's device: ``cuda:(local rank x n_local % visible
+    cards)`` for ``device=cuda`` (LOCAL_RANK from a launcher, else the
+    rank; ``n_local`` the row shards a rank holds, on the cards from
+    this one on), the CPU for ``device=cpu``."""
     import torch
     if str(device_name).lower() == "cpu":
         return torch.device("cpu")
@@ -105,7 +118,7 @@ def _bind_device(device_name: str, rank: int):
             "device is available; pass device='cpu' (gloo) to run the "
             "plane on the CPU")
     local = int(os.environ.get("LOCAL_RANK", rank))
-    dev = torch.device("cuda", local % torch.cuda.device_count())
+    dev = torch.device("cuda", local * n_local % torch.cuda.device_count())
     torch.cuda.set_device(dev)
     return dev
 
@@ -139,8 +152,10 @@ def initialize(coordinator_address: Optional[str] = None,
     ``backend`` is torch's own argument: ``nccl`` for ``device=cuda``
     and ``gloo`` for ``device=cpu`` unless given (gloo over CUDA
     tensors runs several ranks on one card).  Each rank binds
-    ``cuda:(local rank % visible cards)``; under NCCL two ranks on one
-    card raise before NCCL runs.  The rendezvous timeout is
+    ``cuda:(local rank x L % visible cards)``, L the row shards a rank
+    holds under ``config.mesh_shape`` (parallel/mesh.py local_shards),
+    and its shards go on the L cards from there; under NCCL two ranks
+    bound to one card raise before NCCL runs.  The rendezvous timeout is
     ``time_out`` minutes.
 
     Transient rendezvous failures (coordinator still starting, port in
@@ -179,12 +194,15 @@ def initialize(coordinator_address: Optional[str] = None,
         be = backend or ("gloo" if device_name.lower() == "cpu"
                          else "nccl")
 
+        from .mesh import local_shards
+        n_local = local_shards(config, world) if config is not None else 1
+
         def _init():
             import datetime
 
             import torch.distributed as dist
             FAULTS.fault_point("distributed.init")
-            dev = _bind_device(device_name, rank)
+            dev = _bind_device(device_name, rank, n_local)
             minutes = float(getattr(config, "time_out", 120) or 120)
             timeout = datetime.timedelta(minutes=minutes)
             dist.init_process_group(
@@ -392,8 +410,8 @@ def finalize_global(ds):
 
     Device plane: ``group_bins`` stays THIS process's rows, marked with
     ``_mh_local_rows`` and ``_multihost``; the grower pads them to whole
-    chunks on this rank's device and the data learner exchanges
-    histograms across processes (the redesign of reference
+    chunks and splits them over this rank's devices, and the data
+    learner exchanges histograms across processes (the redesign of reference
     data_parallel_tree_learner.cpp:117-246, where each machine trains
     on its shard and histograms are reduce-scattered).
 

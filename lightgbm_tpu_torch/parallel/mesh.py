@@ -37,9 +37,11 @@ Multi-process training on the tcp plane (parallel/transport.py) needs
 no mesh: every process runs the single-device program on the
 replicated bins (parallel/distributed.py finalize_global).  On the
 device plane (``collective_transport=xla``, torch.distributed) the mesh
-spans the world, one device a rank on the row axis (JAX mesh.py:69-81,
-``multihost``): each process holds only its own row shard, and its
-policy knows only its own device and row range.
+spans the world on the row axis (JAX mesh.py:69-81, ``multihost``):
+``world x L`` row shards, rank r holding shards r*L ... r*L+L-1 on its
+L local devices (the JAX mesh over ``jax.devices()``, process-major).
+Each process holds only its own rows, and its policy knows only its own
+devices and row ranges.
 """
 from __future__ import annotations
 
@@ -124,15 +126,32 @@ def build_mesh(config: Config, device=None) -> Optional[Mesh]:
     return Mesh(devices, (len(devices),), (axis,))
 
 
+def local_shards(config: Config, world: int) -> int:
+    """Row shards a rank of a ``world``-process device plane holds: the
+    row axis of ``mesh_shape`` over the world (1 without a
+    ``mesh_shape``)."""
+    shape = tuple(int(s) for s in config.mesh_shape)
+    axes = tuple(config.mesh_axes) or (DATA_AXIS,)
+    if not shape or len(axes) != len(shape):
+        return 1        # _world_mesh refuses a mismatch when it builds
+    row = DATA_AXIS if DATA_AXIS in axes else axes[0]
+    return max(1, shape[axes.index(row)] // max(1, world))
+
+
 def _world_mesh(config: Config, pl) -> Optional[Mesh]:
-    """The device plane's mesh: one device a rank, every rank on the
-    row axis (a JAX mesh over ``jax.devices()``, one device a process).
-    None for the serial learner with no ``mesh_shape``, as in the JAX
-    package (whose grower then cannot place a multi-host dataset: the
-    grower raises).  The feature learner's vertical partition has no
-    multi-host placement in the JAX package (JAX mesh.py place_bins
-    :115-126), and a rank with several local devices is not supported:
-    both raise."""
+    """The device plane's mesh: ``world x L`` devices on the row axis,
+    rank r's L row shards on its local devices (a JAX mesh over
+    ``jax.devices()``, whose devices are process-major).  Other axes
+    replicate, as in a single process, onto the row shard's device;
+    the other ranks' entries stand in as this rank's first device (a
+    rank runs only its own shards).  None for the serial learner with
+    no ``mesh_shape``, as in the JAX package (whose grower then cannot
+    place a multi-host dataset: the grower raises).  The feature
+    learner's vertical partition has no multi-host placement in the
+    JAX package (JAX mesh.py place_bins :115-126): it raises, and so
+    does a row axis that is not a whole number of shards a rank or
+    follows a wider axis (the ranks' row blocks would not be the
+    mesh's)."""
     if config.tree_learner == "feature":
         raise NotImplementedError(
             "tree_learner=feature on the device plane "
@@ -148,14 +167,19 @@ def _world_mesh(config: Config, pl) -> Optional[Mesh]:
         raise ValueError(f"mesh_axes {axes} must name each of the "
                          f"{len(shape)} axes of mesh_shape {shape}")
     row = DATA_AXIS if DATA_AXIS in axes else axes[0]
-    if int(np.prod(shape)) != pl.world or \
-            shape[axes.index(row)] != pl.world:
+    k = axes.index(row)
+    if shape[k] % pl.world or any(s > 1 for s in shape[:k]):
         raise NotImplementedError(
             f"mesh_shape {shape} over a device plane of {pl.world} "
-            "processes: the plane's mesh is one device a rank on the "
-            f"row axis ({pl.world},); a rank with several local devices "
-            "is not supported (ROADMAP.md queue 1)")
-    return Mesh([pl.device] * pl.world, shape, axes)
+            f"processes: the row axis {row!r} must hold a whole number "
+            "of shards a rank and come before every other axis wider "
+            "than one device")
+    n_local = shape[k] // pl.world
+    mine = pl.local_devices(n_local)
+    lo = pl.rank * n_local
+    devices = [mine[idx[k] - lo] if lo <= idx[k] < lo + n_local
+               else mine[0] for idx in np.ndindex(*shape)]
+    return Mesh(devices, shape, axes)
 
 
 class ShardingPolicy:
@@ -202,7 +226,9 @@ class ShardingPolicy:
     def set_rows(self, n_padded: int) -> None:
         """Lay ``n_padded`` rows over the row axis: shard s of d holds
         rows [s * n_padded / d, (s + 1) * n_padded / d).  Multi-host,
-        ``row_ranges`` holds this rank's range only (its shard)."""
+        ``row_ranges`` holds this rank's L shards only, in the
+        coordinates of its own block (rank r's shard r*L + i at rows
+        [i * per, (i + 1) * per) of the rows it holds)."""
         if self.row_axis is None:
             return
         d = self.mesh.shape[self.row_axis]
@@ -210,9 +236,8 @@ class ShardingPolicy:
             raise ValueError(f"{n_padded} padded rows do not divide over "
                              f"{d} mesh devices")
         per = n_padded // d
-        self.row_ranges = [(s * per, (s + 1) * per) for s in range(d)]
-        if self.multihost:
-            self.row_ranges = self.row_ranges[self.rank:self.rank + 1]
+        n = d // self.nproc if self.multihost else d
+        self.row_ranges = [(s * per, (s + 1) * per) for s in range(n)]
 
     @property
     def devices(self) -> List[torch.device]:
@@ -222,21 +247,21 @@ class ShardingPolicy:
     def row_devices(self) -> List[torch.device]:
         """The row shards' devices: along the row axis, at index 0 of
         every other axis (the replicas there would repeat the work).
-        Multi-host, this rank's device."""
-        if self.multihost:
-            return [self.plane.device]
+        Multi-host, this rank's shards' devices (its local devices)."""
         k = self.mesh.axis_names.index(self.row_axis)
         arr = np.moveaxis(self.mesh.devices, k, 0)
-        return list(arr.reshape(arr.shape[0], -1)[:, 0])
+        devs = list(arr.reshape(arr.shape[0], -1)[:, 0])
+        if self.multihost:
+            n = len(devs) // self.nproc
+            devs = devs[self.rank * n:(self.rank + 1) * n]
+        return devs
 
     def place_rows(self, arr) -> List[torch.Tensor]:
         """Split a row-indexed tensor or array ((N,) or (N, ...)) into
         the shards' row ranges, each on its device.  Multi-host, ``arr``
         holds this rank's rows already (the layout the grower and the
-        booster keep): one shard, on this rank's device."""
+        booster keep), split over its shards."""
         t = torch.as_tensor(arr)
-        if self.multihost:
-            return [t.to(self.plane.device)]
         return [t[lo:hi].to(dev) for (lo, hi), dev
                 in zip(self.row_ranges, self.row_devices)]
 
@@ -252,27 +277,22 @@ class ShardingPolicy:
         idx[axis] = slice(self.rank * per, (self.rank + 1) * per)
         return arr[tuple(idx)]
 
-    def place_local_rows(self, local_arr, n_rows: Optional[int] = None
-                         ) -> torch.Tensor:
-        """Multi-host: this rank's rows (an array or read-only memmap),
-        zero-padded to ``n_rows``, on its device (JAX mesh.py
-        place_local_rows :122-135, the seam pre-partitioned loading
-        feeds)."""
-        from ..utils.device import rows_to_device
-        return rows_to_device(local_arr, self.plane.device, n_rows)
-
     def collectives(self):
         """The row axis's collectives: over the device plane's processes
-        multi-host, else over the in-process shards."""
+        (each passing its local shards) multi-host, else over the
+        in-process shards."""
         from .collectives import Collectives, ProcessGroupCollectives
         if self.multihost:
-            return ProcessGroupCollectives(self.plane)
+            return ProcessGroupCollectives(self.plane,
+                                           len(self.row_devices))
         return Collectives(self.row_axis)
 
     def place_row_shards(self, shard_arrays, n_padded: int, device=None):
         """A sharded construction's bins (JAX mesh.py:144-215):
         ``shard_arrays`` are the participants' row blocks in row order
-        (arrays or read-only memmaps).  On a row mesh, each device's
+        (arrays or read-only memmaps; multi-host, this rank's rows and
+        ``n_padded`` its padded block, JAX mesh.py place_local_rows
+        :122-135).  On a row mesh, each device's
         (n_padded / d)-row block is filled from the blocks it overlaps
         (the rest is the zero tail pad) straight on its device, so the
         host never holds the concatenated matrix: returns the
@@ -311,10 +331,8 @@ class ShardingPolicy:
     def gather_rows(self, parts: Sequence[torch.Tensor],
                     device) -> torch.Tensor:
         """The shards' row ranges concatenated in order on ``device``.
-        Multi-host, this rank's shard alone: no process gathers
+        Multi-host, this rank's shards alone: no process gathers
         another's rows."""
-        if self.multihost:
-            return parts[0]
         return torch.cat([p.to(device) for p in parts])
 
     @property

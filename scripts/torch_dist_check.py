@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phases 15 (data-parallel training), 16 (the feature
 and voting learners, sharded construction and the shard cache, the
-elastic rejoin) and 17 (the row-sharded multi-process plane) alone, on
-the visible CUDA cards.
+elastic rejoin), 17 (the row-sharded multi-process plane) and 19 (d)-(e)
+(GOSS on the plane, ranks of several cards) alone, on the visible CUDA
+cards.
 
-    python3 scripts/torch_dist_check.py [--rows N] [--phases 15,16,17]
+    python3 scripts/torch_dist_check.py [--rows N] [--phases 15,16,17,19]
 
 Builds kernels A and B, makes chip_smoke.py's bench rows (make_data,
 1,000,000 x 28 by default, and 200,000 held-out rows) and runs its
@@ -15,9 +16,13 @@ single-matrix construction and texts; then ``check_plane``: two ranks
 of the device plane on one card over gloo against the single-process
 2-shard mesh, and with two or more cards the same over NCCL, one card a
 rank, with four or more cards also four NCCL ranks against the
-4-shard mesh.  With two or more cards, the meshes of phases 15 and 16
-put their shards on ``cuda:0``, ``cuda:1``, ...; with one, all on
-``cuda:0``.  ``--phases 17`` runs phase 17 alone (16 needs 15).  Prints
+4-shard mesh; then ``check_plane_learners``: GOSS on two gloo ranks on
+one card against the single-process 2-shard mesh, and with four or more
+cards two NCCL ranks of two cards each (``mesh_shape=(4,)``) under f32,
+q16 and q8 against the 4-shard mesh.  With two or more cards, the
+meshes of phases 15 and 16 put their shards on ``cuda:0``, ``cuda:1``,
+...; with one, all on ``cuda:0``.  ``--phases 17`` runs phase 17 alone
+(16 needs 15).  Prints
 the card (nvidia-smi name and power limit) and the phases' lines; exits
 nonzero on any failed check or without a card.
 """
@@ -35,7 +40,7 @@ sys.path.insert(0, ROOT)
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
-    ap.add_argument("--phases", default="15,16,17")
+    ap.add_argument("--phases", default="15,16,17,19")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if 16 in phases and 15 not in phases:
@@ -63,11 +68,13 @@ def main() -> int:
         Xv, yv, _ = cs.make_data(200_000, 28, seed=8, w=w)
         cs.check_sharded_learners(lgb, kernels, params, X, y, Xv, yv, dev,
                                   card, False, ref)
+    core = lgb.Dataset(X[:200_000], label=y[:200_000]).construct(
+        lgb.Config.from_params(params))
     if 17 in phases:
-        core = lgb.Dataset(X[:200_000], label=y[:200_000]).construct(
-            lgb.Config.from_params(params))
         cs.check_plane(lgb, kernels, params, X, y, core, dev, card, False,
                        worlds=(2, 4))
+    if 19 in phases:
+        cs.check_plane_learners(lgb, params, X, y, core, dev, card, False)
     return 0
 
 

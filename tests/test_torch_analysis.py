@@ -84,6 +84,22 @@ def test_registered_programs_are_the_main_path(programs):
     assert walker.count_op(ex.ops, "aten.round") >= 2
 
 
+@pytest.mark.parametrize("name", ["Program", "record", "build_probe_gbdt",
+                                  "train_probe_booster"])
+def test_probe_builders_take_no_default_device(name):
+    """The device rule (the card unless the caller asks for the CPU):
+    the probes and the recorder have no ``device`` default, so no caller
+    lands on the CPU unasked, and ProgramSet's default is the card."""
+    import inspect
+
+    from lightgbm_tpu_torch.analysis import programs as tprog
+    fn = getattr(tprog, name)
+    param = inspect.signature(fn).parameters["device"]
+    assert param.default is inspect.Parameter.empty
+    assert inspect.signature(ProgramSet).parameters["device"].default \
+        == "cuda"
+
+
 def test_prg001_flags_f64_fixture():
     p = _fixture(lambda: torch.zeros(3, dtype=torch.float64,
                                      device=DEV) * 2)

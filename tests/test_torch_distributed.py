@@ -33,8 +33,10 @@ JAX package's single-process runs.
   rows fill whole chunks, so the layouts agree) and split for split the
   JAX package's 2-device mesh; the cross-rank histogram codec bit for
   bit the in-process one; ``finalize_global``'s metadata and
-  ``pad_rows`` in the JAX layout; and the refusals the JAX package
-  makes.
+  ``pad_rows`` in the JAX layout; GOSS on two and three ranks, and two
+  ranks holding two CPU shards each (f32, q16, q8 and the voting
+  learner), each byte for byte the single-process mesh of as many
+  shards; and the refusals the JAX package makes.
 """
 import hashlib
 import os
@@ -371,8 +373,8 @@ def planes(tmp_path_factory):
     rank's results, by world."""
     out = tmp_path_factory.mktemp("plane")
     two = PC.launch(2, ["bins", "train", "learners", "codec", "meta",
-                        "refuse"], out)
-    three = PC.launch(3, ["train", "codec"], out)
+                        "refuse", "goss", "local"], out)
+    three = PC.launch(3, ["train", "codec", "goss"], out)
     try:
         r2 = PC.finish(*two)
     finally:
@@ -458,6 +460,52 @@ def test_plane_voting_and_q16_train_the_mesh_text(planes, name):
     assert g.grower.is_voting == (name == "voting")
     for r, got in enumerate(planes[2]):
         assert got[f"text_{name}"] == text, r
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_plane_goss_trains_the_mesh_text(planes, world):
+    """GOSS on the plane (its k-th score from the ranks' gathered top k,
+    its rest count summed across the ranks, each rank's block of the
+    global uniform draw), sampling from the third tree: every rank's
+    text byte for byte the single-process ``world``-shard mesh's."""
+    from lightgbm_tpu_torch.boosting import create_boosting
+    X, y = PC.train_data(world)
+    cfg = Config.from_params(dict(PC.TRAIN_PARAMS, device="cpu",
+                                  mesh_shape=(world,), **PC.GOSS_PARAMS))
+    g = create_boosting(cfg, tlgb.Dataset(X, label=y).construct(cfg))
+    assert g._sample_active() is False
+    for _ in range(PC.GOSS_TREES):
+        g.train_one_iter()
+    assert g._sample_active()
+    g.flush_models()
+    text = "".join(t.to_string() for t in g.models)
+    for r, got in enumerate(planes[world]):
+        assert got["goss_class"] == "GOSS"
+        assert got["text_goss"] == text, r
+
+
+@pytest.mark.parametrize("name", list(PC.LOCAL_CASES))
+def test_plane_local_shards_train_the_mesh_text(planes, name):
+    """Two ranks with LOCAL_SHARDS CPU shards each (``mesh_shape=(4,)``
+    on a world of two): each rank holds two shards of half its rows,
+    half the 4-shard mesh's resident bins, and its 3-tree text is byte
+    for byte the single-process 4-shard mesh's, under the f32, q16 and
+    q8 exchanges and the voting learner."""
+    X, y = PC.train_data(2)
+    n = 2 * PC.LOCAL_SHARDS
+    cfg = Config.from_params(dict(PC.TRAIN_PARAMS, device="cpu",
+                                  mesh_shape=(n,), **PC.LOCAL_CASES[name]))
+    g = GBDT(cfg, tlgb.Dataset(X, label=y).construct(cfg))
+    resident = g.grower.resident_bin_bytes()
+    for _ in range(3):
+        g.train_one_iter()
+    g.flush_models()
+    text = "".join(t.to_string() for t in g.models)
+    assert len(g.grower.shard_bins) == n
+    for r, got in enumerate(planes[2]):
+        assert int(got[f"local_shards_{name}"]) == PC.LOCAL_SHARDS
+        assert int(got[f"local_resident_{name}"]) * 2 == resident, r
+        assert got[f"local_text_{name}"] == text, r
 
 
 def test_plane_text_matches_the_jax_mesh_split_for_split(planes):
@@ -604,8 +652,6 @@ def test_plane_refuses_what_the_jax_package_refuses(planes):
         assert got["err_serial"].startswith("ValueError: a row-sharded")
         assert got["err_feature"].startswith(
             "NotImplementedError: tree_learner=feature on the device plane")
-        assert got["err_goss"].startswith(
-            "NotImplementedError: boosting=goss on the device plane")
 
 
 @pytest.mark.parametrize("mode", ["auto", "xla", "tcp"])

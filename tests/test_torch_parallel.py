@@ -73,6 +73,23 @@ def test_data_learner_against_serial_and_the_jax_mesh(serial, shards):
                                    atol=1e-5 * scale, err_msg=f"tree {i}")
 
 
+def test_goss_on_the_data_mesh_against_the_jax_mesh():
+    """GOSS on a 2-shard data mesh, sampling from the third tree
+    (learning_rate 0.5): split for split the JAX package's GOSS on its
+    2-device mesh, leaves within 1e-5 of the tree's largest (the gain
+    floor of the test above)."""
+    X, y = _data()
+    p = {"mesh_shape": (2,), "mesh_axes": ("data",), "boosting": "goss",
+         "learning_rate": 0.5, "top_rate": 0.2, "other_rate": 0.2,
+         "min_gain_to_split": 1e-3}
+    bst, ll = _train(tlgb, X, y, _params("data", device="cpu", **p), 6)
+    jb, jll = _train(jlgb, X, y, _params("data", **p), 6)
+    assert type(bst.gbdt).__name__ == type(jb.gbdt).__name__ == "GOSS"
+    assert bst.gbdt.grower.sharded and bst.gbdt._sample_active()
+    assert abs(ll - jll) < 1e-5
+    _structure_and_leaves(jb.models, bst.models, 6)
+
+
 def test_one_device_trains_serial(serial):
     """tree_learner=data on a mesh of one device trains the serial
     learner (the JAX package's config.py:1106-1108)."""
@@ -114,6 +131,20 @@ def test_mesh_devices_and_policy():
         pol.set_rows(9)
     if not torch.cuda.is_available():
         assert M.mesh_devices("cuda") == []
+
+
+@pytest.mark.parametrize("shape,axes,world,want", [
+    ((), (), 2, 1), ((4,), (), 2, 2), ((8,), ("data",), 2, 4),
+    ((2, 2), ("data", "feature"), 2, 1), ((2, 4), ("feature", "data"), 2, 2),
+    ((4,), ("feature", "data"), 2, 1)])
+def test_local_shards_of_a_device_plane_rank(shape, axes, world, want):
+    """The row shards a rank of a ``world``-process plane holds (and so
+    the cards it binds from LOCAL_RANK x L on): the row axis of
+    ``mesh_shape`` over the world; 1 without a ``mesh_shape`` or with
+    axes that do not name it (the mesh refuses those when it builds)."""
+    cfg = Config.from_params({"mesh_shape": shape, "mesh_axes": axes,
+                              "device": "cpu"})
+    assert M.local_shards(cfg, world) == want
 
 
 def test_mesh_axes_and_policy_per_learner():

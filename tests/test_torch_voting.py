@@ -38,8 +38,48 @@ def _vote_data():
     return _data(1200, 40, seed=3)
 
 
+@pytest.fixture(scope="module")
+def binary_runs():
+    """The port's 10-tree binary voting run on the vote rows, once a
+    shard count for the module's tests: ``run(shards)`` gives (booster,
+    last training logloss, its voting rounds).  A round is (each shard's
+    (feature histograms, local gains) from the split finders, the parts
+    handed to ``exchange_histograms``), recorded by spies that only
+    record."""
+    from lightgbm_tpu_torch.learner import grower as TG
+    from lightgbm_tpu_torch.parallel import collectives as TC
+    runs = {}
+
+    def run(shards):
+        if shards in runs:
+            return runs[shards]
+        local, rounds = [], []
+        run_finders, exchange = TG.run_split_finders, TC.exchange_histograms
+
+        def spy_finders(feat_hist, *a):
+            res, gains = run_finders(feat_hist, *a)
+            local.append((feat_hist, gains))
+            return res, gains
+
+        def spy_exchange(parts, *a, **k):
+            rounds.append((list(local), list(parts)))
+            local.clear()
+            return exchange(parts, *a, **k)
+
+        X, y = _vote_data()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TG, "run_split_finders", spy_finders)
+            mp.setattr(TC, "exchange_histograms", spy_exchange)
+            bst, ll = _train(tlgb, X, y, _params(
+                "voting", device="cpu", top_k=5, mesh_shape=(shards,),
+                mesh_axes=("data",)))
+        runs[shards] = (bst, ll, rounds)
+        return runs[shards]
+    return run
+
+
 @pytest.mark.parametrize("shards", [2, 4])
-def test_voting_learner_against_the_jax_mesh(shards):
+def test_voting_learner_against_the_jax_mesh(shards, binary_runs):
     X, yb = _vote_data()
     y = X[:, 0] * 2 - X[:, 1] + 0.3 * np.random.RandomState(1).randn(
         X.shape[0])
@@ -56,7 +96,7 @@ def test_voting_learner_against_the_jax_mesh(shards):
     # within 1e-2 of the JAX logloss (see the module docstring)
     pb = _params("voting", top_k=5, mesh_shape=(shards,),
                  mesh_axes=("data",))
-    bst, ll = _train(tlgb, X, yb, dict(pb, device="cpu"))
+    bst, ll, _ = binary_runs(shards)
     jb, jll = _train(jlgb, X, yb, pb)
     _structure_and_leaves(jb.models[:1], bst.models[:1], 1)
     assert ll < 0.4 and abs(ll - jll) < 1e-2
@@ -64,7 +104,7 @@ def test_voting_learner_against_the_jax_mesh(shards):
 
 @pytest.mark.parametrize("shards", [2, 4])
 def test_voting_selection_follows_the_jax_rule_every_round(shards,
-                                                           monkeypatch):
+                                                           binary_runs):
     """Every voting round of ten binary trees: the features whose
     histograms the port exchanges are those the JAX package's voting
     lines (grower.py:1706-1716: ``lax.top_k``'s k-th local gain, the
@@ -73,27 +113,8 @@ def test_voting_selection_follows_the_jax_rule_every_round(shards,
     histograms of them, in that order."""
     import jax
     import jax.numpy as jnp
-    from lightgbm_tpu_torch.learner import grower as TG
-    from lightgbm_tpu_torch.parallel import collectives as TC
-    local, rounds = [], []
-    run_finders, exchange = TG.run_split_finders, TC.exchange_histograms
-
-    def spy_finders(feat_hist, *a):
-        res, gains = run_finders(feat_hist, *a)
-        local.append((feat_hist, gains))
-        return res, gains
-
-    def spy_exchange(parts, *a, **k):
-        rounds.append((list(local), list(parts)))
-        local.clear()
-        return exchange(parts, *a, **k)
-
-    monkeypatch.setattr(TG, "run_split_finders", spy_finders)
-    monkeypatch.setattr(TC, "exchange_histograms", spy_exchange)
-    X, y = _vote_data()
     top_k = 5
-    _train(tlgb, X, y, _params("voting", device="cpu", top_k=top_k,
-                               mesh_shape=(shards,), mesh_axes=("data",)))
+    _, _, rounds = binary_runs(shards)
     assert len(rounds) >= 30
     for i, (shard_local, parts) in enumerate(rounds):
         assert len(shard_local) == len(parts) == shards, i

@@ -33,6 +33,17 @@ BIN_SAMPLE = 1000
 #: TRAIN_PARAMS)
 LEARNERS = {"voting": {"tree_learner": "voting", "top_k": 5},
             "q16": {"hist_exchange": "q16"}}
+#: GOSS on the plane (over TRAIN_PARAMS): sampling starts at the third
+#: of GOSS_TREES trees (1 / learning_rate)
+GOSS_PARAMS = {"boosting": "goss", "learning_rate": 0.5, "top_rate": 0.2,
+               "other_rate": 0.2}
+GOSS_TREES = 4
+#: two ranks with LOCAL_SHARDS CPU shards each: the row axis of the
+#: 4-shard mesh; each case 3 trees over TRAIN_PARAMS
+LOCAL_SHARDS = 2
+LOCAL_CASES = {"f32": {}, "q16": {"hist_exchange": "q16"},
+               "q8": {"hist_exchange": "q8"},
+               "voting": {"tree_learner": "voting", "top_k": 5}}
 #: the codec's histograms: (leaves, groups, bins, 3) at each bin count
 CODEC_SHAPE = (7, 5)
 CODEC_BINS = (15, 64)
@@ -105,6 +116,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch_plane_cases as C
+from lightgbm_tpu_torch.boosting import create_boosting
 from lightgbm_tpu_torch.boosting.gbdt import GBDT
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.parallel import collectives as PC
@@ -170,6 +182,34 @@ if "learners" in spec["tasks"]:
         g.flush_models()
         res[f"text_{name}"] = "".join(t.to_string() for t in g.models)
 
+if "goss" in spec["tasks"]:
+    X, y = C.train_data(world)
+    sl = C.rank_slice(len(X), world, rank)
+    c = cfg(**dict(C.TRAIN_PARAMS, **C.GOSS_PARAMS))
+    g = create_boosting(c, D.finalize_global(D.construct_sharded(
+        X[sl], label=y[sl], config=c)))
+    res["goss_class"] = type(g).__name__
+    for _ in range(C.GOSS_TREES):
+        g.train_one_iter()
+    g.flush_models()
+    res["text_goss"] = "".join(t.to_string() for t in g.models)
+
+if "local" in spec["tasks"]:
+    # LOCAL_SHARDS row shards a rank: the world x LOCAL_SHARDS mesh
+    X, y = C.train_data(world)
+    sl = C.rank_slice(len(X), world, rank)
+    for name, over in C.LOCAL_CASES.items():
+        c = cfg(**dict(C.TRAIN_PARAMS, mesh_shape=(world * C.LOCAL_SHARDS,),
+                       **over))
+        g = GBDT(c, D.finalize_global(D.construct_sharded(
+            X[sl], label=y[sl], config=c)))
+        res[f"local_shards_{name}"] = len(g.grower.shard_bins)
+        res[f"local_resident_{name}"] = g.grower.resident_bin_bytes()
+        for _ in range(3):
+            g.train_one_iter()
+        g.flush_models()
+        res[f"local_text_{name}"] = "".join(t.to_string() for t in g.models)
+
 if "codec" in spec["tasks"]:
     TELEMETRY.configure("counters")
     coll = PC.ProcessGroupCollectives(D.plane())
@@ -189,7 +229,7 @@ if "codec" in spec["tasks"]:
         for mode in C.CODEC_MODES:
             TELEMETRY.reset()
             res[f"codec_{mode}_{bins}"] = PC.exchange_histograms_ranks(
-                h, mode, coll).numpy()
+                [h], mode, coll).numpy()
             res[f"wire_{mode}_{bins}"] = TELEMETRY.counters()[
                 "collective_hist_exchange_bytes"]
     dist.all_reduce, dist.all_gather = real
@@ -234,8 +274,6 @@ if "refuse" in spec["tasks"]:
     res["err_feature"] = error(lambda: GBDT(cfg(**dict(
         C.TRAIN_PARAMS, tree_learner="feature")), ds))
     res["err_valid"] = error(lambda: GBDT(c, ds).add_valid(ds, "v"))
-    from lightgbm_tpu_torch.boosting.goss import GOSS
-    res["err_goss"] = error(lambda: GOSS(c, ds))
     n_l = sl.stop - sl.start
     res["err_query"] = error(lambda: D.finalize_global(D.construct_sharded(
         X[sl], label=y[sl], group=[n_l // 2, n_l - n_l // 2], config=c)))
